@@ -2,17 +2,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, EyeRenderer.render_frame with the far-field
-cache off, at the reference speed-test size: make_big_scene(n_boxes=2000,
-seed=0) (24,012 triangles), a 1000-ommatidium sphere eye at 2.6 degrees,
-the bench pose (last camera at the scene AABB centre + 1 in y; bench.py),
-100 and 3200 samples per ommatidium.  Phases, each failing loudly:
+Drives the port's main path, EyeRenderer.render_frame, at the reference
+speed-test size: make_big_scene(n_boxes=2000, seed=0) (24,012 triangles,
+256 clusters), a 1000-ommatidium sphere eye at 2.6 degrees, the bench pose
+(last camera at the scene AABB centre + 1 in y; bench.py), with the
+far-field cache off (100 and 3200 samples per ommatidium), on (3200
+samples: a 1024 x 512 cache rendered by K2) and on with the sky split
+(3200 samples).  Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
-  2. build K1 (csrc/packed_tracer.cu) with nvcc for sm_90a;
-  3. K1 against its torch twin at the frame's real shapes;
-  4. the frames through EyeRenderer(device="cuda"), counting K1 launches;
-  5. one frame against the same frame rendered through the twin, and a
-     small scene on the card against the same angles on the CPU.
+  2. build K1 (csrc/packed_tracer.cu) and K2 (csrc/cluster_tracer.cu) with
+     nvcc for sm_90a, one process per source, started together;
+  3. K1 against its torch twin at the frames' real shapes (the dense pack
+     and the near-clusters pack of the cache frame);
+  4. K2 against its torch twin at the bench cache's real shapes;
+  5. the three paths through EyeRenderer(device="cuda"), with the launch
+     counts set to 0 before each and read after it;
+  6. each path's frame against a reference: the twin-rendered frames, the
+     direct frame for the cache, the dense cache frame for the sky split,
+     and small scenes on the card against the CPU.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -31,11 +38,16 @@ N_OMM = 1000
 ACCEPT_DEG = 2.6
 SAMPLES = (100, 3200)
 WARMUP, TIMED = 3, 5
-SLOT_AGREE = 0.999  # K1 vs twin: slot ids equal on this share of live rays
-T_RTOL = 1e-5  # K1 vs twin: t where the slots agree
-MEANS_ATOL = 2e-4  # frame means, K1 vs twin and card vs CPU
+SLOT_AGREE = 0.999  # kernel vs twin: winners equal on this share of live rays
+T_RTOL = 1e-5  # kernel vs twin: t where the winners agree
+MEANS_ATOL = 2e-4  # frame means, kernels vs twins and card vs CPU
+# cache vs direct frame and sky vs dense frame, mean abs over the means
+# (the bound of tests/test_pallas_tracer.py:219-220)
+CACHE_MEAN_ABS = 0.02
 K1_REPLACES = "compound_ray_tpu/trace/mm_tracer.py:1078"
 K1_SOURCE = "compound_ray_tpu_torch/csrc/packed_tracer.cu"
+K2_REPLACES = "compound_ray_tpu/trace/pallas_tracer.py:420"
+K2_SOURCE = "compound_ray_tpu_torch/csrc/cluster_tracer.cu"
 
 
 def _card_line() -> str:
@@ -44,6 +56,12 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def _set_config(**kw):
+    from compound_ray_tpu_torch import config
+
+    config.set_config(config.RenderConfig(**kw))
 
 
 def _bench_renderer(device):
@@ -62,6 +80,12 @@ def _bench_renderer(device):
     return r, cam
 
 
+def _pose(cam):
+    pos = np.asarray(cam.position, np.float32)
+    ls = np.asarray(cam.local_space, np.float32)
+    return pos, ls, (pos.tobytes(), ls.tobytes())
+
+
 def _time_ms(fn, iters: int, warmup: int) -> float:
     for _ in range(warmup):
         fn()
@@ -76,9 +100,31 @@ def _time_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_vs_twin(r, cam, samples: int, timed: bool):
+def build_kernels():
+    """Phase 2: both sources through nvcc at once; prints what ptxas says."""
+    from compound_ray_tpu_torch.trace import _build
+
+    t0 = time.perf_counter()
+    paths = _build.build_many(["packed_tracer", "cluster_tracer"])
+    _build.packed_tracer_lib()
+    _build.cluster_tracer_lib()
+    wall = time.perf_counter() - t0
+    for name, src in (("packed_tracer", K1_SOURCE),
+                      ("cluster_tracer", K2_SOURCE)):
+        secs, log = _build.build_info[name]
+        print(f"phase 2: {name} built from {src} with nvcc for sm_90a in "
+              f"{secs:.2f} s ({wall:.2f} s for both with load): "
+              f"{paths[name]}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
     """Phase 3: K1 and packed_tracer_reference on the same (row_counts,
-    packed_mm, rays) of the bench frame; returns a result dict."""
+    packed_mm, rays) of the bench frame, with the pack the frame uses
+    under `farfield`; returns a result dict."""
+    from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.eye.sampling import sample_angles_ns
     from compound_ray_tpu_torch.testing import hit_agreement
@@ -86,21 +132,25 @@ def kernel_vs_twin(r, cam, samples: int, timed: bool):
         packed_tracer_reference,
         run_packed_tracer,
     )
+    from compound_ray_tpu_torch.trace.shade import miss_id
 
+    _set_config(farfield=farfield)
     dev = r.device
     omms = cam.ommatidia
     splan = P.scene_plan(r.scene, dev)
     eplan = P.eye_plan(omms, samples)
     omms_p, _ = eplan.device_arrays(omms, dev)
-    pos_np = np.asarray(cam.position, np.float32)
-    ls_np = np.asarray(cam.local_space, np.float32)
-    sig = (pos_np.tobytes(), ls_np.tobytes())
+    pos_np, ls_np, sig = _pose(cam)
     pos, ls = torch.as_tensor(pos_np, device=dev), torch.as_tensor(ls_np,
                                                                    device=dev)
-    kcand, rmax = P._plan_widths(splan, eplan, omms_p, pos, ls,
-                                 (eplan.sig, samples, sig))
+    near, _, d = P._farfield_plan(
+        splan, eplan, r.scene.device_triangles(dev), omms, pos_np, ls_np,
+        samples, miss_id(r.scene.background_shader), get_config())
+    kcand, rmax = P._plan_widths(
+        splan, eplan, omms_p, pos, ls,
+        (eplan.sig, samples, sig, near is not None, d), near)
     rc, pmm = P._packed_plan(splan, eplan, omms_p, pos, ls, sig, samples,
-                             kcand, rmax)
+                             kcand, rmax, near_mask=near, d_thresh=d)
     gen = torch.Generator(device=dev).manual_seed(12345)
     splay, spin = sample_angles_ns(gen, omms_p[:, 6] / P.FWHM_SD_RATIO,
                                    samples)
@@ -111,9 +161,12 @@ def kernel_vs_twin(r, cam, samples: int, timed: bool):
     got = run_packed_tracer(rc, pmm, rays, **kw)
     ref = packed_tracer_reference(rc, pmm, rays, **kw)
     agree, max_abs, max_rel = hit_agreement(ref, got, rc, eplan.rg_pad)
-    res = dict(samples=samples, shape=dict(ng=eplan.ng, rmax=rmax,
-                                           kcand=kcand, rays=rays.shape[1]),
+    res = dict(samples=samples, farfield=farfield,
+               cache=near is not None,
+               shape=dict(ng=eplan.ng, rmax=rmax, kcand=kcand,
+                          rays=rays.shape[1]),
                live_groups=int((rc > 0).sum().item()),
+               payload_rows=int(rc.sum().item()),
                slot_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
     if timed:
         res["ms"] = _time_ms(lambda: run_packed_tracer(rc, pmm, rays, **kw),
@@ -126,143 +179,358 @@ def kernel_vs_twin(r, cam, samples: int, timed: bool):
     return res
 
 
-def frames(r, samples: int):
-    """Phase 4: WARMUP + TIMED frames at `samples`, each of which must
-    launch K1 exactly once; returns (timed frame ms from CUDA events,
-    render_frame wall ms, peak MB since the first warm-up frame)."""
-    from compound_ray_tpu_torch.trace import mm_tracer
+def k2_vs_twin(r, cam):
+    """Phase 4: K2 and cluster_tracer_reference on the bench cache's own
+    inputs (2048 tiles of 256 rays, KP 256) with the early exit on, as
+    _render_cache traces them; also the whole cache build timed."""
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.config import get_config
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.cluster_tracer import (
+        cluster_tracer_reference,
+        run_tracer_kernel,
+    )
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    _set_config()
+    width = get_config().farfield_cache_width
+    pos_np, _, _ = _pose(cam)
+    c = testing.cache_trace_inputs(r.scene, cam.ommatidia, pos_np, r.device,
+                                   width)
+    args = (c.counts, c.ids, c.dmin, c.payload, c.rays)
+    got = run_tracer_kernel(*args, early_exit=True, **c.kw)
+    ref = cluster_tracer_reference(*args, early_exit=True, **c.kw)
+    agree, max_abs, max_rel = testing.cluster_hit_agreement(
+        ref, got, c.counts, c.kw["rb_size"])
+    live = torch.repeat_interleave(c.counts > 0, c.kw["rb_size"])
+    res = dict(shape=dict(tiles=c.kw["ng"], kp=int(c.ids.shape[1]),
+                          kmax=c.kw["kmax"], rays=int(c.rays.shape[0])),
+               far_clusters=int(c.far.sum()),
+               live_tiles=int((c.counts > 0).sum().item()),
+               mean_shortlist=float(c.counts.float().mean().item()),
+               hit_share=float(torch.isfinite(ref[live, 0]).float().mean()
+                               .item()),
+               winner_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
+    res["ms"] = _time_ms(lambda: run_tracer_kernel(*args, early_exit=True,
+                                                   **c.kw),
+                         iters=20, warmup=3)
+    res["ms_no_early_exit"] = _time_ms(
+        lambda: run_tracer_kernel(*args, early_exit=False, **c.kw),
+        iters=5, warmup=1)
+    res["plain_ms"] = _time_ms(
+        lambda: cluster_tracer_reference(*args, early_exit=True, **c.kw),
+        iters=2, warmup=1)
+    splan = P.scene_plan(r.scene, r.device)
+    center = torch.tensor(np.asarray(
+        pos_np + cam.ommatidia[:, 0:3].mean(axis=0), np.float32),
+        device=r.device)
+    res["cache_build_ms"] = _time_ms(lambda: P.build_equirect_quads(
+        P._render_cache(
+            splan.payload, splan.attr_table,
+            r.scene.device_triangles(r.device), splan.quad_table,
+            splan.half_center, splan.half_radius, center,
+            torch.as_tensor(c.far, device=r.device), width=width,
+            background=miss_id(r.scene.background_shader),
+            kmax=c.kw["kmax"], textured=splan.textured,
+            tex_only=splan.tex_only)), iters=5, warmup=1)
+    if not (agree >= SLOT_AGREE and max_rel <= T_RTOL):
+        raise AssertionError(f"K2 disagrees with its twin: {res}")
+    return res
+
+
+def _check_means(means, what):
+    if means.shape != (N_OMM, 3) or not np.isfinite(means).all():
+        raise AssertionError(f"bad means: {what}")
+    if means.min() < 0.0 or means.max() > 1.0 + 1e-5:
+        raise AssertionError(
+            f"means out of [0, 1] ({what}): {means.min()} .. {means.max()}")
+
+
+def frames(r, samples: int, first_builds_cache: bool = False):
+    """WARMUP + TIMED frames at `samples` (one more first frame when it
+    builds the cache), each of which must launch K1 exactly once and K2
+    once in a cache-building first frame and never otherwise.  Returns a
+    dict of CUDA-event and wall frame times, the first frame's, and the
+    peak MB since the first frame."""
+    from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
 
     r.set_current_eye_samples_per_ommatidium(samples)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ev_ms, wall_ms = [], []
-    for i in range(WARMUP + TIMED):
-        before = mm_tracer.launches
+    out = dict(frame_ms=[], wall_ms=[])
+    n_first = 1 if first_builds_cache else 0
+    for i in range(n_first + WARMUP + TIMED):
+        k1, k2 = mm_tracer.launches, cluster_tracer.launches
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         wall = r.render_frame()
         end.record()
         torch.cuda.synchronize()
-        if mm_tracer.launches != before + 1:
+        dk1 = mm_tracer.launches - k1
+        dk2 = cluster_tracer.launches - k2
+        want_k2 = 1 if i < n_first else 0
+        if dk1 != 1 or dk2 != want_k2:
             raise AssertionError(
-                f"frame {i} at {samples} samples launched K1 "
-                f"{mm_tracer.launches - before} times, not once")
-        means = r.get_camera_data()
-        if means.shape != (N_OMM, 3) or not np.isfinite(means).all():
-            raise AssertionError(f"bad means at {samples} samples")
-        if means.min() < 0.0 or means.max() > 1.0 + 1e-5:
-            raise AssertionError(
-                f"means out of [0, 1]: {means.min()} .. {means.max()}")
-        if i >= WARMUP:
-            ev_ms.append(start.elapsed_time(end))
-            wall_ms.append(wall)
-    return ev_ms, wall_ms, torch.cuda.max_memory_allocated() / 2**20
+                f"frame {i} at {samples} samples launched K1 {dk1} and K2 "
+                f"{dk2} times, not 1 and {want_k2}")
+        _check_means(r.get_camera_data(), f"frame {i} at {samples} samples")
+        if i < n_first:
+            out["first_frame_ms"] = start.elapsed_time(end)
+            out["first_wall_ms"] = wall
+        elif i >= n_first + WARMUP:
+            out["frame_ms"].append(start.elapsed_time(end))
+            out["wall_ms"].append(wall)
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
 
 
-def frame_vs_twin(r, cam):
-    """Phase 5a: the renderer's last frame against the same frame (same
-    generator seed) rendered through the twin on the card."""
+def _report(tag, res):
+    first = ""
+    if "first_frame_ms" in res:
+        first = (f"first frame (builds the cache) {res['first_frame_ms']:.3f}"
+                 f" ms; ")
+    print(f"phase 5: {tag}: {first}frame ms (CUDA events) {res['frame_ms']},"
+          f" mean {np.mean(res['frame_ms']):.3f}; render_frame wall ms "
+          f"{[round(w, 3) for w in res['wall_ms']]}; peak memory "
+          f"{res['peak_mb']:.1f} MB")
+
+
+def _path(r, name, run):
+    """Run one main path with the launch counts set to 0 just before it;
+    returns (its result, K1 launches, K2 launches)."""
+    from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
+
+    mm_tracer.launches = 0
+    cluster_tracer.launches = 0
+    res = run()
+    k1, k2 = mm_tracer.launches, cluster_tracer.launches
+    print(f"phase 5: {name}: K1 launches {k1}, K2 launches {k2}")
+    return res, k1, k2
+
+
+def _render(r, cam, seed_frame: int, **kw):
+    """render_means of the bench eye with the generator of `seed_frame`."""
     from compound_ray_tpu_torch.api.renderer import frame_seed
     from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye.pipeline import render_means
-    from compound_ray_tpu_torch.trace.mm_tracer import packed_tracer_reference
     from compound_ray_tpu_torch.trace.shade import miss_id
 
     gen = torch.Generator(device=r.device)
-    gen.manual_seed(frame_seed(get_config().base_seed, cam.rng_frame - 1))
-    twin = render_means(
-        r.scene, r.scene.device_triangles(r.device), cam.ommatidia,
-        np.asarray(cam.position, np.float32),
-        np.asarray(cam.local_space, np.float32), gen,
-        cam.samples_per_ommatidium, miss_id(r.scene.background_shader),
-        tracer=packed_tracer_reference)
-    err = float(np.abs(twin.cpu().numpy() - r.get_camera_data()).max())
+    gen.manual_seed(frame_seed(get_config().base_seed, seed_frame))
+    pos, ls, _ = _pose(cam)
+    return render_means(
+        r.scene, r.scene.device_triangles(r.device), cam.ommatidia, pos, ls,
+        gen, cam.samples_per_ommatidium,
+        miss_id(r.scene.background_shader), **kw).cpu().numpy()
+
+
+def frame_vs_twins(r, cam, cache: bool):
+    """Phase 6: the renderer's last frame against the same frame (same
+    generator seed) rendered through the twins on the card.  With the cache
+    on, the cache is rendered anew through K2's twin and dropped after."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.cluster_tracer import (
+        cluster_tracer_reference,
+    )
+    from compound_ray_tpu_torch.trace.mm_tracer import packed_tracer_reference
+
+    splan = P.scene_plan(r.scene, r.device)
+    splan.cache_store.clear()
+    twin = _render(r, cam, cam.rng_frame - 1, tracer=packed_tracer_reference,
+                   cache_tracer=cluster_tracer_reference)
+    if cache and not splan.cache_store:
+        raise AssertionError("the twin frame did not use the cache")
+    splan.cache_store.clear()
+    err = float(np.abs(twin - r.get_camera_data()).max())
     if not err <= MEANS_ATOL:
         raise AssertionError(f"frame vs twin frame: max abs {err}")
     return err
 
 
-def small_card_vs_cpu(device):
-    """Phase 5b: a small scene traced on the card (K1) and on the CPU (the
-    twin) from the same numpy angles: the means must agree."""
+def small_card_vs_cpu(device, cache_width: int = 0, sky: bool = False):
+    """Phase 6: a small scene traced on the card (K1, and K2 for the cache)
+    and on the CPU (the twins) from the same numpy angles: the means must
+    agree.  cache_width > 0: the 200-box scene with its far-field cache,
+    where the sky split engages (15 of 64 groups have no near geometry)."""
     from compound_ray_tpu_torch import testing
     from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
 
-    omms = ommatidia_to_array(testing.make_sphere_eye(48, 6.0))
     out = []
     for dev in (torch.device(device), torch.device("cpu")):
-        scene = testing.make_mixed_flat_scene()
-        out.append(testing.frame_means(scene, testing.frame_pack(
-            scene, omms, 96, (0.0, 5.0, 0.0), dev, seed=5)))
+        if cache_width:
+            omms = ommatidia_to_array(testing.make_sphere_eye(64, 4.0))
+            scene = testing.make_big_scene(200, seed=11)
+            f = testing.frame_pack(scene, omms, 128, (0.0, 2.0, 0.0), dev,
+                                   seed=5, cache_width=cache_width, sky=sky)
+        else:
+            omms = ommatidia_to_array(testing.make_sphere_eye(48, 6.0))
+            scene = testing.make_mixed_flat_scene()
+            f = testing.frame_pack(scene, omms, 96, (0.0, 5.0, 0.0), dev,
+                                   seed=5)
+        out.append(testing.frame_means(scene, f))
     err = float(np.abs(out[0] - out[1]).max())
     if not err <= MEANS_ATOL:
         raise AssertionError(f"small scene, card vs CPU: max abs {err}")
     return err
 
 
+def sky_checks(r, cam, dense_cache_frame, live_groups: int):
+    """Phase 6: the sky-split frame against the dense cache frame of the
+    same seed, and the sky groups' values across two seeds.  When the split
+    declines the pose (more than 90 % of the groups have near geometry:
+    live_groups, from the cache frame's pack), says so and requires the
+    frame to equal the dense one."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    splan = P.scene_plan(r.scene, r.device)
+    seed = cam.rng_frame - 1
+    split = _render(r, cam, seed)
+    plans = list(splan.sky_store.values())
+    if not plans:
+        raise AssertionError("no sky plan was memoised at the bench pose")
+    eplan = P.eye_plan(cam.ommatidia, cam.samples_per_ommatidium)
+    if plans[-1] is None:
+        print(f"phase 6: sky split declined at the bench pose: "
+              f"{live_groups} of {eplan.ng} groups live, "
+              f"{eplan.ng - live_groups} zero-row (the split needs at most "
+              f"90 % live); the frame must equal the dense cache frame")
+        if live_groups <= 0.9 * eplan.ng:
+            raise AssertionError("the split declined a pose it should take")
+        if not np.array_equal(split, dense_cache_frame):
+            raise AssertionError("declined sky split differs from dense")
+        return dict(declined=True, live_groups=live_groups,
+                    zero_row_groups=eplan.ng - live_groups)
+    scatter = plans[-1][3].cpu().numpy()
+    live = np.unique(scatter[scatter < eplan.ng])
+    sky_orig = eplan.perm[np.setdiff1d(np.arange(eplan.ng), live)]
+    other = _render(r, cam, seed + 1000)
+    diff = float(np.abs(split - dense_cache_frame).mean())
+    res = dict(declined=False, live_groups=int(live.size),
+               zero_row_groups=int(eplan.ng - live.size),
+               compacted_groups=int(plans[-1][5]),
+               mean_abs_vs_dense=diff)
+    if not diff < CACHE_MEAN_ABS:
+        raise AssertionError(f"sky split vs dense: mean abs {diff}")
+    if sky_orig.size == 0 or not np.array_equal(split[sky_orig],
+                                                other[sky_orig]):
+        raise AssertionError("sky values differ across seeds")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
-    from compound_ray_tpu_torch.trace import _build, mm_tracer
+    from compound_ray_tpu_torch.eye import pipeline as P
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the twin is plain f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins are plain f32
     card = _card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-
-    t0 = time.perf_counter()
-    lib_path = _build.build("packed_tracer")
-    _build.packed_tracer_lib()
-    secs, log = _build.build_info["packed_tracer"]
-    print(f"phase 2: K1 built from {K1_SOURCE} with nvcc for sm_90a in "
-          f"{secs:.2f} s ({time.perf_counter() - t0:.2f} s with load): "
-          f"{lib_path}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_kernels()
 
     t0 = time.perf_counter()
     r, cam = _bench_renderer("cuda")
-    k1 = kernel_vs_twin(r, cam, SAMPLES[-1], timed=True)
-    print(f"phase 3: K1 vs twin at {N_OMM} x {SAMPLES[-1]}: "
-          f"{json.dumps(k1)} (thresholds: slots >= {SLOT_AGREE}, "
-          f"t rtol {T_RTOL}; {time.perf_counter() - t0:.1f} s incl. plan)")
+    k1_dense = kernel_vs_twin(r, cam, SAMPLES[-1], "off", timed=True)
+    k1 = kernel_vs_twin(r, cam, SAMPLES[-1], "auto", timed=True)
+    for res in (k1_dense, k1):
+        print(f"phase 3: K1 vs twin at {N_OMM} x {SAMPLES[-1]}: "
+              f"{json.dumps(res)} (thresholds: slots >= {SLOT_AGREE}, "
+              f"t rtol {T_RTOL})")
+    if not k1["cache"]:
+        raise AssertionError("the far-field cache did not engage")
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s incl. plans")
+    t0 = time.perf_counter()
+    k2 = k2_vs_twin(r, cam)
+    print(f"phase 4: K2 vs twin at the bench cache: {json.dumps(k2)} "
+          f"(thresholds: winners >= {SLOT_AGREE}, t rtol {T_RTOL}; "
+          f"{time.perf_counter() - t0:.1f} s)")
 
-    mm_tracer.launches = 0  # the main path's count starts here
-    results = {}
+    splan = P.scene_plan(r.scene, r.device)
+    launches = dict(k1=0, k2=0)
+
+    def count(res_k1_k2):
+        res, a, b = res_k1_k2
+        launches["k1"] += a
+        launches["k2"] += b
+        return res, a, b
+
+    # path a: the far field off, 100 and 3200 samples
+    _set_config(farfield="off")
+    res_off, a, b = count(_path(r, "farfield=off", lambda: {
+        s: frames(r, s) for s in SAMPLES}))
+    if a != len(SAMPLES) * (WARMUP + TIMED) or b != 0:
+        raise AssertionError(f"farfield=off path launched K1 {a}, K2 {b}")
     for s in SAMPLES:
-        ev_ms, wall_ms, peak_mb = frames(r, s)
-        results[s] = dict(frame_ms=ev_ms, wall_ms=wall_ms, peak_mb=peak_mb)
-        print(f"phase 4: {s} samples: frame ms (CUDA events) "
-              f"{ev_ms}, mean {np.mean(ev_ms):.3f}; render_frame wall ms "
-              f"{[round(w, 3) for w in wall_ms]}; peak memory "
-              f"{peak_mb:.1f} MB")
-    main_launches = mm_tracer.launches
-    expected = len(SAMPLES) * (WARMUP + TIMED)
-    if main_launches != expected:
-        raise AssertionError(
-            f"K1 launched {main_launches} times in {expected} frames")
-    print(f"phase 4: K1 launches on the main path: {main_launches} "
-          f"({expected} frames)")
+        _report(f"farfield=off, {s} samples", res_off[s])
+    err_off = frame_vs_twins(r, cam, cache=False)
+    print(f"phase 6: farfield=off {SAMPLES[-1]}-sample frame vs the "
+          f"twin-rendered frame: max abs {err_off:.3e} (<= {MEANS_ATOL})")
 
-    err_twin = frame_vs_twin(r, cam)
-    print(f"phase 5: {SAMPLES[-1]}-sample frame vs the twin-rendered frame: "
-          f"max abs {err_twin:.3e} (<= {MEANS_ATOL})")
+    # path b: the far-field cache, built by the first frame at the pose
+    _set_config()
+    splan.cache_store.clear()
+    res_ff, a, b = count(_path(r, "farfield=auto", lambda: frames(
+        r, SAMPLES[-1], first_builds_cache=True)))
+    if a != 1 + WARMUP + TIMED or b != 1:
+        raise AssertionError(f"farfield=auto path launched K1 {a}, K2 {b}")
+    _report(f"farfield=auto, {SAMPLES[-1]} samples", res_ff)
+    use_cache = len(splan.cache_store) == 1
+    print(f"phase 5: farfield=auto: use_cache {use_cache}, far clusters "
+          f"{k2['far_clusters']} of {splan.num_clusters}")
+    if not use_cache:
+        raise AssertionError("the frames did not memoise one cache")
+    cached = r.get_camera_data().copy()
+    _set_config(farfield="off")
+    direct = _render(r, cam, cam.rng_frame - 1)
+    _set_config()
+    diff_direct = float(np.abs(cached - direct).mean())
+    print(f"phase 6: cache frame vs the direct frame (same seed): mean abs "
+          f"{diff_direct:.3e} (< {CACHE_MEAN_ABS}); far clusters "
+          f"{k2['far_clusters']} of {splan.num_clusters}")
+    if not diff_direct < CACHE_MEAN_ABS:
+        raise AssertionError(f"cache vs direct: mean abs {diff_direct}")
+    err_ff = frame_vs_twins(r, cam, cache=True)
+    print(f"phase 6: cache frame vs the frame through both twins: max abs "
+          f"{err_ff:.3e} (<= {MEANS_ATOL})")
+
+    # path c: the sky split over the cache
+    _set_config(sky_split=True)
+    splan.cache_store.clear()
+    splan.sky_store.clear()
+    res_sky, a, b = count(_path(r, "sky split", lambda: frames(
+        r, SAMPLES[-1], first_builds_cache=True)))
+    if a != 1 + WARMUP + TIMED or b != 1:
+        raise AssertionError(f"sky-split path launched K1 {a}, K2 {b}")
+    _report(f"sky split, {SAMPLES[-1]} samples", res_sky)
+    _set_config()
+    dense_cache_frame = _render(r, cam, cam.rng_frame - 1)
+    _set_config(sky_split=True)
+    sky = sky_checks(r, cam, dense_cache_frame, k1["live_groups"])
+    print(f"phase 6: sky split: {json.dumps(sky)} (mean abs vs the dense "
+          f"cache frame < {CACHE_MEAN_ABS}; sky groups equal across seeds)")
+    _set_config()
+
     err_small = small_card_vs_cpu("cuda")
-    print(f"phase 5: small scene, card (K1) vs CPU (twin): max abs "
+    print(f"phase 6: small scene, card (K1) vs CPU (twin): max abs "
           f"{err_small:.3e} (<= {MEANS_ATOL})")
+    for sky_on in (False, True):
+        err = small_card_vs_cpu("cuda", cache_width=64, sky=sky_on)
+        print(f"phase 6: small scene with its cache"
+              f"{' and the sky split' if sky_on else ''}, card (K1, K2) vs "
+              f"CPU (twins): max abs {err:.3e} (<= {MEANS_ATOL})")
 
-    print(json.dumps({"kernels": [{
-        "name": "K1 packed closest-hit tracer",
-        "route": "cuda",
-        "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": main_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "K1 packed closest-hit tracer", "route": "cuda",
+         "source": K1_SOURCE, "replaces": K1_REPLACES,
+         "launches": launches["k1"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "K2 cluster-shortlist closest-hit tracer", "route": "cuda",
+         "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+    ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

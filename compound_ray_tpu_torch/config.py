@@ -12,6 +12,13 @@ import dataclasses
 import os
 from typing import Optional
 
+
+def _env_bool(s: str) -> bool:
+    """compound_ray_tpu/config.py:26: the empty string and 0/false/off/no
+    are false (case-insensitive), anything else is true."""
+    return s.strip().lower() not in ("", "0", "false", "off", "no")
+
+
 @dataclasses.dataclass
 class RenderConfig:
     # Gaussian truncation for cone culling, in standard deviations
@@ -19,28 +26,44 @@ class RenderConfig:
     cull_sigmas: float = 4.0
     # base RNG seed (the reference's curand_init(42, ...), shaders.cu:689)
     base_seed: int = 42
-    # far-field radiance cache.  The port traces every ray through the
-    # packed tracer; the cache ("auto" in the JAX package) is the next slice
-    # of the port (ROADMAP.md, queue 1, item 1).
-    farfield: str = "off"
-    # bounded pose-keyed store of packed payloads (ScenePlan.packed_store)
+    # far-field radiance cache (compound_ray_tpu/config.py:64-66): "auto"
+    # renders the clusters beyond the parallax-safe distance once per pose
+    # into an equirect cache from the eye centre (kernel K2) and lets the
+    # per-sample rays trace only the near clusters; "off" traces every ray
+    # against the whole scene.
+    farfield: str = "auto"
+    farfield_tolerance: float = 0.25
+    farfield_cache_width: int = 1024  # equirect width; height = width // 2
+    # bounded pose-keyed stores of packed payloads and sky plans
+    # (ScenePlan.packed_store, ScenePlan.sky_store)
     packed_store_size: int = 4
     # level-2 refine test.  The port runs the exact cone-vs-triangle test
     # only; the JAX package's sphere-bounds-only "sphere" mode is not ported.
     refine_mode: str = "exact"
+    # sky split (compound_ray_tpu/config.py:108-125): at a memoised cache
+    # pose, compact the groups with near geometry and serve every zero-row
+    # group its acceptance-cone expectation of the cache.  Statistically
+    # interchangeable with the dense frame, not bit-identical to it.
+    sky_split: bool = False
+    # quadrature nodes of that expectation (splay quantiles x spin grid)
+    sky_quad_splay: int = 16
+    sky_quad_spin: int = 8
 
     def __post_init__(self):
-        if self.farfield != "off":
-            raise NotImplementedError(
-                f"farfield={self.farfield!r}: the port renders farfield='off' "
-                "only; the far-field radiance cache is the far-field slice "
-                "of ROADMAP.md (queue 1, item 1)")
+        if self.farfield not in ("auto", "off"):
+            raise ValueError(
+                f"farfield={self.farfield!r}: expected 'auto' or 'off'")
         if self.refine_mode != "exact":
             raise NotImplementedError(
                 f"refine_mode={self.refine_mode!r}: the port runs the exact "
                 "cone-vs-triangle refine only")
         if self.packed_store_size < 1:
             raise ValueError("packed_store_size must be >= 1")
+        w = self.farfield_cache_width
+        if w < 32 or w % 32:
+            # 16x16 pixel blocks over a w x w/2 image (_render_cache)
+            raise ValueError(
+                f"farfield_cache_width={w} must be a positive multiple of 32")
 
     @classmethod
     def from_env(cls) -> "RenderConfig":
@@ -48,8 +71,13 @@ class RenderConfig:
             "CR_TPU_CULL_SIGMAS": ("cull_sigmas", float),
             "CR_TPU_SEED": ("base_seed", int),
             "CR_TPU_FARFIELD": ("farfield", str),
+            "CR_TPU_FARFIELD_TOL": ("farfield_tolerance", float),
+            "CR_TPU_FARFIELD_WIDTH": ("farfield_cache_width", int),
             "CR_TPU_PACKED_STORE": ("packed_store_size", int),
             "CR_TPU_REFINE": ("refine_mode", str),
+            "CR_TPU_SKY_SPLIT": ("sky_split", _env_bool),
+            "CR_TPU_SKY_QUAD_SPLAY": ("sky_quad_splay", int),
+            "CR_TPU_SKY_QUAD_SPIN": ("sky_quad_spin", int),
         }
         kwargs = {}
         for env, (name, typ) in mapping.items():

@@ -1,25 +1,30 @@
 """The unlit compound-eye frame: planning, packing, tracing, shading
-(compound_ray_tpu/eye/pipeline.py in torch, far field off).
+(compound_ray_tpu/eye/pipeline.py in torch).
 
 Per frame:
   1. plan (memoised): scene tables (scene_plan), the eye's group layout
-     (eye_plan), the kernel widths at this pose (_plan_widths) and the
-     pose's packed payload (_packed_plan -> _pack_fused: cone cull ->
-     cluster shortlist -> per-triangle refine -> payload pack);
+     (eye_plan), the far-field split and its radiance cache (_farfield_plan
+     -> _render_cache on K2, trace/cluster_tracer.py), the kernel widths at
+     this pose (_plan_widths) and the pose's packed payload (_packed_plan ->
+     _pack_fused: cone cull -> near clusters -> cluster shortlist ->
+     per-triangle refine -> payload pack); with the sky split on, the
+     compacted live groups and the sky groups' cache expectation
+     (_sky_build);
   2. draw (N, S) cone-jitter angles from the caller's torch.Generator;
   3. _trace_shade_angles: world rays -> K1 (trace/mm_tracer.py) -> winner
-     attributes -> texture -> miss shading -> per-ommatidium mean, returned
-     in the original ommatidium order.
+     attributes -> texture -> miss shading or the far-field cache ->
+     per-ommatidium mean, returned in the original ommatidium order.
 
 Ommatidia are permuted by view direction so that groups of G neighbours
 share coherent shortlists (G shrinks to 1 once an ommatidium's samples fill
 a ray block).  Ray directions are unit length and tmin is rescaled by
 |axis|, so the tracer's t is a world distance.
 
-Not ported here (TPU workarounds or later slices of ROADMAP.md): the
-far-field cache and sky split, lighting and the shadow plan, precision
-modes, direct1, the uv/uvs/flat/loc emit variants, speculative widths,
-bursts, raw samples and the sharded path.
+Not ported here (TPU workarounds or later slices of ROADMAP.md): lighting
+and the shadow plan, precision modes, direct1, the uv/uvs/flat/loc emit
+variants, speculative widths, the polynomial equirect addressing
+(FAST_EQUIRECT), bf16 texture-and-cache tables, bursts, raw samples and the
+sharded path.
 """
 
 from __future__ import annotations
@@ -45,6 +50,11 @@ from compound_ray_tpu_torch.trace.attrs import (
     ATTR_COMPS_FLAT,
     KERNEL_LEAF,
     build_attr_table,
+)
+from compound_ray_tpu_torch.trace.cluster_tracer import (
+    build_kernel_payload,
+    pack_rays,
+    run_tracer_kernel,
 )
 from compound_ray_tpu_torch.trace.mm_tracer import (
     BATCH_RAYS as MM_BATCH_RAYS,
@@ -95,8 +105,13 @@ class ScenePlan:
     quad_table: torch.Tensor  # (P, 16) texel 2x2 quads ((1, 16) untextured)
     textured: bool
     tex_only: bool  # every triangle textured, no vertex colours
+    payload: torch.Tensor  # (C, 16, 128) K2 intersection constants
+    sphere_center_np: np.ndarray  # (C, 3) cluster spheres: far-field split
+    sphere_radius_np: np.ndarray  # (C,)
     kmax_cache: Dict = field(default_factory=dict)  # pose -> (kcand, rmax)
     packed_store: Dict = field(default_factory=dict)  # bounded LRU of packs
+    cache_store: Dict = field(default_factory=dict)  # viewpoint -> cache
+    sky_store: Dict = field(default_factory=dict)  # pose -> sky plan, LRU
 
     @property
     def num_clusters(self) -> int:
@@ -105,7 +120,8 @@ class ScenePlan:
     @classmethod
     def from_arrays(cls, device, mm_flat, attr_table, slot_center_cl,
                     slot_radius_cl, slot_tri_cl, half_center, half_radius,
-                    quad_table, textured: bool, tex_only: bool) -> "ScenePlan":
+                    quad_table, textured: bool, tex_only: bool, payload,
+                    sphere_center, sphere_radius) -> "ScenePlan":
         def dev(x):  # a copy: the arrays may be read-only views
             return torch.tensor(np.asarray(x, np.float32), device=device)
 
@@ -118,14 +134,18 @@ class ScenePlan:
             half_center=dev(half_center), half_radius=dev(half_radius),
             quad_table=dev(quad_table),
             textured=bool(textured), tex_only=bool(tex_only),
+            payload=dev(payload),
+            sphere_center_np=np.array(sphere_center, np.float32),
+            sphere_radius_np=np.array(sphere_radius, np.float32),
         )
 
 
 def scene_plan(scene_flat, device) -> ScenePlan:
-    """Build (once per scene and device) the packed tracer's tables
-    (compound_ray_tpu/eye/pipeline.py:195): clusters of 128 triangles, the
-    per-slot feature columns, the winner-attribute table, per-slot spheres
-    and, for textured scenes, the texel quad table."""
+    """Build (once per scene and device) the tracers' tables
+    (compound_ray_tpu/eye/pipeline.py:195): clusters of 128 triangles, K1's
+    per-slot feature columns, K2's per-cluster payload, the
+    winner-attribute table, per-slot and per-cluster spheres and, for
+    textured scenes, the texel quad table."""
     device = canonical_device(device)
     plan = getattr(scene_flat, "_kernel_plan", None)
     if plan is not None and plan.device == device:
@@ -174,6 +194,8 @@ def scene_plan(scene_flat, device) -> ScenePlan:
         .reshape(c_cl, KERNEL_LEAF, 9),
         half_center=cs.half_center, half_radius=cs.half_radius,
         quad_table=quad, textured=textured, tex_only=tex_only,
+        payload=build_kernel_payload(cs),
+        sphere_center=cs.sphere_center, sphere_radius=cs.sphere_radius,
     )
     scene_flat._kernel_plan = plan
     return plan
@@ -286,11 +308,34 @@ def _cull_groups(omms_p, position, local_space, centers, radii,
     return gmask, counts, dmin_all
 
 
-def _shortlist_sorted(gmask, dmin_all, kcand: int):
-    """(NG, kcand) surviving cluster ids nearest first
-    (compound_ray_tpu/eye/pipeline.py:468, stable like jnp.argsort)."""
+def _shortlist_sorted(gmask, dmin_all, kmax: int):
+    """Surviving cluster ids nearest first, with their distance bounds
+    (compound_ray_tpu/eye/pipeline.py:468, stable like jnp.argsort).
+    Returns (ids (NG, KP) int32, dmin (NG, KP) f32) with KP = kmax rounded
+    up to 128; columns past the survivors hold dmin 3e38, and columns past
+    the C clusters id 0.  The refine reads ids[:, :kcand]; K2 reads
+    both."""
+    kp = _ceil_to(kmax, 128)
     masked = torch.where(gmask, dmin_all, torch.inf)
-    return torch.argsort(masked, dim=-1, stable=True)[:, :kcand]
+    ng, c = masked.shape
+    if kp > c:
+        masked = torch.cat(
+            [masked, torch.full((ng, kp - c), torch.inf,
+                                device=masked.device)], dim=-1)
+    order = torch.argsort(masked, dim=-1, stable=True)[:, :kp]
+    dmin_s = masked.gather(-1, order)
+    dmin_s = torch.where(torch.isfinite(dmin_s), dmin_s, 3e38)
+    ids = torch.where(order < c, order, 0).to(torch.int32)
+    return ids, dmin_s.to(torch.float32)
+
+
+def _near_counts(gmask, counts, near_mask):
+    """The cull restricted to the near clusters when the far-field cache
+    serves the far ones (compound_ray_tpu/eye/pipeline.py:943-946)."""
+    if near_mask is None:
+        return gmask, counts
+    gmask = gmask & near_mask[None, :]
+    return gmask, gmask.sum(dim=-1).to(torch.int32)
 
 
 def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
@@ -435,13 +480,15 @@ def _rows(refined):
 
 def _refine_counts(omms_p, position, local_space, half_center, half_radius,
                    center_cl, radius_cl, g: int, kcand: int,
-                   cull_sigmas: float, tri_cl):
+                   cull_sigmas: float, tri_cl, near_mask=None):
     """Packed payload rows per group at this pose
-    (compound_ray_tpu/eye/pipeline.py:660)."""
+    (compound_ray_tpu/eye/pipeline.py:660), over the near clusters only
+    when near_mask (C,) is given."""
     gmask, counts, dmin_all = _cull_groups(
         omms_p, position, local_space, half_center, half_radius,
         cull_sigmas, g)
-    ids = _shortlist_sorted(gmask, dmin_all, kcand)
+    gmask, counts = _near_counts(gmask, counts, near_mask)
+    ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
     cl_counts = torch.clamp(counts, max=kcand)
     parts = []
     for g0, g1 in _refine_chunks(ids.shape[0], g, kcand):
@@ -489,42 +536,51 @@ def _refine_pack(omms_p, position, local_space, ids, cl_counts, center_cl,
 
 def _pack_fused(mm_flat, slot_center_cl, slot_radius_cl, half_center,
                 half_radius, omms_p, position, local_space, g: int,
-                kcand: int, rmax: int, cull_sigmas: float, tri_cl):
+                kcand: int, rmax: int, cull_sigmas: float, tri_cl,
+                near_mask=None):
     """Pose-dependent plan: cull -> shortlist -> triangle refine -> packed
-    per-group payload (compound_ray_tpu/eye/pipeline.py:906).  Depends only
-    on (scene, eye, pose, widths), not on the RNG or the sample count.
+    per-group payload (compound_ray_tpu/eye/pipeline.py:906).  With the
+    far-field cache on, near_mask (C,) bool keeps only the near clusters:
+    the cache serves the far ones.  Depends only on (scene, eye, pose,
+    widths, far-field split), not on the RNG or the sample count.
     Returns (row_counts, packed_mm)."""
     gmask, counts, dmin_all = _cull_groups(
         omms_p, position, local_space, half_center, half_radius,
         cull_sigmas, g)
-    ids = _shortlist_sorted(gmask, dmin_all, kcand)
+    gmask, counts = _near_counts(gmask, counts, near_mask)
+    ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
     cl_counts = torch.clamp(counts, max=kcand)
     return _refine_pack(
         omms_p, position, local_space, ids, cl_counts, slot_center_cl,
         slot_radius_cl, mm_flat, g, kcand, rmax, cull_sigmas, tri_cl=tri_cl)
 
 
-def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key):
-    """Kernel widths for a (scene, eye, samples, pose): kcand (candidate
-    clusters for the refine) and rmax (payload rows per group), measured
-    exactly with two planning passes and memoised; high-water rounding as
-    in compound_ray_tpu/eye/pipeline.py:1552."""
+def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
+                 near_mask=None):
+    """Kernel widths for a (scene, eye, samples, pose, far-field split):
+    kcand (candidate clusters for the refine) and rmax (payload rows per
+    group), measured exactly with two planning passes over the clusters
+    the pack will trace (near_mask, when the cache is on) and memoised;
+    high-water rounding as in compound_ray_tpu/eye/pipeline.py:1552.  The
+    caller's cache_key must tell far-field splits apart, as the JAX
+    package's width key does with (use_cache, d_thresh) (:1700-1701)."""
     cfg = get_config()
     sig = cfg.cull_sigmas
     cache_key = cache_key + (sig,)
     cached = splan.kmax_cache.get(cache_key)
     if cached is not None:
         return cached
-    _, counts, _ = _cull_groups(
+    gmask, counts, _ = _cull_groups(
         omms_p, position, local_space, splan.half_center, splan.half_radius,
         sig, eplan.g)
+    _, counts = _near_counts(gmask, counts, near_mask)
     k_needed = int(counts.max().item())
     kcand = min(splan.num_clusters,
                 max(eplan.kmax_hint, _ceil_to(max(k_needed, 1), 8)))
     row_counts = _refine_counts(
         omms_p, position, local_space, splan.half_center, splan.half_radius,
         splan.slot_center_cl, splan.slot_radius_cl, eplan.g, kcand, sig,
-        tri_cl=splan.slot_tri_cl)
+        tri_cl=splan.slot_tri_cl, near_mask=near_mask)
     r_needed = int(row_counts.max().item())
     rmax = min(max(eplan.rmax_hint, _ceil_to(max(r_needed, 1), 2)), kcand)
     eplan.kmax_hint = kcand  # high-water: nearby poses reuse the widths
@@ -533,13 +589,24 @@ def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key):
     return kcand, rmax
 
 
+def _packed_key(eplan, samples, pose_sig, kcand, rmax, use_cache: bool,
+                d_thresh: float, cfg):
+    """packed_store key (compound_ray_tpu/eye/pipeline.py:1625): the
+    far-field split is part of it, so a dense pack and a near-masked pack
+    at one pose are never served for each other."""
+    return (eplan.sig, samples, pose_sig, kcand, rmax, use_cache, d_thresh,
+            cfg.cull_sigmas)
+
+
 def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
-                 samples, kcand, rmax):
+                 samples, kcand, rmax, near_mask=None, d_thresh=0.0):
     """Memoised _pack_fused with a bounded LRU
     (compound_ray_tpu/eye/pipeline.py:1594): a fixed-pose sequence of
-    frames pays the refine and pack once."""
+    frames pays the refine and pack once.  near_mask and d_thresh describe
+    the far-field split (None and 0.0 with the cache off)."""
     cfg = get_config()
-    pk = (eplan.sig, samples, pose_sig, kcand, rmax, cfg.cull_sigmas)
+    pk = _packed_key(eplan, samples, pose_sig, kcand, rmax,
+                     near_mask is not None, d_thresh, cfg)
     hit = splan.packed_store.get(pk)
     if hit is not None:
         splan.packed_store[pk] = splan.packed_store.pop(pk)  # LRU refresh
@@ -548,7 +615,7 @@ def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
         splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
         splan.half_center, splan.half_radius, omms_p, position, local_space,
         g=eplan.g, kcand=kcand, rmax=rmax, cull_sigmas=cfg.cull_sigmas,
-        tri_cl=splan.slot_tri_cl)
+        tri_cl=splan.slot_tri_cl, near_mask=near_mask)
     while len(splan.packed_store) >= cfg.packed_store_size:
         splan.packed_store.pop(next(iter(splan.packed_store)))
     splan.packed_store[pk] = out
@@ -586,8 +653,22 @@ def resolve_kernel_hits(out, attr_table, tex_only: bool):
     emit "bary").  Returns (t, cu, cv, texid, rgb), all (R,); rows of
     missed rays are clamped garbage that callers mask with t < 1e30 and
     group liveness."""
-    t, u, v = out[0], out[1], out[2]
     row = torch.clamp(out[3].long(), 0, attr_table.shape[0] - 1)
+    return _resolve_rows(out[0], out[1], out[2], row, attr_table, tex_only)
+
+
+def resolve_cluster_hits(out, attr_table, tex_only: bool):
+    """resolve_kernel_hits for K2's (R, 8) [t, u, v, cluster, lane] rows:
+    the winner's attribute row is cluster * 128 + lane
+    (compound_ray_tpu/eye/pipeline.py:877-891)."""
+    cluster = torch.clamp(out[:, 3].long(), 0,
+                          attr_table.shape[0] // KERNEL_LEAF - 1)
+    lane = torch.clamp(out[:, 4].long(), 0, KERNEL_LEAF - 1)
+    return _resolve_rows(out[:, 0], out[:, 1], out[:, 2],
+                         cluster * KERNEL_LEAF + lane, attr_table, tex_only)
+
+
+def _resolve_rows(t, u, v, row, attr_table, tex_only: bool):
     attr = attr_table[row]  # (R, A)
     cu, cv, texid, rgb = _attrs_from_rows(
         attr, u, v, tex_only, attr_table.shape[1] == ATTR_COMPS_FLAT)
@@ -654,12 +735,23 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         quad_table, omms_p, position, local_space, splay,
                         spin, samples: int, background: int, ng: int, g: int,
                         nrb: int, rb_size: int, rmax: int, textured: bool,
-                        tex_only: bool, tracer=None):
-    """Angle-parameterised frame core: trace + shade + reduce, unlit and
-    without the far-field cache (compound_ray_tpu/eye/pipeline.py:1134,
-    branches :1191-1313 and :1502-1545, means only).  Returns (Np, 3) means
-    in permuted order.  `tracer` defaults to run_packed_tracer (K1); the
-    chip check passes packed_tracer_reference to render through the twin."""
+                        tex_only: bool, tracer=None, cache=None,
+                        cache_shape: Tuple[int, int] = (0, 0),
+                        sky_means=None, sky_scatter=None):
+    """Angle-parameterised frame core: trace + shade + reduce, unlit
+    (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1313 and
+    :1502-1545, means only).  Returns (Np, 3) means in permuted order.
+    `tracer` defaults to run_packed_tracer (K1); the chip check passes
+    packed_tracer_reference to render through the twin.
+
+    cache is the far-field cache of _farfield_plan: (H, W, 16) equirect
+    quads, or for a textured scene the combined (P + H*W, 16) table of
+    texture quads followed by cache quads, with cache_shape (H, W).  Rays
+    that miss the near clusters then read the cache in place of the miss
+    shader; in the combined table, textured hits and cache lookups share
+    one row gather (:1253-1281).  sky_means (Ng0, 3) and sky_scatter (Np,)
+    are the sky split's base means and the group each row's mean replaces
+    (rows pointing past Ng0 are dropped; :1537-1542)."""
     n_pad = omms_p.shape[0]
     rg = g * samples
     rg_pad = nrb * rb_size
@@ -688,29 +780,421 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
         tex_idx, tfx, tfy = texture_quad_coords_c(
             scene_dev, torch.clamp(texid.reshape(-1), min=0),
             unpad(cu_f).reshape(-1), unpad(cv_f).reshape(-1))
+    if textured and cache is not None:
+        # one gather from the combined table: texture quads for textured
+        # hits, cache quads for misses
+        ch, cw = cache_shape
+        c_idx, cfx, cfy = _equirect_coords_c(
+            ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
+        sel_tex = (hit & (texid >= 0)).reshape(-1)
+        idx = torch.where(sel_tex, tex_idx, cache.shape[0] - ch * cw + c_idx)
+        qr, qg, qb = quad_bilinear_c(
+            cache[idx], torch.where(sel_tex, tfx, cfx),
+            torch.where(sel_tex, tfy, cfy))
+        # hits on untextured triangles keep their interpolated colour
+        keep = hit & (texid < 0)
+        rr = torch.where(keep, rr, qr.reshape(n_pad, samples))
+        gg = torch.where(keep, gg, qg.reshape(n_pad, samples))
+        bb = torch.where(keep, bb, qb.reshape(n_pad, samples))
+    else:
+        if textured:
+            qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
+            sel = (texid >= 0) & hit
+            rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
+            gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
+            bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
+        if cache is not None:
+            # the cache already holds the miss shader where nothing is hit
+            c_idx, cfx, cfy = _equirect_coords_c(
+                cache.shape[0], cache.shape[1], dx.reshape(-1),
+                dy.reshape(-1), dz.reshape(-1))
+            mr, mg, mb = quad_bilinear_c(cache.reshape(-1, 16)[c_idx], cfx,
+                                         cfy)
+        else:
+            mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1),
+                                      dz.reshape(-1), background)
+        rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
+        gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
+        bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
+    means = torch.stack([rr.mean(dim=1), gg.mean(dim=1), bb.mean(dim=1)],
+                        dim=-1)
+    if sky_means is None:
+        return means
+    # scatter the live means over the sky means; padding rows land on a
+    # dump row past the end, which is cut off
+    n0 = sky_means.shape[0]
+    full = torch.cat([sky_means, sky_means.new_zeros((1, 3))])
+    full.index_copy_(0, torch.clamp(sky_scatter, max=n0), means)
+    return full[:n0]
+
+
+# --------------------------------------------------------------- far field
+# Geometry beyond the parallax-safe distance D = eye extent / (tolerance *
+# sigma_min) is seen from every point of the eye within a fraction of the
+# cone-jitter sd, so it is rendered once per pose into an equirect radiance
+# cache from the eye centre (K2 over 16x16-pixel tiles), and the per-sample
+# rays trace only the near clusters, falling back to the cache on a miss
+# (compound_ray_tpu/eye/pipeline.py:2945-2953).
+
+
+def _equirect_pixel_dirs(width: int, height: int, device) -> torch.Tensor:
+    """(W*H, 3) unit directions at the pixel centres, row-major
+    (compound_ray_tpu/eye/pipeline.py:2956)."""
+    xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
+        / width
+    ys = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) \
+        / height
+    gy, gx = torch.meshgrid(2.0 * ys - 1.0, 2.0 * xs - 1.0, indexing="ij")
+    ax = gx * (-math.pi) + math.pi / 2.0
+    ay = gy * (math.pi / 2.0)
+    cos_y = torch.cos(ay)
+    return torch.stack([torch.cos(ax) * cos_y, torch.sin(ay),
+                        torch.sin(ax) * cos_y], dim=-1).reshape(-1, 3)
+
+
+def build_equirect_quads(cache: torch.Tensor) -> torch.Tensor:
+    """(H, W, 16) per-texel 2x2 RGBA neighbourhood of an (H, W, 3) image,
+    wrapping in x and clamping in y, in the texture quad table's
+    c00|c10|c01|c11 x RGBA layout (compound_ray_tpu/eye/pipeline.py:2970)."""
+    h = cache.shape[0]
+    c4 = torch.cat([cache, torch.ones_like(cache[..., :1])], dim=-1)
+    x1 = torch.roll(c4, -1, dims=1)
+    y1 = c4[torch.clamp(torch.arange(h, device=cache.device) + 1, max=h - 1)]
+    return torch.cat([c4, x1, y1, torch.roll(y1, -1, dims=1)], dim=-1)
+
+
+def _equirect_coords_c(h: int, w: int, dx, dy, dz):
+    """(row index (R,) int64, fx, fy) into an (h, w) equirect quad cache for
+    unit direction components (R,) (compound_ray_tpu/eye/pipeline.py:3041,
+    the exact atan2/asin form)."""
+    ax = torch.atan2(dz, dx)
+    ay = torch.asin(torch.clamp(dy, -1.0, 1.0))
+    u = 0.5 + (math.pi / 2.0 - ax) / (2.0 * math.pi)
+    v = 0.5 + ay / math.pi
+    x = u * w - 0.5
+    y = torch.clamp(v * h - 0.5, 0.0, h - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    xi0 = torch.remainder(x0.to(torch.int64), w)
+    yi0 = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    return yi0 * w + xi0, x - x0, y - y0
+
+
+def sample_equirect(quads: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """(R, 3) bilinear lookup of unit directions (R, 3) in an (H, W, 16)
+    quad cache (compound_ray_tpu/eye/pipeline.py:3072)."""
+    idx, fx, fy = _equirect_coords_c(quads.shape[0], quads.shape[1],
+                                     dirs[:, 0], dirs[:, 1], dirs[:, 2])
+    q = quads.reshape(-1, 16)[idx]
+    fx, fy = fx[:, None], fy[:, None]
+    out = (q[:, 0:4] * (1 - fx) * (1 - fy) + q[:, 4:8] * fx * (1 - fy)
+           + q[:, 8:12] * (1 - fx) * fy + q[:, 12:16] * fx * fy)
+    return out[:, :3]
+
+
+_CACHE_TILE = 256  # directions per K2 group
+_CACHE_BLOCK = 16  # a tile is a 16x16 pixel block: a small, tight cone
+
+
+def _cache_trace_inputs(half_center, half_radius, center, far_mask,
+                        width: int, kmax: int):
+    """The cache's K2 inputs (compound_ray_tpu/eye/pipeline.py:3093-3151):
+    the pixel directions in 16x16 blocks, one 256-ray group per block, and
+    per block the far clusters whose half-spheres meet the block's bounding
+    cone from `center`, nearest first.  Returns (blocked (n, 3), counts
+    (NG,), ids (NG, KP), dmin (NG, KP), rays (n, 16))."""
+    height = width // 2
+    bs, tile = _CACHE_BLOCK, _CACHE_TILE
+    if width % bs or height % bs or (width * height) % tile:
+        raise ValueError(
+            f"farfield cache width {width}: width and width // 2 must be "
+            f"multiples of {bs}")
+    dirs = _equirect_pixel_dirs(width, height, half_center.device)
+    n = dirs.shape[0]
+    blocked = (dirs.reshape(height // bs, bs, width // bs, bs, 3)
+               .permute(0, 2, 1, 3, 4).reshape(n, 3))
+    ng = n // tile
+    td = blocked.reshape(ng, tile, 3)
+
+    # per-tile bounding cone from the fixed viewpoint
+    centroid = td.sum(dim=1)
+    centroid = centroid / torch.clamp(
+        torch.linalg.norm(centroid, dim=-1, keepdim=True), min=1e-30)
+    cosmin = (td[:, :, 0] * centroid[:, None, 0]
+              + td[:, :, 1] * centroid[:, None, 1]
+              + td[:, :, 2] * centroid[:, None, 2]).amin(dim=1)
+    half_ang = torch.arccos(torch.clamp(cosmin, -1.0, 1.0))
+
+    to_c = half_center - center  # (C, 2, 3)
+    dist = torch.linalg.norm(to_c, dim=-1)  # (C, 2)
+    inside = dist <= half_radius
+    inv_d = 1.0 / torch.clamp(dist, min=1e-30)
+    cos_a = (to_c[None, :, :, 0] * centroid[:, None, None, 0]
+             + to_c[None, :, :, 1] * centroid[:, None, None, 1]
+             + to_c[None, :, :, 2] * centroid[:, None, None, 2]) * inv_d
+    alpha = torch.arccos(torch.clamp(cos_a, -1.0, 1.0))  # (G, C, 2)
+    beta = torch.arcsin(torch.clamp(half_radius * inv_d, 0.0, 1.0))
+    gmask = (inside | (alpha <= half_ang[:, None, None] + beta)).any(dim=-1)
+    gmask = gmask & far_mask[None, :]
+    counts = torch.clamp(gmask.sum(dim=-1), max=kmax).to(torch.int32)
+    dmin_all = torch.clamp((dist - half_radius).amin(dim=-1), min=0.0)
+    ids, dmin = _shortlist_sorted(gmask, dmin_all[None, :].expand_as(gmask),
+                                  kmax)
+    rays = pack_rays(blocked, center[None, :].expand(n, 3),
+                     torch.zeros(n, device=blocked.device))
+    return blocked, counts, ids, dmin, rays
+
+
+def _render_cache(payload, attr_table, scene_dev, quad_table, half_center,
+                  half_radius, center, far_mask, width: int, background: int,
+                  kmax: int, textured: bool, tex_only: bool = False,
+                  tracer=None) -> torch.Tensor:
+    """(H, W, 3) linear-RGB equirect radiance cache of the far clusters
+    from `center` (compound_ray_tpu/eye/pipeline.py:3085).  Each 16x16
+    pixel block is one 256-ray group of K2 over its shortlist of at most
+    kmax far clusters (_cache_trace_inputs), traced with the early exit on;
+    the winners are resolved and shaded like the frame's hits.  `tracer`
+    defaults to run_tracer_kernel (K2); the chip check passes
+    cluster_tracer_reference to render through the twin."""
+    height = width // 2
+    bs, tile = _CACHE_BLOCK, _CACHE_TILE
+    blocked, counts, ids, dmin, rays = _cache_trace_inputs(
+        half_center, half_radius, center, far_mask, width, kmax)
+    trace = run_tracer_kernel if tracer is None else tracer
+    out = trace(counts, ids, dmin, payload, rays, ng=counts.shape[0], nrb=1,
+                rb_size=tile, kmax=kmax, early_exit=True)
+    t, cu, cv, texid, rgb = resolve_cluster_hits(out, attr_table, tex_only)
+    if tex_only:
+        rr = gg = bb = torch.zeros_like(t)
+    else:
+        rr, gg, bb = rgb
+    hit = (t < 1e30) & torch.repeat_interleave(counts > 0, tile)
+    if textured:
+        tex_idx, tfx, tfy = texture_quad_coords_c(
+            scene_dev, torch.clamp(texid, min=0), cu, cv)
         qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
         sel = (texid >= 0) & hit
-        rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
-        gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
-        bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
-    mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1), dz.reshape(-1),
+        rr = torch.where(sel, qr, rr)
+        gg = torch.where(sel, qg, gg)
+        bb = torch.where(sel, qb, bb)
+    mr, mg, mb = miss_color_c(blocked[:, 0], blocked[:, 1], blocked[:, 2],
                               background)
-    rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
-    gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
-    bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
-    return torch.stack([rr.mean(dim=1), gg.mean(dim=1), bb.mean(dim=1)],
-                       dim=-1)
+    rgb = torch.stack([torch.where(hit, rr, mr), torch.where(hit, gg, mg),
+                       torch.where(hit, bb, mb)], dim=-1)
+    # un-block back to row-major (H, W)
+    return (rgb.reshape(height // bs, width // bs, bs, bs, 3)
+            .permute(0, 2, 1, 3, 4).reshape(height, width, 3))
+
+
+def _farfield_threshold(ommatidia_np: np.ndarray, tol: float) -> float:
+    """Parallax-safe distance D = eye extent / (tol * sigma_min)
+    (compound_ray_tpu/eye/pipeline.py:3189)."""
+    extent = float(np.max(np.linalg.norm(ommatidia_np[:, 0:3], axis=1)
+                          + np.abs(ommatidia_np[:, 7])))
+    sigma_min = float(np.min(ommatidia_np[:, 6])) / FWHM_SD_RATIO
+    if sigma_min <= 0 or extent <= 0:
+        return 0.0
+    return extent / max(tol * sigma_min, 1e-9)
+
+
+# the cache store is cleared past this many viewpoints (pose sweeps)
+_CACHE_STORE_MAX = 64
+
+
+def _farfield_split(splan, ommatidia_np, pos_np, ls_np, tol: float):
+    """(far (C,) bool, eye centre (3,) f64, D): the clusters whose spheres
+    lie wholly beyond the parallax-safe distance D from the eye centre in
+    world space, the cache viewpoint (compound_ray_tpu/eye/pipeline.py:
+    2461-2470)."""
+    d_thresh = _farfield_threshold(ommatidia_np, tol)
+    rel_c = ommatidia_np[:, 0:3].mean(axis=0)
+    center_np = (np.asarray(pos_np, np.float64)
+                 + rel_c @ np.asarray(ls_np, np.float64))
+    cdist = np.linalg.norm(splan.sphere_center_np - center_np[None, :],
+                           axis=1)
+    return (cdist - splan.sphere_radius_np) > d_thresh, center_np, d_thresh
+
+
+def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
+                   samples: int, background: int, cfg, tracer=None):
+    """The far-field split of a frame and its pose-memoised cache
+    (compound_ray_tpu/eye/pipeline.py:2437).  Returns (near_mask (C,) bool
+    or None, cache or None, d_thresh): None and 0.0 unless the cache is on,
+    which needs farfield="auto", more than 8 clusters, at least as many
+    rays as cache pixels and at least one far cluster.  The cache is
+    (H, W, 16) equirect quads, or for a textured scene the combined table
+    of the texture quads followed by the cache quads.  It depends on the
+    eye centre, the width, the miss shader and D, not on the samples or the
+    RNG, so frames at one pose build it once; `tracer` (K2 by default)
+    renders a cache not in splan.cache_store."""
+    off = (None, None, 0.0)
+    if cfg.farfield != "auto" or splan.num_clusters <= 8:
+        return off
+    width = cfg.farfield_cache_width
+    if samples * eplan.n < width * (width // 2):
+        return off
+    far, center_np, d_thresh = _farfield_split(
+        splan, ommatidia_np, pos_np, ls_np, cfg.farfield_tolerance)
+    if not far.any():
+        return off
+    dev = splan.device
+    center32 = np.asarray(center_np, np.float32)
+    key = (center32.tobytes(), width, background, d_thresh)
+    cache = splan.cache_store.get(key)
+    if cache is None:
+        cache = build_equirect_quads(_render_cache(
+            splan.payload, splan.attr_table, scene_dev, splan.quad_table,
+            splan.half_center, splan.half_radius,
+            torch.as_tensor(center32, device=dev),
+            torch.as_tensor(far, device=dev), width=width,
+            background=background, kmax=min(splan.num_clusters, 256),
+            textured=splan.textured, tex_only=splan.tex_only,
+            tracer=tracer))
+        if splan.textured:
+            cache = torch.cat([splan.quad_table, cache.reshape(-1, 16)])
+        if len(splan.cache_store) > _CACHE_STORE_MAX:
+            splan.cache_store.clear()
+        splan.cache_store[key] = cache
+    return torch.as_tensor(~far, device=dev), cache, d_thresh
+
+
+# ----------------------------------------------------------------- sky split
+# A zero-row group is a shaft that the conservative cull proved empty of
+# near geometry: all its samples read the far-field cache.  With the sky
+# split on, such groups get their pose-memoised acceptance-cone expectation
+# of the cache (a fixed quadrature, once per pose), and the frame traces
+# only the live groups, compacted to a multiple of 64
+# (compound_ray_tpu/eye/pipeline.py:1751-1770).  Frames are statistically
+# interchangeable with the dense path, not bit-identical: the live groups
+# draw other rows of the RNG and the sky groups lose their sampling noise.
+
+
+def _sky_expectation(cache, omms_p, local_space, nq_splay: int,
+                     nq_spin: int, cache_shape: Tuple[int, int],
+                     row_offset: int) -> torch.Tensor:
+    """(Np, 3) expectation of the cache radiance under the acceptance
+    distribution (splay ~ N(0, sd), spin ~ U[0, pi)) by quantile-midpoint
+    quadrature: splay nodes sd * Phi^-1((i + 0.5) / n), spin nodes
+    pi * (j + 0.5) / m, through the same cone offset, world transform and
+    equirect bilinear lookup as the samples
+    (compound_ray_tpu/eye/pipeline.py:1776)."""
+    n_pad = omms_p.shape[0]
+    dev = omms_p.device
+    sd = omms_p[:, 6] / FWHM_SD_RATIO
+    p = (torch.arange(nq_splay, dtype=torch.float32, device=dev) + 0.5) \
+        / nq_splay
+    z = math.sqrt(2.0) * torch.special.erfinv(2.0 * p - 1.0)
+    nq = nq_splay * nq_spin
+    splay = (sd[:, None] * z[None, :])[:, :, None].expand(
+        n_pad, nq_splay, nq_spin).reshape(n_pad, nq)
+    spin_nodes = math.pi * (torch.arange(nq_spin, dtype=torch.float32,
+                                         device=dev) + 0.5) / nq_spin
+    spin = spin_nodes[None, None, :].expand(n_pad, nq_splay,
+                                            nq_spin).reshape(n_pad, nq)
+    rdx, rdy, rdz = cone_offset_components(
+        omms_p[:, 3:4], omms_p[:, 4:5], omms_p[:, 5:6], splay, spin)
+    L = local_space
+    wdx = rdx * L[0, 0] + rdy * L[1, 0] + rdz * L[2, 0]
+    wdy = rdx * L[0, 1] + rdy * L[1, 1] + rdz * L[2, 1]
+    wdz = rdx * L[0, 2] + rdy * L[1, 2] + rdz * L[2, 2]
+    inv_n = torch.rsqrt(torch.clamp(wdx * wdx + wdy * wdy + wdz * wdz,
+                                    min=1e-60))
+    ch, cw = cache_shape
+    c_idx, fx, fy = _equirect_coords_c(
+        ch, cw, (wdx * inv_n).reshape(-1), (wdy * inv_n).reshape(-1),
+        (wdz * inv_n).reshape(-1))
+    rows = cache.reshape(-1, cache.shape[-1])[row_offset + c_idx]
+    r, g, b = quad_bilinear_c(rows, fx, fy)
+    return torch.stack([r.reshape(n_pad, nq).mean(dim=1),
+                        g.reshape(n_pad, nq).mean(dim=1),
+                        b.reshape(n_pad, nq).mean(dim=1)], dim=-1)
+
+
+def _compact_live(packed_mm, row_counts, omms_p, gidx, real):
+    """The live groups' plan rows (compound_ray_tpu/eye/pipeline.py:1827).
+    Padding entries (real == 0) repeat a live group with row_counts 0: K1
+    skips them and their means are dropped by the scatter."""
+    return packed_mm[gidx], row_counts[gidx] * real, omms_p[gidx]
+
+
+def _sky_key(eplan, samples, pose_sig, d_thresh, background, cfg):
+    """sky_store key (compound_ray_tpu/eye/pipeline.py:1835, without the
+    affine field, which is not ported).  Like the JAX key it leaves out the
+    widths: serving the plan must not need the dense pack it replaced.
+    Unlike it, it holds the cache width and the miss shader, which the sky
+    means are computed from."""
+    return ("sky", eplan.sig, samples, pose_sig, cfg.cull_sigmas, d_thresh,
+            cfg.farfield_cache_width, background, cfg.sky_quad_splay,
+            cfg.sky_quad_spin)
+
+
+def _sky_probe(splan, sk):
+    """(found, entry) with an LRU refresh; a found None entry is a pose
+    memoised as not worth splitting (compound_ray_tpu/eye/pipeline.py:1848)."""
+    if sk in splan.sky_store:
+        hit = splan.sky_store.pop(sk)
+        splan.sky_store[sk] = hit
+        return True, hit
+    return False, None
+
+
+def _sky_put(splan, sk, entry, cfg):
+    while len(splan.sky_store) >= cfg.packed_store_size:
+        splan.sky_store.pop(next(iter(splan.sky_store)))
+    splan.sky_store[sk] = entry
+
+
+def _sky_build(splan, eplan, omms_p, local_space, samples: int, kcand: int,
+               rmax: int, cache, cache_shape: Tuple[int, int], row_counts,
+               packed_mm, ng_quantum: int = 64):
+    """A sky plan from the pose's pack (compound_ray_tpu/eye/pipeline.py:
+    1864): (packed_live, rc_live, omms_live, scatter, sky_means, ngl,
+    kcand, rmax), or None when more than 90 % of the groups are live (the
+    split would only add the scatter).  The live count is rounded up to
+    ng_quantum and kept as a high-water mark per (eye, samples), so the
+    compacted layout is the JAX package's.  Reads the row counts on the
+    host once per new pose."""
+    cfg = get_config()
+    rc_np = row_counts.cpu().numpy()
+    ng = rc_np.shape[0]
+    live = np.flatnonzero(rc_np > 0)
+    if live.size > 0.9 * ng:
+        return None
+    hint_key = ("sky_ngl", eplan.sig, samples, ng_quantum)
+    ngl = max(_ceil_to(max(int(live.size), 1), ng_quantum),
+              splan.kmax_cache.get(hint_key, 0))
+    ngl = _ceil_to(min(ngl, ng), ng_quantum)
+    splan.kmax_cache[hint_key] = ngl
+    pad = ngl - live.size
+    gather = np.concatenate([live, np.zeros(pad, np.int64)])
+    scatter = np.concatenate([live, np.full(pad, ng, np.int64)])
+    dev = row_counts.device
+    packed_live, rc_live, omms_live = _compact_live(
+        packed_mm, row_counts, omms_p, torch.as_tensor(gather, device=dev),
+        torch.as_tensor((scatter < ng).astype(np.int32), device=dev))
+    ch, cw = cache_shape
+    row_offset = cache.shape[0] - ch * cw if cache.dim() == 2 else 0
+    sky_means = _sky_expectation(
+        cache, omms_p, local_space, nq_splay=cfg.sky_quad_splay,
+        nq_spin=cfg.sky_quad_spin, cache_shape=(ch, cw),
+        row_offset=row_offset)
+    return (packed_live, rc_live, omms_live,
+            torch.as_tensor(scatter, device=dev), sky_means, ngl, kcand,
+            rmax)
 
 
 def render_means(scene_flat, scene_dev: Dict[str, Any],
                  omms_np: np.ndarray, position, local_space,
                  generator: torch.Generator, samples: int, background: int,
-                 tracer=None) -> torch.Tensor:
+                 tracer=None, cache_tracer=None) -> torch.Tensor:
     """One unlit frame: (N, 3) mean radiance per ommatidium in the original
     ommatidium order (compound_ray_tpu/eye/pipeline.py:2676,
-    render_means_pallas with farfield="off").  The frame runs on the
+    render_means_pallas, planned as _plan_frame :2516-2673 without the
+    speculative widths or the lit parts).  The frame runs on the
     generator's device; scene_dev must live there too.  position (3,) and
-    local_space (3, 3) are host arrays: the pose keys the memoised plans."""
+    local_space (3, 3) are host arrays: the pose keys the memoised plans.
+    `tracer` and `cache_tracer` replace K1 and K2 (the chip check renders
+    through the twins with them)."""
     device = generator.device
     splan = scene_plan(scene_flat, device)
     eplan = eye_plan(omms_np, samples)
@@ -720,16 +1204,48 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
     pose_sig = (pos_np.tobytes(), ls_np.tobytes())
     pos = torch.as_tensor(pos_np, device=device)
     ls = torch.as_tensor(ls_np, device=device)
-    kcand, rmax = _plan_widths(splan, eplan, omms_p, pos, ls,
-                               (eplan.sig, samples, pose_sig))
-    row_counts, packed_mm = _packed_plan(splan, eplan, omms_p, pos, ls,
-                                         pose_sig, samples, kcand, rmax)
-    splay, spin = sample_angles_ns(generator, omms_p[:, 6] / FWHM_SD_RATIO,
+    cfg = get_config()
+    near_mask, cache, d_thresh = _farfield_plan(
+        splan, eplan, scene_dev, omms_np, pos_np, ls_np, samples, background,
+        cfg, tracer=cache_tracer)
+    use_cache = near_mask is not None
+    cache_shape = (cfg.farfield_cache_width // 2, cfg.farfield_cache_width)
+    sky = sky_key = None
+    if cfg.sky_split and use_cache and eplan.g == 1:
+        sky_key = _sky_key(eplan, samples, pose_sig, d_thresh, background,
+                           cfg)
+        found, sky = _sky_probe(splan, sky_key)
+        if found:
+            sky_key = None  # a memoised plan, or memoised not worth it
+    if sky is None:
+        kcand, rmax = _plan_widths(
+            splan, eplan, omms_p, pos, ls,
+            (eplan.sig, samples, pose_sig, use_cache, d_thresh), near_mask)
+        row_counts, packed_mm = _packed_plan(
+            splan, eplan, omms_p, pos, ls, pose_sig, samples, kcand, rmax,
+            near_mask=near_mask, d_thresh=d_thresh)
+        if sky_key is not None:
+            sky = _sky_build(splan, eplan, omms_p, ls, samples, kcand, rmax,
+                             cache, cache_shape, row_counts, packed_mm)
+            _sky_put(splan, sky_key, sky, cfg)
+            if sky is not None:
+                # the compacted plan supersedes the dense pack at this pose
+                splan.packed_store.pop(_packed_key(
+                    eplan, samples, pose_sig, kcand, rmax, True, d_thresh,
+                    cfg), None)
+    ng, omms_f = eplan.ng, omms_p
+    sky_means = sky_scatter = None
+    if sky is not None:
+        (packed_mm, row_counts, omms_f, sky_scatter, sky_means, ng, kcand,
+         rmax) = sky
+    splay, spin = sample_angles_ns(generator, omms_f[:, 6] / FWHM_SD_RATIO,
                                    samples)
     means_p = _trace_shade_angles(
         packed_mm, row_counts, splan.attr_table, scene_dev,
-        splan.quad_table, omms_p, pos, ls, splay, spin, samples=samples,
-        background=background, ng=eplan.ng, g=eplan.g, nrb=eplan.nrb,
+        splan.quad_table, omms_f, pos, ls, splay, spin, samples=samples,
+        background=background, ng=ng, g=eplan.g, nrb=eplan.nrb,
         rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
-        tex_only=splan.tex_only, tracer=tracer)
+        tex_only=splan.tex_only, tracer=tracer, cache=cache,
+        cache_shape=cache_shape, sky_means=sky_means,
+        sky_scatter=sky_scatter)
     return means_p[inv_valid]

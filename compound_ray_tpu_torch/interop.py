@@ -18,7 +18,8 @@ from compound_ray_tpu_torch.eye.pipeline import ScenePlan
 
 def scene_plan_from_arrays(device, *, mm_flat, attr_table, slot_center_cl,
                            slot_radius_cl, slot_tri_cl, half_center,
-                           half_radius, quad_table, textured: bool,
+                           half_radius, quad_table, payload,
+                           sphere_center_np, sphere_radius_np, textured: bool,
                            tex_only: bool) -> ScenePlan:
     """The port's ScenePlan on `device` from a JAX ScenePlan's tables, given
     under their JAX field names."""
@@ -27,7 +28,8 @@ def scene_plan_from_arrays(device, *, mm_flat, attr_table, slot_center_cl,
         slot_center_cl=slot_center_cl, slot_radius_cl=slot_radius_cl,
         slot_tri_cl=slot_tri_cl, half_center=half_center,
         half_radius=half_radius, quad_table=quad_table, textured=textured,
-        tex_only=tex_only)
+        tex_only=tex_only, payload=payload, sphere_center=sphere_center_np,
+        sphere_radius=sphere_radius_np)
 
 
 def packed_from_arrays(row_counts, packed_mm, device):

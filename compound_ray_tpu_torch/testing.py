@@ -7,6 +7,7 @@ the end, small frames traced from fixed angles for the card checks.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from types import SimpleNamespace
 from typing import List, Tuple
@@ -257,35 +258,63 @@ def make_two_texture_scene(background: str = "black") -> FlatScene:
 
 
 def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
-               device, seed: int = 0) -> SimpleNamespace:
+               device, seed: int = 0, cache_width: int = 0,
+               sky: bool = False) -> SimpleNamespace:
     """A small frame on `device`: scene and eye plans, the permuted
     ommatidia, the pose (local space = identity), its packed payload at the
-    measured widths, and (n_pad, samples) splay and spin angles drawn with
-    numpy from `seed`, so every device traces the same rays."""
+    measured widths, and splay and spin angles for every traced group drawn
+    with numpy from `seed`, so every device traces the same rays.
+    cache_width > 0 turns the far-field cache on at that width (it must
+    engage): the pack then holds the near clusters only.  sky also splits
+    the frame (it must not decline): the compacted live groups are traced
+    and the others take their cache expectation."""
     device = torch.device(device)
     splan = P.scene_plan(scene, device)
     eplan = P.eye_plan(omms, samples)
     omms_p, inv = eplan.device_arrays(omms, device)
-    tpos = torch.tensor(np.asarray(pos, np.float32), device=device)
+    pos_np = np.asarray(pos, np.float32)
+    tpos = torch.tensor(pos_np, device=device)
     tls = torch.eye(3, device=device)
-    kcand, rmax = P._plan_widths(splan, eplan, omms_p, tpos, tls,
-                                 (eplan.sig, samples, str(device).encode()))
+    near, cache, d_thresh = None, None, 0.0
+    if cache_width:
+        cfg = dataclasses.replace(get_config(), farfield="auto",
+                                  farfield_cache_width=cache_width)
+        near, cache, d_thresh = P._farfield_plan(
+            splan, eplan, scene.device_triangles(device), omms, pos_np,
+            np.eye(3, dtype=np.float32), samples,
+            miss_id(scene.background_shader), cfg)
+        if near is None:
+            raise ValueError("the far-field cache does not engage here")
+    kcand, rmax = P._plan_widths(
+        splan, eplan, omms_p, tpos, tls,
+        (eplan.sig, samples, pos_np.tobytes(), near is not None, d_thresh),
+        near)
     rc, pmm = P._pack_fused(
         splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
         splan.half_center, splan.half_radius, omms_p, tpos, tls, g=eplan.g,
         kcand=kcand, rmax=rmax, cull_sigmas=get_config().cull_sigmas,
-        tri_cl=splan.slot_tri_cl)
+        tri_cl=splan.slot_tri_cl, near_mask=near)
+    ng, omms_f, sky_means, scatter = eplan.ng, omms_p, None, None
+    if sky:
+        split = P._sky_build(splan, eplan, omms_p, tls, samples, kcand,
+                             rmax, cache, (cache_width // 2, cache_width),
+                             rc, pmm)
+        if split is None:
+            raise ValueError("the sky split declines here")
+        pmm, rc, omms_f, scatter, sky_means, ng, _, _ = split
     rng = np.random.default_rng(seed)
-    sd = omms[eplan.perm][:, 6] / P.FWHM_SD_RATIO
-    shape = (eplan.n_pad, samples)
+    sd = omms_f[:, 6].cpu().numpy() / P.FWHM_SD_RATIO
+    shape = (omms_f.shape[0], samples)
     splay = torch.tensor(rng.standard_normal(shape) * sd[:, None],
                          dtype=torch.float32, device=device)
     spin = torch.tensor(rng.uniform(size=shape) * np.pi,
                         dtype=torch.float32, device=device)
-    return SimpleNamespace(splan=splan, eplan=eplan, omms_p=omms_p, inv=inv,
+    return SimpleNamespace(splan=splan, eplan=eplan, omms_p=omms_f, inv=inv,
                            pos=tpos, ls=tls, row_counts=rc, packed_mm=pmm,
                            rmax=rmax, splay=splay, spin=spin,
-                           samples=samples)
+                           samples=samples, cache=cache,
+                           cache_shape=(cache_width // 2, cache_width),
+                           ng=ng, sky_means=sky_means, sky_scatter=scatter)
 
 
 def frame_means(scene: FlatScene, f: SimpleNamespace) -> np.ndarray:
@@ -295,9 +324,11 @@ def frame_means(scene: FlatScene, f: SimpleNamespace) -> np.ndarray:
         f.packed_mm, f.row_counts, f.splan.attr_table,
         scene.device_triangles(f.pos.device), f.splan.quad_table, f.omms_p,
         f.pos, f.ls, f.splay, f.spin, samples=f.samples,
-        background=miss_id(scene.background_shader), ng=ep.ng, g=ep.g,
+        background=miss_id(scene.background_shader), ng=f.ng, g=ep.g,
         nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax,
-        textured=f.splan.textured, tex_only=f.splan.tex_only)
+        textured=f.splan.textured, tex_only=f.splan.tex_only, cache=f.cache,
+        cache_shape=f.cache_shape, sky_means=f.sky_means,
+        sky_scatter=f.sky_scatter)
     return means[f.inv].cpu().numpy()
 
 
@@ -312,5 +343,44 @@ def hit_agreement(ref, got, row_counts, rg: int):
     err = (t_got - t_ref).abs()
     rel = err / t_ref.abs().clamp(min=1e-30)
     return (agree.double().mean().item(),
+            err.max().item() if err.numel() else 0.0,
+            rel.max().item() if rel.numel() else 0.0)
+
+
+def cache_trace_inputs(scene: FlatScene, omms: np.ndarray, pos, device,
+                       width: int, all_far: bool = False) -> SimpleNamespace:
+    """K2's inputs of the far-field cache of `omms` at `pos` (local space =
+    identity) on `device`, as _render_cache traces them: counts, ids, dmin,
+    payload, rays and the shape keywords.  all_far puts every cluster in
+    the cache instead of the far ones only."""
+    device = torch.device(device)
+    splan = P.scene_plan(scene, device)
+    far, center, _ = P._farfield_split(
+        splan, omms, np.asarray(pos, np.float32), np.eye(3),
+        get_config().farfield_tolerance)
+    if all_far:
+        far = np.ones_like(far)
+    kmax = min(splan.num_clusters, 256)
+    _, counts, ids, dmin, rays = P._cache_trace_inputs(
+        splan.half_center, splan.half_radius,
+        torch.tensor(np.asarray(center, np.float32), device=device),
+        torch.tensor(far, device=device), width, kmax)
+    return SimpleNamespace(
+        counts=counts, ids=ids, dmin=dmin, payload=splan.payload, rays=rays,
+        far=far, kw=dict(ng=counts.shape[0], nrb=1, rb_size=P._CACHE_TILE,
+                         kmax=kmax))
+
+
+def cluster_hit_agreement(ref, got, counts, rg: int):
+    """Two (R, 8) cluster-tracer outputs on live rays (groups with
+    counts > 0): the share of equal (cluster, lane) winners, and the max
+    absolute and max relative t error where the winners agree and hit."""
+    live = torch.repeat_interleave(counts > 0, rg)
+    r, g = ref[live], got[live]
+    agree = (r[:, 3] == g[:, 3]) & (r[:, 4] == g[:, 4])
+    both = agree & torch.isfinite(r[:, 0])
+    err = (g[both, 0] - r[both, 0]).abs()
+    rel = err / r[both, 0].abs().clamp(min=1e-30)
+    return (agree.double().mean().item() if agree.numel() else 1.0,
             err.max().item() if err.numel() else 0.0,
             rel.max().item() if rel.numel() else 0.0)

@@ -21,8 +21,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "compound_ray_tpu_torch")
-# no --use_fast_math: the packed tracer's padding columns mask themselves
-# only under IEEE division and NaN comparisons
+# no --use_fast_math: the tracers' padding columns mask themselves only
+# under IEEE division and NaN comparisons
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,38 +47,67 @@ def _nvcc() -> str:
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless a library of the same source and flags
     exists; return the library's path."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    if os.path.isfile(lib):
-        build_info.setdefault(name, (0.0, "cached: " + lib))
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                           f"{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    build_info[name] = (seconds, log)
+    return build_many([name])[name]
+
+
+def build_many(names) -> Dict[str, str]:
+    """build() for several kernels, with one nvcc process per source, all
+    started together; returns {name: library path}."""
+    paths: Dict[str, str] = {}
+    running = []
+    for name in names:
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        lib = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+        paths[name] = lib
+        if os.path.isfile(lib):
+            build_info.setdefault(name, (0.0, "cached: " + lib))
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, src, tmp, lib, proc, time.perf_counter()))
+    failed = []
+    for name, src, tmp, lib, proc, t0 in running:
+        log = proc.communicate()[0].strip()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
+        build_info[name] = (seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def _load(name: str, entry: str, argtypes) -> ctypes.CDLL:
+    """csrc/<name>.cu's library with its C entry point's signature declared;
+    built and loaded once per process."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build(name))
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
     return lib
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def packed_tracer_lib() -> ctypes.CDLL:
-    """The K1 library (csrc/packed_tracer.cu) with its C signature declared."""
-    lib = _libs.get("packed_tracer")
-    if lib is None:
-        lib = ctypes.CDLL(build("packed_tracer"))
-        lib.cr_packed_tracer.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p,
-        ]
-        lib.cr_packed_tracer.restype = ctypes.c_int
-        _libs["packed_tracer"] = lib
-    return lib
+    """The K1 library (csrc/packed_tracer.cu)."""
+    return _load("packed_tracer", "cr_packed_tracer",
+                 [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P])
+
+
+def cluster_tracer_lib() -> ctypes.CDLL:
+    """The K2 library (csrc/cluster_tracer.cu)."""
+    return _load("cluster_tracer", "cr_cluster_tracer",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])

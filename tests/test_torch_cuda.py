@@ -5,8 +5,9 @@ JAX-free, so the file runs where JAX is absent (the card's machine):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Inputs come from the port's own pipeline.  Thresholds as in
-tests/test_torch_k1.py: slot ids equal on >= 99.9 % of live rays, t within
-rtol 1e-5 where the slots agree; frame means within 2e-4.
+tests/test_torch_k1.py: slot ids (K1) or cluster and lane (K2) equal on
+>= 99.9 % of live rays, t within rtol 1e-5 where they agree (the kernels
+fuse products into FMAs, the twins do not); frame means within 2e-4.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 from compound_ray_tpu_torch import testing
 from compound_ray_tpu_torch.eye import pipeline as P
 from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
+from compound_ray_tpu_torch.trace import cluster_tracer as CT
 from compound_ray_tpu_torch.trace import mm_tracer as TM
 
 SLOT_AGREE = 0.999
@@ -71,4 +73,51 @@ def test_frame_on_card_matches_cpu(cuda_device, name):
         scene = getattr(testing, name)()
         out.append(testing.frame_means(
             scene, testing.frame_pack(scene, omms, 96, pos, dev)))
+    np.testing.assert_allclose(out[0], out[1], atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("size", ["small", "medium"])
+def test_k2_matches_twin(cuda_device, size, early_exit):
+    """K2 on a far-field cache's own inputs, every cluster in the cache:
+    small = the 200-box scene at width 64 (8 tiles, KP 128); medium = the
+    2000-box bench scene at width 256 (128 tiles, KP 256)."""
+    if size == "small":
+        scene, width, pos = testing.make_big_scene(200, seed=11), 64, (
+            0.0, 2.0, 0.0)
+    else:
+        scene, width = testing.make_big_scene(2000, seed=0), 256
+        c = scene.aabb_center()
+        pos = (float(c[0]), float(c[1]) + 1.0, float(c[2]))
+    omms = ommatidia_to_array(testing.make_sphere_eye(64, 4.0))
+    c = testing.cache_trace_inputs(scene, omms, pos, cuda_device, width,
+                                   all_far=True)
+    args = (c.counts, c.ids, c.dmin, c.payload, c.rays)
+    before = CT.launches
+    got = CT.run_tracer_kernel(*args, early_exit=early_exit, **c.kw)
+    torch.cuda.synchronize()
+    assert CT.launches == before + 1
+    ref = CT.cluster_tracer_reference(*args, early_exit=early_exit, **c.kw)
+    agree, _, max_rel = testing.cluster_hit_agreement(ref, got, c.counts,
+                                                      c.kw["rb_size"])
+    assert agree >= SLOT_AGREE
+    assert torch.isfinite(ref[:, 0]).float().mean() > 0.2
+    assert max_rel <= T_RTOL
+    assert torch.equal(got[:, 5:], torch.zeros_like(got[:, 5:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sky", [False, True], ids=["dense", "sky"])
+def test_cache_frame_on_card_matches_cpu(cuda_device, sky):
+    """A frame with the far-field cache on (64 wide), dense or with the sky
+    split, on the card (K1, K2) and on the CPU (the twins), from the same
+    numpy angles."""
+    omms = ommatidia_to_array(testing.make_sphere_eye(64, 4.0))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = testing.make_big_scene(200, seed=11)
+        out.append(testing.frame_means(scene, testing.frame_pack(
+            scene, omms, 128, (0.0, 2.0, 0.0), dev, cache_width=64,
+            sky=sky)))
     np.testing.assert_allclose(out[0], out[1], atol=ATOL)

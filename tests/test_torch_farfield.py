@@ -1,0 +1,427 @@
+"""Port vs JAX: the far-field radiance cache and the sky split.
+
+The setup of tests/test_sky_split.py:35-49: make_big_scene(200, seed=11)
+(32 clusters, 16 of them far), a 64-ommatidium 4-degree eye at (0, 2, 0),
+128 samples, and a 64-wide cache (64 x 128 rays >= 64 x 32 cache pixels, so
+the cache gate holds).  The textured case adds, from arrays and in both
+packages alike, a near and a far textured quad to the same box field.  The
+JAX side runs with farfield="auto", affine rays off, f32 tables
+(big_table_bf16_bytes=0), the exact equirect addressing (fast=False), its
+numpy cluster order and K1 at precision "highest"; K2 runs in interpret
+mode.  Both packages see the same numpy splay and spin angles.
+
+Tolerances: equirect lookups, the cache image and the sky expectation
+atol 1e-5 (transcendentals of two libraries); frame means atol 2e-4 (the
+tolerance of tests/test_torch_frame.py); plans and masks exactly.
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from compound_ray_tpu import config as jcfg  # noqa: E402
+from compound_ray_tpu import native_ext  # noqa: E402
+from compound_ray_tpu import testing as jtesting  # noqa: E402
+from compound_ray_tpu.eye import pipeline as JP  # noqa: E402
+from compound_ray_tpu.scene.eye_io import ommatidia_to_array  # noqa: E402
+from compound_ray_tpu_torch import EyeRenderer  # noqa: E402
+from compound_ray_tpu_torch import config as tcfg  # noqa: E402
+from compound_ray_tpu_torch import testing as ttesting  # noqa: E402
+from compound_ray_tpu_torch.cameras.types import CompoundEyeCamera  # noqa: E402
+from compound_ray_tpu_torch.eye import pipeline as TP  # noqa: E402
+
+LOOKUP_ATOL = 1e-5
+MEANS_ATOL = 2e-4
+WIDTH = 64
+SAMPLES = 128
+BG = 3  # simple_sky
+POS = np.array([0.0, 2.0, 0.0], np.float32)
+LS = np.eye(3, dtype=np.float32)
+
+
+def _configs(sky_split=False):
+    return (dataclasses.replace(
+        jcfg.RenderConfig(), farfield="auto", farfield_cache_width=WIDTH,
+        sky_split=sky_split, affine_rays=False, big_table_bf16_bytes=0),
+        tcfg.RenderConfig(farfield="auto", farfield_cache_width=WIDTH,
+                          sky_split=sky_split))
+
+
+@pytest.fixture
+def pinned(monkeypatch):
+    old = jcfg.get_config()
+    jc, tc = _configs()
+    jcfg.set_config(jc)
+    monkeypatch.setattr(native_ext, "build_cluster_order",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(JP, "_eye_plans", {})
+    monkeypatch.setattr(TP, "_eye_plans", {})
+    monkeypatch.setattr(tcfg, "_global_config", tc)
+    yield
+    jcfg.set_config(old)
+
+
+def _add_textured_quads(scene):
+    """Two textured quads (a near one at z = -4 and a far one at z = -40)
+    on a checker texture, appended to a FlatScene of either package."""
+    quads = [((-1.0, 1.0, -4.0), (1.0, 3.0, -4.0)),
+             ((-12.0, 0.0, -40.0), (12.0, 12.0, -40.0))]
+    p0, p1, p2, uv = [], [], [], []
+    for (x0, y0, z), (x1, y1, _) in quads:
+        a, b = np.array([x0, y0, z]), np.array([x1, y0, z])
+        c, d = np.array([x1, y1, z]), np.array([x0, y1, z])
+        p0 += [a, a]
+        p1 += [b, c]
+        p2 += [c, d]
+        uv += [([0, 0], [1, 0], [1, 1]), ([0, 0], [1, 1], [0, 1])]
+    p0, p1, p2 = (np.array(v, np.float32) for v in (p0, p1, p2))
+    uv = np.array(uv, np.float32)
+    nt = len(p0)
+    z3 = np.zeros((nt, 3), np.float32)
+    z4 = np.zeros((nt, 4), np.float32)
+    cat = np.concatenate
+    scene.v0 = cat([scene.v0, p0])
+    scene.e1 = cat([scene.e1, p1 - p0])
+    scene.e2 = cat([scene.e2, p2 - p0])
+    scene.n0, scene.n1, scene.n2 = (cat([n, z3]) for n in
+                                    (scene.n0, scene.n1, scene.n2))
+    scene.has_normals = cat([scene.has_normals, np.zeros(nt, bool)])
+    scene.uv0, scene.uv1, scene.uv2 = (cat([u, uv[:, i]]) for i, u in
+                                       enumerate((scene.uv0, scene.uv1,
+                                                  scene.uv2)))
+    scene.has_uv = cat([scene.has_uv, np.ones(nt, bool)])
+    scene.c0, scene.c1, scene.c2 = (cat([c, z4]) for c in
+                                    (scene.c0, scene.c1, scene.c2))
+    scene.has_color = cat([scene.has_color, np.zeros(nt, bool)])
+    m = scene.mat_base_color.shape[0]
+    scene.mat_id = cat([scene.mat_id, np.full(nt, m, np.int32)])
+    scene.mat_base_color = cat([scene.mat_base_color,
+                                np.ones((1, 4), np.float32)])
+    scene.mat_metallic = cat([scene.mat_metallic, np.zeros(1, np.float32)])
+    scene.mat_roughness = cat([scene.mat_roughness,
+                               np.full(1, 0.5, np.float32)])
+    scene.mat_tex = cat([scene.mat_tex, np.zeros(1, np.int32)])
+    scene.mat_mr_tex = cat([scene.mat_mr_tex, np.full(1, -1, np.int32)])
+    scene.mat_normal_tex = cat([scene.mat_normal_tex,
+                                np.full(1, -1, np.int32)])
+    yy, xx = np.mgrid[0:8, 0:8]
+    checker = ((xx + yy) % 2).astype(np.float32)
+    tex = np.stack([checker, 1.0 - checker, np.full_like(checker, 0.5),
+                    np.ones_like(checker)], axis=-1)
+    scene.tex_data = tex.reshape(-1, 4)
+    scene.tex_offset = np.array([0], np.int32)
+    scene.tex_width = scene.tex_height = np.array([8], np.int32)
+    scene.tex_wrap_s = scene.tex_wrap_t = np.array([0], np.int32)
+    scene.tex_filter = np.array([1], np.int32)
+    pts = cat([p0, p1, p2])
+    scene.aabb_min = np.minimum(scene.aabb_min, pts.min(axis=0))
+    scene.aabb_max = np.maximum(scene.aabb_max, pts.max(axis=0))
+    scene._device_cache = None
+    return scene
+
+
+def _pair(textured=False, samples=SAMPLES):
+    """Both packages' scene, plans and permuted eye at the test pose."""
+    js = jtesting.make_big_scene(n_boxes=200, seed=11)
+    ts = ttesting.make_big_scene(n_boxes=200, seed=11)
+    if textured:
+        js, ts = _add_textured_quads(js), _add_textured_quads(ts)
+    omms = ommatidia_to_array(jtesting.make_sphere_eye(64, 4.0))
+    jsp, tsp = JP.scene_plan(js), TP.scene_plan(ts, "cpu")
+    assert tsp.num_clusters == jsp.num_clusters == 32
+    assert tsp.textured == jsp.textured == textured
+    je, te = JP.eye_plan(omms, samples), TP.eye_plan(omms, samples)
+    to, _ = te.device_arrays(omms, "cpu")
+    return SimpleNamespace(
+        js=js, ts=ts, jsp=jsp, tsp=tsp, je=je, te=te, omms=omms,
+        jo=jnp.asarray(omms[je.perm]), to=to, samples=samples,
+        jdev=js.device_triangles(), tdev=ts.device_triangles("cpu"),
+        jpos=jnp.asarray(POS), jls=jnp.asarray(LS),
+        tpos=torch.tensor(POS), tls=torch.tensor(LS))
+
+
+def _farfield_both(p):
+    juse, jnear, jcache, jd = JP._farfield_plan(
+        p.jsp, p.je, p.jdev, p.omms, POS, LS, p.samples, BG, None,
+        jcfg.get_config())
+    tnear, tcache, td = TP._farfield_plan(
+        p.tsp, p.te, p.tdev, p.omms, POS, LS, p.samples, BG,
+        tcfg.get_config())
+    assert juse and tnear is not None, "the cache must engage at this pose"
+    return (jnear, jcache, jd), (tnear, tcache, td)
+
+
+def _packs(p, jnear, tnear):
+    """Near-masked packs of both packages at the JAX package's widths."""
+    kcand, rmax = JP._plan_widths(p.jsp, p.je, p.jo, p.jpos, p.jls,
+                                  (p.je.sig, p.samples, b"ff"))
+    jrc, jpm, _, _ = JP._pack_fused(
+        p.jsp.mm_flat, p.jsp.slot_center_cl, p.jsp.slot_radius_cl,
+        p.jsp.half_center, p.jsp.half_radius, p.jo, p.jpos, p.jls,
+        g=p.je.g, kcand=kcand, rmax=rmax, cull_sigmas=4.0,
+        near_mask=jnear, use_cache=True, tri_cl=p.jsp.slot_tri_cl)
+    trc, tpm = TP._pack_fused(
+        p.tsp.mm_flat, p.tsp.slot_center_cl, p.tsp.slot_radius_cl,
+        p.tsp.half_center, p.tsp.half_radius, p.to, p.tpos, p.tls,
+        g=p.te.g, kcand=kcand, rmax=rmax, cull_sigmas=4.0,
+        tri_cl=p.tsp.slot_tri_cl, near_mask=tnear)
+    np.testing.assert_array_equal(trc.numpy(), np.asarray(jrc))
+    return kcand, rmax, (jrc, jpm), (trc, tpm)
+
+
+def _angles(n, samples, seed=11):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((n, samples)) * 0.03).astype(np.float32),
+            (rng.uniform(size=(n, samples)) * np.pi).astype(np.float32))
+
+
+def _frames(p, jpack, tpack, jcache, tcache, rmax, ng, omms_f, splay, spin,
+            sky=(None, None, None, None)):
+    """Means of both packages' _trace_shade_angles on the same angles."""
+    jsky_means, jscatter, tsky_means, tscatter = sky
+    jo, to = omms_f
+    geo = dict(samples=p.samples, background=BG, ng=ng, g=p.je.g,
+               nrb=p.je.nrb, rb_size=p.je.rb_size, rmax=rmax,
+               textured=p.jsp.textured, tex_only=p.jsp.tex_only)
+    want = np.asarray(JP._trace_shade_angles(
+        jpack[1], jpack[0], p.jsp.attr_table, p.jdev, p.jsp.quad_table, jo,
+        p.jpos, p.jls, jnp.asarray(splay), jnp.asarray(spin),
+        cache=jcache, use_cache=True, cache_shape=(WIDTH // 2, WIDTH),
+        tex_static=p.jsp.tex_static, quad_gray=p.jsp.quad_gray,
+        precision="highest", direct1=False, sky_means=jsky_means,
+        sky_scatter=jscatter, **geo))
+    got = TP._trace_shade_angles(
+        tpack[1], tpack[0], p.tsp.attr_table, p.tdev, p.tsp.quad_table, to,
+        p.tpos, p.tls, torch.tensor(splay), torch.tensor(spin), cache=tcache,
+        cache_shape=(WIDTH // 2, WIDTH), sky_means=tsky_means,
+        sky_scatter=tscatter, **geo).numpy()
+    return want, got
+
+
+def test_equirect_helpers_match_jax():
+    h, w = WIDTH // 2, WIDTH
+    np.testing.assert_allclose(
+        TP._equirect_pixel_dirs(w, h, "cpu").numpy(),
+        np.asarray(JP._equirect_pixel_dirs(w, h)), atol=1e-6)
+    rng = np.random.default_rng(0)
+    img = rng.uniform(size=(h, w, 3)).astype(np.float32)
+    jq = np.asarray(JP.build_equirect_quads(jnp.asarray(img)))
+    tq = TP.build_equirect_quads(torch.tensor(img)).numpy()
+    np.testing.assert_array_equal(tq, jq)
+    d = rng.standard_normal((4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:8] = [[0, 1, 0], [0, -1, 0], [1, 0, 0], [-1, 0, 0], [0, 0, 1],
+             [0, 0, -1], [-1, 0, 1e-7], [-1, 0, -1e-7]]
+    ji, jfx, jfy = (np.asarray(x) for x in JP._equirect_coords_c(
+        h, w, *(jnp.asarray(d[:, i]) for i in range(3)), fast=False))
+    ti, tfx, tfy = (x.numpy() for x in TP._equirect_coords_c(
+        h, w, *(torch.tensor(d[:, i]) for i in range(3))))
+    assert (ti == ji).mean() > 0.999
+    same = ti == ji
+    # fx, fy are fractions of x = u * w - 0.5, which reaches w: a few f32
+    # ulps of x at w = 64 are a few 1e-6 each
+    np.testing.assert_allclose(tfx[same], jfx[same], atol=5e-5)
+    np.testing.assert_allclose(tfy[same], jfy[same], atol=5e-5)
+    np.testing.assert_allclose(
+        TP.sample_equirect(torch.tensor(tq), torch.tensor(d)).numpy(),
+        np.asarray(JP.sample_equirect(jnp.asarray(jq), jnp.asarray(d))),
+        atol=LOOKUP_ATOL)
+
+
+def test_threshold_and_near_mask_match_jax(pinned):
+    p = _pair()
+    assert TP._farfield_threshold(p.omms, 0.25) == JP._farfield_threshold(
+        p.omms, 0.25) > 0.0
+    (jnear, _, jd), (tnear, _, td) = _farfield_both(p)
+    assert td == jd
+    np.testing.assert_array_equal(tnear.numpy(), np.asarray(jnear))
+    assert int((~tnear).sum()) == 16
+    # fewer rays than cache pixels: the gate keeps the cache off
+    few = TP.eye_plan(p.omms, 16)
+    assert TP._farfield_plan(p.tsp, few, p.tdev, p.omms, POS, LS, 16, BG,
+                             tcfg.get_config()) == (None, None, 0.0)
+    off = tcfg.RenderConfig(farfield="off", farfield_cache_width=WIDTH)
+    assert TP._farfield_plan(p.tsp, p.te, p.tdev, p.omms, POS, LS,
+                             SAMPLES, BG, off) == (None, None, 0.0)
+
+
+@pytest.mark.parametrize("textured", [False, True],
+                         ids=["untextured", "textured"])
+@pytest.mark.parametrize("far", ["split", "all"])
+def test_render_cache_matches_jax(pinned, textured, far):
+    p = _pair(textured)
+    if far == "split":
+        (jnear, _, _), _ = _farfield_both(p)
+        far_np = ~np.asarray(jnear)
+    else:
+        far_np = np.ones(32, bool)
+    center = POS + p.omms[:, 0:3].mean(axis=0)
+    kw = dict(width=WIDTH, background=BG, kmax=32, textured=textured,
+              tex_only=False)
+    want = np.asarray(JP._render_cache(
+        p.jsp.payload, p.jsp.attr_table, p.jdev, p.jsp.quad_table,
+        p.jsp.half_center, p.jsp.half_radius, jnp.asarray(center),
+        jnp.asarray(far_np), **kw))
+    got = TP._render_cache(
+        p.tsp.payload, p.tsp.attr_table, p.tdev, p.tsp.quad_table,
+        p.tsp.half_center, p.tsp.half_radius, torch.tensor(center),
+        torch.tensor(far_np), **kw).numpy()
+    assert got.shape == (WIDTH // 2, WIDTH, 3)
+    np.testing.assert_allclose(got, want, atol=LOOKUP_ATOL)
+    sky = np.asarray(JP._render_cache(
+        p.jsp.payload, p.jsp.attr_table, p.jdev, p.jsp.quad_table,
+        p.jsp.half_center, p.jsp.half_radius, jnp.asarray(center),
+        jnp.zeros(32, bool), **kw))
+    assert np.abs(want - sky).max() > 0.1, "the cache must show geometry"
+
+
+@pytest.mark.parametrize("textured", [False, True],
+                         ids=["untextured", "textured"])
+def test_trace_shade_angles_with_cache_matches_jax(pinned, textured):
+    p = _pair(textured)
+    (jnear, jcache, _), (tnear, tcache, _) = _farfield_both(p)
+    assert tuple(tcache.shape) == tuple(jcache.shape)
+    np.testing.assert_allclose(tcache.numpy(), np.asarray(jcache),
+                               atol=LOOKUP_ATOL)
+    kcand, rmax, jpack, tpack = _packs(p, jnear, tnear)
+    splay, spin = _angles(p.te.n_pad, p.samples)
+    want, got = _frames(p, jpack, tpack, jcache, tcache, rmax, p.te.ng,
+                        (p.jo, p.to), splay, spin)
+    assert np.isfinite(got).all() and got.shape == (64, 3)
+    np.testing.assert_allclose(got, want, atol=MEANS_ATOL)
+
+
+@pytest.mark.parametrize("textured", [False, True],
+                         ids=["untextured", "textured"])
+def test_sky_expectation_matches_jax(pinned, textured):
+    p = _pair(textured)
+    (_, jcache, _), (_, tcache, _) = _farfield_both(p)
+    ch, cw = WIDTH // 2, WIDTH
+    off = tcache.shape[0] - ch * cw if textured else 0
+    want = np.asarray(JP._sky_expectation(
+        jcache, p.jo, p.jls, nq_splay=16, nq_spin=8, cache_shape=(ch, cw),
+        row_offset=off))
+    got = TP._sky_expectation(tcache, p.to, p.tls, 16, 8, (ch, cw),
+                              off).numpy()
+    assert got.shape == (64, 3)
+    np.testing.assert_allclose(got, want, atol=LOOKUP_ATOL)
+
+
+def test_sky_plan_and_means_match_jax(pinned):
+    jcfg.set_config(_configs(sky_split=True)[0])
+    tcfg.set_config(_configs(sky_split=True)[1])
+    p = _pair()
+    (jnear, jcache, _), (tnear, tcache, _) = _farfield_both(p)
+    kcand, rmax, jpack, tpack = _packs(p, jnear, tnear)
+    jsky = JP._sky_build(p.jsp, p.je, p.jo, p.jls, p.samples, kcand, rmax,
+                         jcache, jpack[0], jpack[1])
+    tsky = TP._sky_build(p.tsp, p.te, p.to, p.tls, p.samples, kcand, rmax,
+                         tcache, (WIDTH // 2, WIDTH), tpack[0], tpack[1])
+    assert jsky is not None and tsky is not None, "the split must engage"
+    (jpm, jrc, jo, jscatter, jmeans, jngl, _, _) = jsky
+    (tpm, trc, to, tscatter, tmeans, tngl, _, _) = tsky
+    assert tngl == jngl == 64
+    np.testing.assert_array_equal(tscatter.numpy(), np.asarray(jscatter))
+    np.testing.assert_array_equal(trc.numpy(), np.asarray(jrc))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    assert (trc.numpy() == 0).sum() > 0 and (tscatter.numpy() == 64).any()
+    np.testing.assert_allclose(tmeans.numpy(), np.asarray(jmeans),
+                               atol=LOOKUP_ATOL)
+    splay, spin = _angles(tngl, p.samples, seed=4)
+    want, got = _frames(p, (jrc, jpm), (trc, tpm), jcache, tcache, rmax,
+                        tngl, (jo, to), splay, spin,
+                        sky=(jmeans, jscatter, tmeans, tscatter))
+    assert got.shape == (64, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=MEANS_ATOL)
+
+
+def test_dense_and_cache_packs_never_share_a_key(pinned):
+    """A dense frame and then a cache frame at one pose: two packs, two
+    width entries, and the cache frame traces only the near clusters."""
+    p = _pair()
+    gen = torch.Generator().manual_seed(1)
+    args = (p.ts, p.tdev, p.omms, POS, LS)
+    tcfg.set_config(tcfg.RenderConfig(farfield="off",
+                                      farfield_cache_width=WIDTH))
+    TP.render_means(*args, gen, p.samples, BG)
+    dense = list(p.tsp.packed_store.values())
+    tcfg.set_config(_configs()[1])
+    TP.render_means(*args, gen, p.samples, BG)
+    assert len(p.tsp.packed_store) == 2 and len(p.tsp.cache_store) == 1
+    near_rc = list(p.tsp.packed_store.values())[1][0]
+    # the near-masked pack drops the far clusters' rows
+    assert (near_rc <= dense[0][0]).all() and (near_rc < dense[0][0]).any()
+    widths = [k for k in p.tsp.kmax_cache if isinstance(k, tuple)
+              and len(k) == 6]
+    assert len(widths) == 2
+
+
+def _port_renderer(samples, sky_split, cache_width=WIDTH):
+    tcfg.set_config(tcfg.RenderConfig(
+        farfield="auto", farfield_cache_width=cache_width,
+        sky_split=sky_split))
+    r = EyeRenderer(device="cpu")
+    r.scene = ttesting.make_big_scene(n_boxes=200, seed=11)
+    r.scene.cameras.append(CompoundEyeCamera(
+        "eye", "single_dimension_fast", ttesting.make_sphere_eye(64, 4.0)))
+    r.goto_camera(len(r.scene.cameras) - 1)
+    r.current_camera().set_position((0.0, 2.0, 0.0))
+    r.set_current_eye_samples_per_ommatidium(samples)
+    return r
+
+
+def test_eye_renderer_far_field_matches_direct_frame(pinned):
+    """The same generator seed with the cache on and off: the same rays,
+    so the frames differ only by the cache's resolution and parallax
+    (bound of tests/test_pallas_tracer.py:219-220)."""
+    r = _port_renderer(SAMPLES, sky_split=False)
+    r.render_frame()
+    cached = r.get_camera_data().copy()
+    splan = r.scene._kernel_plan
+    assert len(splan.cache_store) == 1
+    tcfg.set_config(tcfg.RenderConfig(farfield="off"))
+    r.current_camera().rng_frame -= 1
+    r.render_frame()
+    direct = r.get_camera_data()
+    assert np.isfinite(cached).all()
+    assert cached.min() >= 0.0 and cached.max() <= 1.0 + 1e-5
+    assert np.abs(cached - direct).mean() < 0.02
+
+
+def test_eye_renderer_sky_split(pinned, monkeypatch):
+    """Sky split on: close to the dense cache frame, sky groups identical
+    across seeds, the dense pack evicted, and the memoised pose served
+    without planning widths or packs (tests/test_sky_split.py:143-205)."""
+    r = _port_renderer(SAMPLES, sky_split=False)
+    r.render_frame()
+    dense = r.get_camera_data().copy()
+    tcfg.set_config(_configs(sky_split=True)[1])
+    r.current_camera().rng_frame -= 1
+    r.render_frame()
+    split = r.get_camera_data().copy()
+    splan = r.scene._kernel_plan
+    plans = [v for v in splan.sky_store.values() if v is not None]
+    assert len(plans) == 1, "the split must engage at this pose"
+    assert not any(k[5] for k in splan.packed_store), (
+        "the compacted plan replaces the cache frame's dense pack")
+    calls = []
+    monkeypatch.setattr(TP, "_plan_widths",
+                        lambda *a, **k: calls.append(1))
+    r.render_frame()
+    split2 = r.get_camera_data()
+    assert not calls, "a memoised sky pose needs no width plan"
+    scatter = plans[0][3].numpy()
+    eplan = TP.eye_plan(r.current_camera().ommatidia, SAMPLES)
+    live = np.unique(scatter[scatter < eplan.ng])
+    sky_orig = eplan.perm[np.setdiff1d(np.arange(eplan.ng), live)]
+    assert sky_orig.size > 0
+    assert np.isfinite(split).all()
+    assert np.abs(split - dense).mean() < 0.02
+    np.testing.assert_array_equal(split[sky_orig], split2[sky_orig])

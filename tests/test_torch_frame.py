@@ -6,7 +6,8 @@
    angle of 1e-6 rad makes every sample of an ommatidium the same ray, so
    the two draws do not matter.
 Both at max abs 2e-4 on the means (the tolerance of tests/test_emit_flat.py).
-The JAX side runs with the far field, the sky split and affine rays off and
+Both packages run with the far field off (tests/test_torch_farfield.py
+holds the cache); the JAX side also with the sky split and affine rays off and
 K1 at precision "highest" (the port's f32 contract); its emit mode follows
 the scene (uv/uvs/flat/bary), the port always emits bary.
 """
@@ -51,7 +52,8 @@ def jax_unlit(monkeypatch):
     jcfg.set_config(dataclasses.replace(
         old, farfield="off", sky_split=False, affine_rays=False,
         backend="pallas"))
-    monkeypatch.setattr(tcfg, "_global_config", tcfg.RenderConfig())
+    monkeypatch.setattr(tcfg, "_global_config",
+                        tcfg.RenderConfig(farfield="off"))
     yield
     jcfg.set_config(old)
 
@@ -105,7 +107,8 @@ def test_trace_shade_angles_matches_jax(jax_unlit, case):
     tplan = interop.scene_plan_from_arrays(
         "cpu", **{k: np.asarray(getattr(splan, k)) for k in (
             "mm_flat", "attr_table", "slot_center_cl", "slot_radius_cl",
-            "slot_tri_cl", "half_center", "half_radius", "quad_table")},
+            "slot_tri_cl", "half_center", "half_radius", "quad_table",
+            "payload", "sphere_center_np", "sphere_radius_np")},
         textured=splan.textured, tex_only=splan.tex_only)
     trc, tpm = interop.packed_from_arrays(rc, pmm, "cpu")
     got = TP._trace_shade_angles(
@@ -192,16 +195,34 @@ def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
 
 
 def test_config_refuses_the_far_field(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.RenderConfig(farfield="auto")
-    monkeypatch.setenv("CR_TPU_FARFIELD", "auto")
-    with pytest.raises(NotImplementedError):
+    """The far field is on ("auto") by default, as in the JAX package
+    (compound_ray_tpu/config.py:64); "off" is accepted and any other mode
+    is refused."""
+    for name in ("CR_TPU_FARFIELD", "CR_TPU_SKY_SPLIT",
+                 "CR_TPU_FARFIELD_WIDTH"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = tcfg.RenderConfig.from_env()
+    assert (cfg.farfield, cfg.farfield_tolerance, cfg.farfield_cache_width,
+            cfg.sky_split, cfg.sky_quad_splay, cfg.sky_quad_spin) == (
+        "auto", 0.25, 1024, False, 16, 8)
+    for mode in ("on", "AUTO", ""):
+        with pytest.raises(ValueError, match="farfield"):
+            tcfg.RenderConfig(farfield=mode)
+    monkeypatch.setenv("CR_TPU_FARFIELD", "always")
+    with pytest.raises(ValueError):
         tcfg.RenderConfig.from_env()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tcfg.RenderConfig(farfield_cache_width=100)
     monkeypatch.setenv("CR_TPU_FARFIELD", "off")
     monkeypatch.setenv("CR_TPU_CULL_SIGMAS", "3.5")
     monkeypatch.setenv("CR_TPU_SEED", "7")
+    monkeypatch.setenv("CR_TPU_SKY_SPLIT", "1")
+    monkeypatch.setenv("CR_TPU_FARFIELD_WIDTH", "256")
     cfg = tcfg.RenderConfig.from_env()
-    assert (cfg.farfield, cfg.cull_sigmas, cfg.base_seed) == ("off", 3.5, 7)
+    assert (cfg.farfield, cfg.cull_sigmas, cfg.base_seed, cfg.sky_split,
+            cfg.farfield_cache_width) == ("off", 3.5, 7, True, 256)
+    monkeypatch.setenv("CR_TPU_SKY_SPLIT", "off")
+    assert tcfg.RenderConfig.from_env().sky_split is False
     for mode in ("sphere", "fast"):
         with pytest.raises(NotImplementedError, match="exact"):
             tcfg.RenderConfig(refine_mode=mode)
