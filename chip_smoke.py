@@ -7,20 +7,24 @@ speed-test size: make_big_scene(n_boxes=2000, seed=0) (24,012 triangles,
 256 clusters), a 1000-ommatidium sphere eye at 2.6 degrees, the bench pose
 (last camera at the scene AABB centre + 1 in y; bench.py), with the
 far-field cache off (100 and 3200 samples per ommatidium), on (3200
-samples: a 1024 x 512 cache rendered by K2) and on with the sky split
-(3200 samples).  Phases, each failing loudly:
+samples: a 1024 x 512 cache rendered by K2), on with the sky split (3200
+samples), and lit (3200 samples, the four default lights: K1 and the
+shadow rays on K3).  Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
-  2. build K1 (csrc/packed_tracer.cu) and K2 (csrc/cluster_tracer.cu) with
-     nvcc for sm_90a, one process per source, started together;
+  2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu) and K3
+     (csrc/rows_occlusion.cu) with nvcc for sm_90a, one process per source,
+     started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
-     and the near-clusters pack of the cache frame);
+     and the near-clusters pack of the cache frame), and K3 against its
+     twin on the first lit frame's own shadow table and rays;
   4. K2 against its torch twin at the bench cache's real shapes;
-  5. the three paths through EyeRenderer(device="cuda"), with the launch
+  5. the four paths through EyeRenderer(device="cuda"), with the launch
      counts set to 0 before each and read after it;
   6. each path's frame against a reference: the twin-rendered frames, the
      direct frame for the cache, the dense cache frame for the sky split,
-     and small scenes on the card against the CPU.
-The last two lines are the kernel table and {"ok": true, "device": ...}.
+     the unlit frame for the lit one, and small scenes on the card against
+     the CPU.
+The last lines are the kernel table, the card and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -48,6 +52,13 @@ K1_REPLACES = "compound_ray_tpu/trace/mm_tracer.py:1078"
 K1_SOURCE = "compound_ray_tpu_torch/csrc/packed_tracer.cu"
 K2_REPLACES = "compound_ray_tpu/trace/pallas_tracer.py:420"
 K2_SOURCE = "compound_ray_tpu_torch/csrc/cluster_tracer.cu"
+K3_REPLACES = "compound_ray_tpu/trace/mm_tracer.py:970"
+K3_SOURCE = "compound_ray_tpu_torch/csrc/rows_occlusion.cu"
+# K3 vs twin: decisions equal on this share of live shadow rays (the kernel
+# sums in the twin's order without FMAs, so 100 % is expected)
+K3_AGREE = 0.9999
+SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
+           ("rows_occlusion", K3_SOURCE))
 
 
 def _card_line() -> str:
@@ -101,19 +112,20 @@ def _time_ms(fn, iters: int, warmup: int) -> float:
 
 
 def build_kernels():
-    """Phase 2: both sources through nvcc at once; prints what ptxas says."""
+    """Phase 2: the three sources through nvcc at once; prints what ptxas
+    says."""
     from compound_ray_tpu_torch.trace import _build
 
     t0 = time.perf_counter()
-    paths = _build.build_many(["packed_tracer", "cluster_tracer"])
+    paths = _build.build_many([name for name, _ in SOURCES])
     _build.packed_tracer_lib()
     _build.cluster_tracer_lib()
+    _build.rows_occlusion_lib()
     wall = time.perf_counter() - t0
-    for name, src in (("packed_tracer", K1_SOURCE),
-                      ("cluster_tracer", K2_SOURCE)):
+    for name, src in SOURCES:
         secs, log = _build.build_info[name]
         print(f"phase 2: {name} built from {src} with nvcc for sm_90a in "
-              f"{secs:.2f} s ({wall:.2f} s for both with load): "
+              f"{secs:.2f} s ({wall:.2f} s for all with load): "
               f"{paths[name]}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -238,12 +250,15 @@ def k2_vs_twin(r, cam):
     return res
 
 
-def _check_means(means, what):
+def _check_means(means, what, lit: bool = False):
+    """Finite (N, 3) means in [0, 1]; lit means only >= 0, since GGX adds
+    unclamped light."""
     if means.shape != (N_OMM, 3) or not np.isfinite(means).all():
         raise AssertionError(f"bad means: {what}")
-    if means.min() < 0.0 or means.max() > 1.0 + 1e-5:
+    if means.min() < 0.0 or (not lit and means.max() > 1.0 + 1e-5):
         raise AssertionError(
-            f"means out of [0, 1] ({what}): {means.min()} .. {means.max()}")
+            f"means out of {'[0, inf)' if lit else '[0, 1]'} ({what}): "
+            f"{means.min()} .. {means.max()}")
 
 
 def frames(r, samples: int, first_builds_cache: bool = False):
@@ -298,18 +313,21 @@ def _report(tag, res):
 
 def _path(r, name, run):
     """Run one main path with the launch counts set to 0 just before it;
-    returns (its result, K1 launches, K2 launches)."""
+    returns (its result, K1 launches, K2 launches, K3 launches)."""
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
 
     mm_tracer.launches = 0
     cluster_tracer.launches = 0
+    mm_tracer.occlusion_launches = 0
     res = run()
     k1, k2 = mm_tracer.launches, cluster_tracer.launches
-    print(f"phase 5: {name}: K1 launches {k1}, K2 launches {k2}")
-    return res, k1, k2
+    k3 = mm_tracer.occlusion_launches
+    print(f"phase 5: {name}: K1 launches {k1}, K2 launches {k2}, K3 "
+          f"launches {k3}")
+    return res, k1, k2, k3
 
 
-def _render(r, cam, seed_frame: int, **kw):
+def _render_out(r, cam, seed_frame: int, **kw):
     """render_means of the bench eye with the generator of `seed_frame`."""
     from compound_ray_tpu_torch.api.renderer import frame_seed
     from compound_ray_tpu_torch.config import get_config
@@ -322,7 +340,198 @@ def _render(r, cam, seed_frame: int, **kw):
     return render_means(
         r.scene, r.scene.device_triangles(r.device), cam.ommatidia, pos, ls,
         gen, cam.samples_per_ommatidium,
-        miss_id(r.scene.background_shader), **kw).cpu().numpy()
+        miss_id(r.scene.background_shader), **kw)
+
+
+def _render(r, cam, seed_frame: int, **kw):
+    """_render_out's means on the host."""
+    return _render_out(r, cam, seed_frame, **kw).cpu().numpy()
+
+
+def lit_k3_vs_twin(r, cam, samples: int):
+    """Phase 3: the first lit frame at the bench pose (default lights, the
+    shadow plan built anew and timed), with K3's inputs recorded as the
+    frame hands them over; then K3 and rows_occlusion_reference on them.
+    Returns a result dict."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        _row_ranges,
+        rows_occlusion_reference,
+        run_rows_occlusion,
+    )
+
+    _set_config()
+    r.set_current_eye_samples_per_ommatidium(samples)
+    splan = P.scene_plan(r.scene, r.device)
+    splan.shadow_store.clear()
+    seen, plan_ms = [], []
+    plan = P._shadow_plan
+
+    def timed_plan(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plan(*a, **k)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1000.0)
+        return out
+
+    def record(*a, **k):
+        seen.append((a, k))
+        return run_rows_occlusion(*a, **k)
+
+    P._shadow_plan = timed_plan
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means, audit = _render_out(r, cam, cam.rng_frame,
+                                   lights=r.get_lights(), shadow_audit=True,
+                                   shadow_tracer=record)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        P._shadow_plan = plan
+    (args, kw), = seen
+    r2v, flag, flat_rows, rays = args
+    counts = next(iter(splan.shadow_store.values()))[0]
+    got = run_rows_occlusion(*args, **kw)
+    ref = rows_occlusion_reference(*args, **kw)
+    _, vg_rows = _row_ranges(r2v, flag, rays.shape[1] // (kw["nrb"]
+                                                          * kw["rb_size"]))
+    live = torch.repeat_interleave(vg_rows > 0, kw["nrb"] * kw["rb_size"])
+    differ = int((got[0, live] != ref[0, live]).sum().item())
+    n_live = int(live.sum().item())
+    res = dict(
+        samples=samples, first_lit_frame_ms=first_ms,
+        shadow_plan_build_ms=plan_ms[0],
+        shape=dict(tb=int(flat_rows.shape[0]),
+                   feats=int(flat_rows.shape[1]),
+                   rays=int(rays.shape[1]),
+                   virtual_groups=int(vg_rows.shape[0]), **kw),
+        live_rows=int(counts.sum().item()),
+        rows_per_light=[int(x) for x in counts.sum(dim=1).tolist()],
+        zero_row_groups_per_light=[int(x) for x in
+                                   (counts == 0).sum(dim=1).tolist()],
+        max_rows_per_group=int(counts.max().item()),
+        live_rays=n_live, decisions_differ=differ,
+        decision_agree=1.0 - differ / max(n_live, 1),
+        occluded_share=float(ref[0, live].mean().item()),
+        max_abs_err=float((got - ref).abs().max().item()),
+        first_frame_audit=[int(x) for x in audit[:2].tolist()],
+        first_frame_means_max=float(means.max().item()))
+    res["ms"] = _time_ms(lambda: run_rows_occlusion(*args, **kw), iters=20,
+                         warmup=3)
+    res["plain_ms"] = _time_ms(lambda: rows_occlusion_reference(*args, **kw),
+                               iters=1, warmup=0)
+    if not res["decision_agree"] >= K3_AGREE:
+        raise AssertionError(f"K3 disagrees with its twin: {res}")
+    return res
+
+
+def lit_frames(r):
+    """The lit path through EyeRenderer.render_frame: the first frame at
+    the pose builds the shadow plan (K1 twice: the probe and the frame; K3
+    once), every later frame launches K1 and K3 once, K2 never; a frame
+    after a corrective replan probes again.  Returns the CUDA-event frame
+    times, the first frame's, the audit totals over the timed frames, the
+    corrective replans and the peak MB."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
+
+    splan = P.scene_plan(r.scene, r.device)
+    splan.shadow_store.clear()
+    r.set_lighting(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(frame_ms=[], wall_ms=[], audit_leaked=0, audit_hits=0,
+               replans=0)
+    for i in range(1 + WARMUP + TIMED):
+        probes = not splan.shadow_store and not splan.shadow_sound_all
+        k1, k2 = mm_tracer.launches, cluster_tracer.launches
+        k3 = mm_tracer.occlusion_launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wall = r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        got = (mm_tracer.launches - k1, cluster_tracer.launches - k2,
+               mm_tracer.occlusion_launches - k3)
+        want = (2 if probes else 1, 0, 1)
+        if got != want:
+            raise AssertionError(f"lit frame {i} launched K1, K2, K3 {got} "
+                                 f"times, not {want}")
+        if i > 0 and probes:
+            out["replans"] += 1
+        _check_means(r.get_camera_data(), f"lit frame {i}", lit=True)
+        if i == 0:
+            out["first_frame_ms"] = start.elapsed_time(end)
+            out["first_wall_ms"] = wall
+        elif i >= 1 + WARMUP:
+            out["frame_ms"].append(start.elapsed_time(end))
+            out["wall_ms"].append(wall)
+            out["audit_leaked"] += int(r.last_shadow_audit[0])
+            out["audit_hits"] += int(r.last_shadow_audit[1])
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    out["unsound_groups"] = len(splan.shadow_unsound_groups)
+    out["sound_all"] = splan.shadow_sound_all
+    return out
+
+
+def lit_checks(r, cam):
+    """Phase 6: the renderer's last lit frame (rendered again from its
+    seed, so a corrective replan after it cannot split the two) against
+    the unlit frame (farfield="off") and the frame through the K1 and K3
+    twins on the same shadow plan, all with the same generator seed."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        packed_tracer_reference,
+        rows_occlusion_reference,
+    )
+
+    seed = cam.rng_frame - 1
+    splan = P.scene_plan(r.scene, r.device)
+    replan_pending = not splan.shadow_store
+    lit = _render(r, cam, seed, lights=r.get_lights())
+    if not replan_pending and not np.array_equal(lit, r.get_camera_data()):
+        raise AssertionError("the renderer's lit frame is not reproduced "
+                             "from its seed")
+    _set_config(farfield="off")
+    unlit = _render(r, cam, seed)
+    _set_config()
+    low = float((lit - (unlit - 1e-6)).min())
+    brighter = float((lit > unlit).mean())
+    twin = _render(r, cam, seed, lights=r.get_lights(),
+                   tracer=packed_tracer_reference,
+                   shadow_tracer=rows_occlusion_reference)
+    err = float(np.abs(twin - lit).max())
+    res = dict(min_lit_minus_unlit=low + 1e-6, brighter_share=brighter,
+               twin_max_abs=err, lit_max=float(lit.max()))
+    if low < 0.0:
+        raise AssertionError(f"lit < unlit - 1e-6: {res}")
+    if not err <= MEANS_ATOL:
+        raise AssertionError(f"lit frame vs twin frame: {res}")
+    return res
+
+
+def small_lit_card_vs_cpu(device):
+    """Phase 6: the canopy scene's lit frame from the same numpy angles on
+    the card (K1, K3) and on the CPU (the twins)."""
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
+    from compound_ray_tpu_torch.trace.lighting import default_lights
+
+    out = []
+    for dev in (torch.device(device), torch.device("cpu")):
+        scene = testing.make_canopy_scene()
+        omms = ommatidia_to_array(testing.canopy_eye(2.0))
+        f = testing.frame_pack(scene, omms, 128, (0.0, 0.0, 0.0), dev,
+                               seed=5)
+        out.append(testing.lit_frame_means(
+            scene, f, default_lights(scene.aabb_min, scene.aabb_max)))
+    err = float(np.abs(out[0] - out[1]).max())
+    if not err <= MEANS_ATOL:
+        raise AssertionError(f"small lit scene, card vs CPU: max abs {err}")
+    return err
 
 
 def frame_vs_twins(r, cam, cache: bool):
@@ -447,20 +656,28 @@ def main() -> int:
           f"(thresholds: winners >= {SLOT_AGREE}, t rtol {T_RTOL}; "
           f"{time.perf_counter() - t0:.1f} s)")
 
-    splan = P.scene_plan(r.scene, r.device)
-    launches = dict(k1=0, k2=0)
+    t0 = time.perf_counter()
+    k3 = lit_k3_vs_twin(r, cam, SAMPLES[-1])
+    print(f"phase 3: K3 vs twin on the first lit frame's shadow table at "
+          f"{N_OMM} x {SAMPLES[-1]} x 4 lights: {json.dumps(k3)} "
+          f"(threshold: decisions equal on >= {K3_AGREE} of live rays; "
+          f"{time.perf_counter() - t0:.1f} s)")
 
-    def count(res_k1_k2):
-        res, a, b = res_k1_k2
+    splan = P.scene_plan(r.scene, r.device)
+    launches = dict(k1=0, k2=0, k3=0)
+
+    def count(res_k):
+        res, a, b, c = res_k
         launches["k1"] += a
         launches["k2"] += b
-        return res, a, b
+        launches["k3"] += c
+        return res, a, b, c
 
     # path a: the far field off, 100 and 3200 samples
     _set_config(farfield="off")
-    res_off, a, b = count(_path(r, "farfield=off", lambda: {
+    res_off, a, b, c = count(_path(r, "farfield=off", lambda: {
         s: frames(r, s) for s in SAMPLES}))
-    if a != len(SAMPLES) * (WARMUP + TIMED) or b != 0:
+    if a != len(SAMPLES) * (WARMUP + TIMED) or b != 0 or c != 0:
         raise AssertionError(f"farfield=off path launched K1 {a}, K2 {b}")
     for s in SAMPLES:
         _report(f"farfield=off, {s} samples", res_off[s])
@@ -471,9 +688,9 @@ def main() -> int:
     # path b: the far-field cache, built by the first frame at the pose
     _set_config()
     splan.cache_store.clear()
-    res_ff, a, b = count(_path(r, "farfield=auto", lambda: frames(
+    res_ff, a, b, c = count(_path(r, "farfield=auto", lambda: frames(
         r, SAMPLES[-1], first_builds_cache=True)))
-    if a != 1 + WARMUP + TIMED or b != 1:
+    if a != 1 + WARMUP + TIMED or b != 1 or c != 0:
         raise AssertionError(f"farfield=auto path launched K1 {a}, K2 {b}")
     _report(f"farfield=auto, {SAMPLES[-1]} samples", res_ff)
     use_cache = len(splan.cache_store) == 1
@@ -499,9 +716,9 @@ def main() -> int:
     _set_config(sky_split=True)
     splan.cache_store.clear()
     splan.sky_store.clear()
-    res_sky, a, b = count(_path(r, "sky split", lambda: frames(
+    res_sky, a, b, c = count(_path(r, "sky split", lambda: frames(
         r, SAMPLES[-1], first_builds_cache=True)))
-    if a != 1 + WARMUP + TIMED or b != 1:
+    if a != 1 + WARMUP + TIMED or b != 1 or c != 0:
         raise AssertionError(f"sky-split path launched K1 {a}, K2 {b}")
     _report(f"sky split, {SAMPLES[-1]} samples", res_sky)
     _set_config()
@@ -512,6 +729,29 @@ def main() -> int:
           f"cache frame < {CACHE_MEAN_ABS}; sky groups equal across seeds)")
     _set_config()
 
+    # path d: lit, the four default lights, the far field off by the lit
+    # gate; the first frame at the pose builds the shadow plan
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    res_lit, a, b, c = count(_path(r, "lit", lambda: lit_frames(r)))
+    n_lit = 1 + WARMUP + TIMED
+    if not (a == n_lit + 1 + res_lit["replans"] and b == 0 and c == n_lit):
+        raise AssertionError(f"lit path launched K1 {a}, K2 {b}, K3 {c}")
+    print(f"phase 5: lit, {SAMPLES[-1]} samples: first frame (builds the "
+          f"shadow plan) {res_lit['first_frame_ms']:.3f} ms; frame ms (CUDA "
+          f"events) {res_lit['frame_ms']}, mean "
+          f"{np.mean(res_lit['frame_ms']):.3f}; render_frame wall ms "
+          f"{[round(w, 3) for w in res_lit['wall_ms']]}; peak memory "
+          f"{res_lit['peak_mb']:.1f} MB; audit over the timed frames "
+          f"{res_lit['audit_leaked']} of {res_lit['audit_hits']} hits out "
+          f"of shaft; corrective replans {res_lit['replans']} (unsound "
+          f"groups {res_lit['unsound_groups']}, all "
+          f"{res_lit['sound_all']})")
+    lit = lit_checks(r, cam)
+    print(f"phase 6: lit frame: {json.dumps(lit)} (lit >= unlit - 1e-6 on "
+          f"every ommatidium; vs the frame through the K1 and K3 twins <= "
+          f"{MEANS_ATOL})")
+    r.set_lighting(False)
+
     err_small = small_card_vs_cpu("cuda")
     print(f"phase 6: small scene, card (K1) vs CPU (twin): max abs "
           f"{err_small:.3e} (<= {MEANS_ATOL})")
@@ -520,6 +760,9 @@ def main() -> int:
         print(f"phase 6: small scene with its cache"
               f"{' and the sky split' if sky_on else ''}, card (K1, K2) vs "
               f"CPU (twins): max abs {err:.3e} (<= {MEANS_ATOL})")
+    err = small_lit_card_vs_cpu("cuda")
+    print(f"phase 6: small lit scene (canopy), card (K1, K3) vs CPU "
+          f"(twins): max abs {err:.3e} (<= {MEANS_ATOL})")
 
     print(json.dumps({"kernels": [
         {"name": "K1 packed closest-hit tracer", "route": "cuda",
@@ -530,6 +773,10 @@ def main() -> int:
          "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        {"name": "K3 any-hit occlusion tracer", "route": "cuda",
+         "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": launches["k3"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

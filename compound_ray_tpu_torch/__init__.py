@@ -1,12 +1,29 @@
 """CompoundRay on PyTorch and CUDA: the port of compound_ray_tpu.
 
-The unlit compound-eye frame (EyeRenderer.render_frame with the far-field
-cache off) runs on one torch device.  Its closest-hit tracer is a CUDA
-kernel written for Hopper (csrc/packed_tracer.cu, built with nvcc at first
-use); on CPU tensors the same contract runs as plain torch.  The package
-imports torch and numpy, never JAX or the JAX package.
+The compound-eye frame (EyeRenderer.render_frame: unlit with or without the
+far-field radiance cache, or lit with GGX light and shadow rays) runs on
+one torch device.  Its three tracers are CUDA kernels written for Hopper
+and built with nvcc at first use: K1 closest hit (csrc/packed_tracer.cu),
+K2 the cache's cluster-shortlist closest hit (csrc/cluster_tracer.cu) and
+K3 the shadow rays' any-hit occlusion (csrc/rows_occlusion.cu).  On CPU
+tensors the same contracts run as plain torch.  The package imports torch
+and numpy, never JAX or the JAX package.
 """
 
 __version__ = "0.1.0"
 
 from compound_ray_tpu_torch.api.renderer import EyeRenderer  # noqa: F401
+from compound_ray_tpu_torch.trace.cluster_tracer import (
+    cluster_tracer_reference,
+    run_tracer_kernel,
+)
+from compound_ray_tpu_torch.trace.mm_tracer import (
+    packed_tracer_reference,
+    rows_occlusion_reference,
+    run_packed_tracer,
+    run_rows_occlusion,
+)
+
+__all__ = ["cluster_tracer_reference", "packed_tracer_reference",
+           "rows_occlusion_reference", "run_packed_tracer",
+           "run_rows_occlusion", "run_tracer_kernel"]

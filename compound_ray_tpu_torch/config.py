@@ -1,6 +1,7 @@
 """Runtime configuration of the port (compound_ray_tpu/config.py, reduced).
 
-Only the fields the unlit compound-eye frame reads are carried over.  The
+Only the fields the compound-eye frame (unlit and lit) reads are carried
+over.  The
 environment names are the JAX package's (CR_TPU_*), so one shell setting
 configures both packages.  Nothing here reads artifacts/tuning.json: those
 adoptions were measured on a TPU and are not settings of this port.
@@ -37,6 +38,9 @@ class RenderConfig:
     # bounded pose-keyed stores of packed payloads and sky plans
     # (ScenePlan.packed_store, ScenePlan.sky_store)
     packed_store_size: int = 4
+    # bounded (pose, lights, samples)-keyed store of lit-frame shadow plans
+    # (ScenePlan.shadow_store, compound_ray_tpu/config.py:77)
+    shadow_store_size: int = 4
     # level-2 refine test.  The port runs the exact cone-vs-triangle test
     # only; the JAX package's sphere-bounds-only "sphere" mode is not ported.
     refine_mode: str = "exact"
@@ -48,6 +52,13 @@ class RenderConfig:
     # quadrature nodes of that expectation (splay quantiles x spin grid)
     sky_quad_splay: int = 16
     sky_quad_spin: int = 8
+    # lit frames: the shadow-shaft audit's leak fraction at or above which
+    # the leaking groups replan with guaranteed candidate-extent shadow
+    # bounds (compound_ray_tpu/config.py:107); below it the leak only warns
+    shadow_leak_tolerance: float = 2e-3
+    # groups per chunk of the shadow plan's probe refine and per-light pack
+    # (compound_ray_tpu/config.py:138): peak plan-time memory scales with it
+    shadow_pack_chunk: int = 128
 
     def __post_init__(self):
         if self.farfield not in ("auto", "off"):
@@ -59,6 +70,10 @@ class RenderConfig:
                 "cone-vs-triangle refine only")
         if self.packed_store_size < 1:
             raise ValueError("packed_store_size must be >= 1")
+        if self.shadow_store_size < 1:
+            raise ValueError("shadow_store_size must be >= 1")
+        if self.shadow_pack_chunk < 1:
+            raise ValueError("shadow_pack_chunk must be >= 1")
         w = self.farfield_cache_width
         if w < 32 or w % 32:
             # 16x16 pixel blocks over a w x w/2 image (_render_cache)
@@ -74,6 +89,9 @@ class RenderConfig:
             "CR_TPU_FARFIELD_TOL": ("farfield_tolerance", float),
             "CR_TPU_FARFIELD_WIDTH": ("farfield_cache_width", int),
             "CR_TPU_PACKED_STORE": ("packed_store_size", int),
+            "CR_TPU_SHADOW_STORE": ("shadow_store_size", int),
+            "CR_TPU_SHADOW_LEAK_TOL": ("shadow_leak_tolerance", float),
+            "CR_TPU_SHADOW_CHUNK": ("shadow_pack_chunk", int),
             "CR_TPU_REFINE": ("refine_mode", str),
             "CR_TPU_SKY_SPLIT": ("sky_split", _env_bool),
             "CR_TPU_SKY_QUAD_SPLAY": ("sky_quad_splay", int),

@@ -1,5 +1,5 @@
-"""The unlit compound-eye frame: planning, packing, tracing, shading
-(compound_ray_tpu/eye/pipeline.py in torch).
+"""The compound-eye frame, unlit and lit: planning, packing, tracing,
+shading (compound_ray_tpu/eye/pipeline.py in torch).
 
 Per frame:
   1. plan (memoised): scene tables (scene_plan), the eye's group layout
@@ -11,20 +11,25 @@ Per frame:
      compacted live groups and the sky groups' cache expectation
      (_sky_build);
   2. draw (N, S) cone-jitter angles from the caller's torch.Generator;
+     a lit frame then takes its memoised shadow plan (_shadow_plan: a K1
+     probe of the first frame's hit points at the pose, per-light occluder
+     shafts, one ragged table of reverse-affine occluder rows);
   3. _trace_shade_angles: world rays -> K1 (trace/mm_tracer.py) -> winner
-     attributes -> texture -> miss shading or the far-field cache ->
-     per-ommatidium mean, returned in the original ommatidium order.
+     attributes -> texture -> GGX direct light with shadow rays on K3 when
+     lit -> miss shading or the far-field cache -> per-ommatidium mean,
+     returned in the original ommatidium order.
 
 Ommatidia are permuted by view direction so that groups of G neighbours
 share coherent shortlists (G shrinks to 1 once an ommatidium's samples fill
 a ray block).  Ray directions are unit length and tmin is rescaled by
 |axis|, so the tracer's t is a world distance.
 
-Not ported here (TPU workarounds or later slices of ROADMAP.md): lighting
-and the shadow plan, precision modes, direct1, the uv/uvs/flat/loc emit
-variants, speculative widths, the polynomial equirect addressing
-(FAST_EQUIRECT), bf16 texture-and-cache tables, bursts, raw samples and the
-sharded path.
+Not ported here (TPU workarounds or later slices of ROADMAP.md): precision
+modes, direct1, the uv/uvs/flat/loc emit variants (the lit path's one-hot
+local resolve is a plain indexed gather here), affine primary rays, the
+shadow table's rows-per-block and shard layouts, speculative widths, the
+polynomial equirect addressing (FAST_EQUIRECT), bf16 texture-and-cache
+tables, bursts, raw samples and the sharded path.
 """
 
 from __future__ import annotations
@@ -56,6 +61,12 @@ from compound_ray_tpu_torch.trace.cluster_tracer import (
     pack_rays,
     run_tracer_kernel,
 )
+from compound_ray_tpu_torch.trace.lighting import (
+    apply_material_textures_from_rows,
+    build_shading_rows,
+    ggx_light_contrib_planar,
+    unpack_shading_cols,
+)
 from compound_ray_tpu_torch.trace.mm_tracer import (
     BATCH_RAYS as MM_BATCH_RAYS,
     MM_BLOCKS,
@@ -64,7 +75,9 @@ from compound_ray_tpu_torch.trace.mm_tracer import (
     RAY_FEATS,
     build_mm_features,
     run_packed_tracer,
+    run_rows_occlusion,
     slot_spheres,
+    transform_payload_affine,
 )
 from compound_ray_tpu_torch.trace.shade import (
     build_quad_table,
@@ -77,6 +90,18 @@ from compound_ray_tpu_torch.trace.shade import (
 # ~60 temporaries of this size alive, so 2**23 f32 elements (32 MB) bounds
 # its peak near 2 GB whatever the shortlist width
 _REFINE_CHUNK_ELEMS = 1 << 23
+
+# Inflation of the per-group hit-bound spheres the shadow plan is built
+# from (compound_ray_tpu/eye/pipeline.py:86-101): the probe samples one
+# frame's hit cloud and later frames jitter within the same cones, so the
+# memoised occluder shafts must cover a neighbourhood of the probed
+# bounds.  A later hit outside its shaft (a silhouette edge the probe never
+# crossed) sees only shaft-local occluders; the lit frame's audit counts
+# such hits and mark_shadow_unsound corrects them.
+SHADOW_BOUND_INFLATE = 1.25
+# shadow rows keep only the product feature rows [Q_d, Q_c, 0 x 4]: the
+# occlusion test never reads the metadata rows 8-15
+SHADOW_FEATS = 8
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -92,7 +117,7 @@ def canonical_device(device) -> torch.device:
 @dataclass
 class ScenePlan:
     """Per-scene tables on one device (compound_ray_tpu/eye/pipeline.py:108,
-    the fields the unlit packed path reads)."""
+    the fields the packed path reads, unlit and lit)."""
 
     device: torch.device
     mm_flat: torch.Tensor  # (S+128, 64) per-slot feature columns
@@ -112,6 +137,16 @@ class ScenePlan:
     packed_store: Dict = field(default_factory=dict)  # bounded LRU of packs
     cache_store: Dict = field(default_factory=dict)  # viewpoint -> cache
     sky_store: Dict = field(default_factory=dict)  # pose -> sky plan, LRU
+    slot_tri: torch.Tensor = None  # (S,) int32 slot -> triangle id, -1 pad
+    # (T, 18 | 26) build_shading_rows of the scene, built by the first lit
+    # frame
+    shading_rows: torch.Tensor = None
+    # (pose, lights, samples) -> shadow plan, LRU (_shadow_plan)
+    shadow_store: Dict = field(default_factory=dict)
+    # the corrective modes of mark_shadow_unsound: guaranteed shadow bounds
+    # for every group, or for these groups (eye-plan group indices)
+    shadow_sound_all: bool = False
+    shadow_unsound_groups: set = field(default_factory=set)
 
     @property
     def num_clusters(self) -> int:
@@ -121,7 +156,8 @@ class ScenePlan:
     def from_arrays(cls, device, mm_flat, attr_table, slot_center_cl,
                     slot_radius_cl, slot_tri_cl, half_center, half_radius,
                     quad_table, textured: bool, tex_only: bool, payload,
-                    sphere_center, sphere_radius) -> "ScenePlan":
+                    sphere_center, sphere_radius,
+                    slot_tri=None) -> "ScenePlan":
         def dev(x):  # a copy: the arrays may be read-only views
             return torch.tensor(np.asarray(x, np.float32), device=device)
 
@@ -137,6 +173,8 @@ class ScenePlan:
             payload=dev(payload),
             sphere_center_np=np.array(sphere_center, np.float32),
             sphere_radius_np=np.array(sphere_radius, np.float32),
+            slot_tri=(None if slot_tri is None else torch.tensor(
+                np.asarray(slot_tri, np.int32), device=device)),
         )
 
 
@@ -196,6 +234,7 @@ def scene_plan(scene_flat, device) -> ScenePlan:
         quad_table=quad, textured=textured, tex_only=tex_only,
         payload=build_kernel_payload(cs),
         sphere_center=cs.sphere_center, sphere_radius=cs.sphere_radius,
+        slot_tri=cs.tri_id.reshape(-1),
     )
     scene_flat._kernel_plan = plan
     return plan
@@ -339,14 +378,16 @@ def _near_counts(gmask, counts, near_mask):
 
 
 def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
-                 radius_cl, g: int, cull_sigmas: float, tri_cl):
+                 radius_cl, g: int, cull_sigmas: float, tri_cl, dmax=None):
     """Level-2 cull of the shortlisted clusters' triangles against the cones
     (compound_ray_tpu/eye/pipeline.py:486, refine_mode="exact"): the
     triangle-sphere test, then the exact cone-vs-triangle test on the unit
     sphere around the apex (a triangle meets the cone iff a vertex lies in
     the cap, an edge arc passes within `half` of the axis, or the axis
-    pierces the triangle; 1e-3 rad slack).  Works on any run of whole groups: omms_p
-    holds their g * len(ids) ommatidia.  Returns (mask, dist, slots), each
+    pierces the triangle; 1e-3 rad slack).  Works on any run of whole
+    groups: omms_p holds their g * len(ids) ommatidia.  dmax (Np,), the
+    shadow refine's apex-distance bound, also drops triangles whose sphere
+    starts beyond it (:636-639).  Returns (mask, dist, slots), each
     (NG, kcand*128)."""
     apex, axis = eye_world_geometry(omms_p, position, local_space)
     half = torch.clamp(omms_p[:, 6] / FWHM_SD_RATIO * cull_sigmas,
@@ -453,6 +494,10 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     # apex within f32 range of a vertex: projection undefined -> keep
     deg_len = (l0 < 1e-12) | (l1 < 1e-12) | (l2_ < 1e-12)
     m = m & (vert_in | e01 | e12 | e20 | axis_in | deg_len)
+    if dmax is not None:
+        # occluders past the shaft's far side cannot block a light -> hit
+        # segment
+        m = m & (dist - rb <= dmax[:, None])
     if g > 1:
         m = m.reshape(ng, g, kc).any(dim=1)
         dist = dist.reshape(ng, g, kc).amin(dim=1)
@@ -467,10 +512,13 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     return mask, dist, slots
 
 
-def _refine_chunks(ng: int, g: int, kcand: int):
+def _refine_chunks(ng: int, g: int, kcand: int, max_groups: int = None):
     """Group ranges that bound _refine_mask's temporaries: eager torch
-    materialises every (groups*g, kcand*128) intermediate that XLA fused."""
+    materialises every (groups*g, kcand*128) intermediate that XLA fused.
+    max_groups also caps a range (the shadow plan's shadow_pack_chunk)."""
     step = max(1, _REFINE_CHUNK_ELEMS // (g * kcand * KERNEL_LEAF))
+    if max_groups is not None:
+        step = min(step, max_groups)
     return [(g0, min(ng, g0 + step)) for g0 in range(0, ng, step)]
 
 
@@ -502,13 +550,14 @@ def _refine_counts(omms_p, position, local_space, half_center, half_radius,
 
 def _refine_pack(omms_p, position, local_space, ids, cl_counts, center_cl,
                  radius_cl, mm_flat, g: int, kcand: int, rmax: int,
-                 cull_sigmas: float, tri_cl):
+                 cull_sigmas: float, tri_cl, dmax=None):
     """Refine + compact: the surviving triangles' feature columns, nearest
     first, as per-group (rmax, 16, 512) payload blocks
     (compound_ray_tpu/eye/pipeline.py:681).  Returns (row_counts (NG,)
     int32, packed_mm (NG, rmax, 16, 512)).  Padding columns point at the
     all-zero PAD rows of mm_flat.  Equal distances may pack in another
-    order than the JAX package's unstable co-sort; the slot sets agree."""
+    order than the JAX package's unstable co-sort; the slot sets agree.
+    dmax (Np,) bounds the refine as in _refine_mask (the shadow pack)."""
     ng = ids.shape[0]
     pad_slot = mm_flat.shape[0] - 1
     row_counts = torch.empty(ng, dtype=torch.int32, device=ids.device)
@@ -518,7 +567,8 @@ def _refine_pack(omms_p, position, local_space, ids, cl_counts, center_cl,
         mask, dist, slots = _refine_mask(
             omms_p[g0 * g:g1 * g], position, local_space, ids[g0:g1],
             cl_counts[g0:g1], center_cl, radius_cl, g, cull_sigmas,
-            tri_cl=tri_cl)
+            tri_cl=tri_cl,
+            dmax=None if dmax is None else dmax[g0 * g:g1 * g])
         # the tracer loops row_counts[g] rows of an rmax block: never more
         row_counts[g0:g1] = torch.clamp(_rows(mask.sum(dim=-1)), max=rmax)
         key = torch.where(mask, dist, torch.inf)
@@ -731,18 +781,160 @@ def _gen_ray_features(omms_p, position, local_space, splay, spin,
     return rays.reshape(RAY_FEATS, ng * rg_pad), (dx, dy, dz)
 
 
+def _repad(x, ng: int, rg: int, rg_pad: int):
+    """(Np, S) -> (R,) in kernel ray order, each group's block zero-padded
+    to rg_pad (the JAX lit branch's repad, compound_ray_tpu/eye/
+    pipeline.py:1329-1333; bool planes pad with False)."""
+    x2 = x.reshape(ng, rg)
+    if rg_pad != rg:
+        x2 = torch.cat([x2, x2.new_zeros((ng, rg_pad - rg))], dim=1)
+    return x2.reshape(-1)
+
+
+def _neg_origins(omms_p, position, local_space, dx, dy, dz):
+    """-o' = -(o + tmin d), the tmin-shifted ray origins negated, as (Np, S)
+    planes: the lit branch and the shadow probe rebuild hit points from
+    them (compound_ray_tpu/eye/pipeline.py:1099-1101).  Bit-equal to the
+    rows 6-8 that _gen_ray_features puts into the rays."""
+    (ox, oy, oz), tmin_w, _, _ = _omm_world_origins(omms_p, position,
+                                                    local_space)
+    tmin = tmin_w[:, None]
+    return (-(ox[:, None] + tmin * dx), -(oy[:, None] + tmin * dy),
+            -(oz[:, None] + tmin * dz))
+
+
+def _lit_epilogue(out, hit, rr, gg, bb, dx, dy, dz, neg_o, scene_dev,
+                  shading_rows, slot_tri, lights, shadow, samples: int,
+                  ng: int, g: int, nrb: int, rb_size: int,
+                  shadow_audit: bool, shadow_tracer=None):
+    """GGX direct light with shadow rays over the frame's hits
+    (compound_ray_tpu/eye/pipeline.py:1314-1501; shaders.cu:826-881).
+
+    out is K1's (8, R) output, hit and the base colour planes (Np, S),
+    shadow the _shadow_plan tuple (counts (L, NG), r2v, flag, flat_rows,
+    sph).  Hit points p = o' + t d.  One gather of the shading rows per ray
+    (slot -> triangle -> build_shading_rows row; the JAX package's one-hot
+    local resolve gives the same rows, :755-834), the planar shading
+    normal, the material textures where the scene has them, then per light
+    the reverse-affine shadow ray [eps l - (light - p), 1, 0 x 4]: origin
+    at the light, so t in [0, 1] spans the segment from the light to the
+    hit's epsilon band.  All lights go through one K3 launch (`shadow_
+    tracer`, run_rows_occlusion by default).  A light adds its GGX term
+    where the hit faces it and its shadow ray is clear; zero-row virtual
+    groups count as clear.  Returns (rr, gg, bb) planes (Np, S) and the
+    audit [leaked, hits, per-group leaks] (int64, or None unless
+    shadow_audit): hits outside their group's memoised shaft sphere."""
+    counts, r2v, flag, flat_rows, sph = shadow
+    n_pad = hit.shape[0]
+    rg = g * samples
+    rg_pad = nrb * rb_size
+
+    def repad(x):
+        return _repad(x, ng, rg, rg_pad)
+
+    eps = 1e-3  # traceOcclusion tmin (shaders.cu:875)
+    hit_f = repad(hit)
+    dxf, dyf, dzf = repad(dx), repad(dy), repad(dz)
+    # missed rays clamp to t = 0 so every shadow feature stays finite
+    t_c = torch.where(hit_f, out[0], 0.0)
+    pxf = -repad(neg_o[0]) + t_c * dxf
+    pyf = -repad(neg_o[1]) + t_c * dyf
+    pzf = -repad(neg_o[2]) + t_c * dzf
+    audit = None
+    if shadow_audit:
+        hm2 = hit_f.reshape(ng, rg_pad)
+        ddx = pxf.reshape(ng, rg_pad) - sph[:, 0:1]
+        ddy = pyf.reshape(ng, rg_pad) - sph[:, 1:2]
+        ddz = pzf.reshape(ng, rg_pad) - sph[:, 2:3]
+        d2 = ddx * ddx + ddy * ddy + ddz * ddz
+        r_s = sph[:, 3:4]
+        # r < 0: the group hit nothing in the probe, so any hit now traced
+        # no occluder rows
+        leak = hm2 & ((d2 > r_s * r_s) | (r_s < 0.0))
+        leak_g = leak.sum(dim=1)
+        audit = torch.cat([torch.stack([leak_g.sum(), hm2.sum()]), leak_g])
+    u_b, v_b = out[1], out[2]
+    slot = torch.clamp(out[3].long(), 0, slot_tri.shape[0] - 1)
+    tid = torch.clamp(slot_tri[slot], min=0).long()
+    rows_g = shading_rows[tid]  # (R, C)
+    (e1g, e2g, n0g, n1g, n2g, has_n, metallic, roughness) = (
+        unpack_shading_cols(rows_g.t()))
+    w_b = 1.0 - u_b - v_b
+    gx = e1g[1] * e2g[2] - e1g[2] * e2g[1]
+    gy = e1g[2] * e2g[0] - e1g[0] * e2g[2]
+    gz = e1g[0] * e2g[1] - e1g[1] * e2g[0]
+    nx = torch.where(has_n, w_b * n0g[0] + u_b * n1g[0] + v_b * n2g[0], gx)
+    ny = torch.where(has_n, w_b * n0g[1] + u_b * n1g[1] + v_b * n2g[1], gy)
+    nz = torch.where(has_n, w_b * n0g[2] + u_b * n1g[2] + v_b * n2g[2], gz)
+    n_inv = 1.0 / torch.clamp(torch.sqrt(nx * nx + ny * ny + nz * nz),
+                              min=1e-20)
+    nx, ny, nz = nx * n_inv, ny * n_inv, nz * n_inv
+    if "mat_mr_tex" in scene_dev:
+        # metallic-roughness and normal maps (shaders.cu:831-852): the dict
+        # has these keys only when some material uses such a texture
+        n_vec, metallic, roughness = apply_material_textures_from_rows(
+            scene_dev, rows_g, torch.stack([nx, ny, nz], dim=-1), metallic,
+            roughness, u_b, v_b)
+        nx, ny, nz = n_vec[:, 0], n_vec[:, 1], n_vec[:, 2]
+    base_p = (repad(rr), repad(gg), repad(bb))
+    res_r, res_g, res_b = base_p
+    n_lights = lights.shape[0]
+    r_per_light = ng * rg_pad
+    ray_parts, ldirs = [], []
+    for li in range(n_lights):
+        lpos = lights[li, 4:7]
+        tox = lpos[0] - pxf
+        toy = lpos[1] - pyf
+        toz = lpos[2] - pzf
+        ldist = torch.sqrt(tox * tox + toy * toy + toz * toz)
+        inv_ld = 1.0 / torch.clamp(ldist, min=1e-20)
+        lx, ly, lz = tox * inv_ld, toy * inv_ld, toz * inv_ld
+        one_f = torch.ones_like(lx)
+        zero_f = torch.zeros_like(lx)
+        ray_parts.append(torch.stack(
+            [eps * lx - tox, eps * ly - toy, eps * lz - toz, one_f, zero_f,
+             zero_f, zero_f, zero_f]))
+        ldirs.append((lx, ly, lz))
+    trace = run_rows_occlusion if shadow_tracer is None else shadow_tracer
+    occ_all = trace(r2v, flag, flat_rows, torch.cat(ray_parts, dim=1),
+                    nrb=nrb, rb_size=rb_size)[0]
+    for li in range(n_lights):
+        o_l = occ_all[li * r_per_light:(li + 1) * r_per_light]
+        cnt_ray = torch.repeat_interleave(counts[li], rg_pad)
+        occ = (o_l > 0.0) & (cnt_ray > 0)
+        (c_r, c_g, c_b), facing = ggx_light_contrib_planar(
+            (nx, ny, nz), (-dxf, -dyf, -dzf), ldirs[li], base_p, metallic,
+            roughness, lights[li, 0:3], lights[li, 3])
+        sel = facing & ~occ & hit_f
+        res_r = res_r + torch.where(sel, c_r, 0.0)
+        res_g = res_g + torch.where(sel, c_g, 0.0)
+        res_b = res_b + torch.where(sel, c_b, 0.0)
+
+    def unpad(x):
+        return x.reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
+
+    return unpad(res_r), unpad(res_g), unpad(res_b), audit
+
+
 def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         quad_table, omms_p, position, local_space, splay,
                         spin, samples: int, background: int, ng: int, g: int,
                         nrb: int, rb_size: int, rmax: int, textured: bool,
                         tex_only: bool, tracer=None, cache=None,
                         cache_shape: Tuple[int, int] = (0, 0),
-                        sky_means=None, sky_scatter=None):
-    """Angle-parameterised frame core: trace + shade + reduce, unlit
-    (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1313 and
-    :1502-1545, means only).  Returns (Np, 3) means in permuted order.
-    `tracer` defaults to run_packed_tracer (K1); the chip check passes
-    packed_tracer_reference to render through the twin.
+                        sky_means=None, sky_scatter=None, lights=None,
+                        slot_tri=None, shading_rows=None, shadow=None,
+                        shadow_audit: bool = False, shadow_tracer=None):
+    """Angle-parameterised frame core: trace + shade + reduce
+    (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1545, means
+    only).  Returns (Np, 3) means in permuted order, or (means, audit)
+    for a lit frame with shadow_audit.  `tracer` defaults to
+    run_packed_tracer (K1) and `shadow_tracer` to run_rows_occlusion (K3);
+    the chip check passes the twins to render through them.
+
+    lights (L, 7) on the frame's device turns on GGX direct light with
+    shadow rays (_lit_epilogue), which needs slot_tri, shading_rows and the
+    _shadow_plan tuple `shadow`; the far-field cache is then off.
 
     cache is the far-field cache of _farfield_plan: (H, W, 16) equirect
     quads, or for a textured scene the combined (P + H*W, 16) table of
@@ -803,6 +995,12 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
             rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
             gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
             bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
+        if lights is not None:
+            rr, gg, bb, audit = _lit_epilogue(
+                out, hit, rr, gg, bb, dx, dy, dz,
+                _neg_origins(omms_p, position, local_space, dx, dy, dz),
+                scene_dev, shading_rows, slot_tri, lights, shadow, samples,
+                ng, g, nrb, rb_size, shadow_audit, shadow_tracer)
         if cache is not None:
             # the cache already holds the miss shader where nothing is hit
             c_idx, cfx, cfy = _equirect_coords_c(
@@ -818,6 +1016,8 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
         bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
     means = torch.stack([rr.mean(dim=1), gg.mean(dim=1), bb.mean(dim=1)],
                         dim=-1)
+    if lights is not None and shadow_audit:
+        return means, audit
     if sky_means is None:
         return means
     # scatter the live means over the sky means; padding rows land on a
@@ -1016,19 +1216,22 @@ def _farfield_split(splan, ommatidia_np, pos_np, ls_np, tol: float):
 
 
 def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
-                   samples: int, background: int, cfg, tracer=None):
+                   samples: int, background: int, cfg, tracer=None,
+                   lights=None):
     """The far-field split of a frame and its pose-memoised cache
     (compound_ray_tpu/eye/pipeline.py:2437).  Returns (near_mask (C,) bool
     or None, cache or None, d_thresh): None and 0.0 unless the cache is on,
-    which needs farfield="auto", more than 8 clusters, at least as many
-    rays as cache pixels and at least one far cluster.  The cache is
+    which needs an unlit frame (lights None: the cached radiance is unlit,
+    :2453), farfield="auto", more than 8 clusters, at least as many rays as
+    cache pixels and at least one far cluster.  The cache is
     (H, W, 16) equirect quads, or for a textured scene the combined table
     of the texture quads followed by the cache quads.  It depends on the
     eye centre, the width, the miss shader and D, not on the samples or the
     RNG, so frames at one pose build it once; `tracer` (K2 by default)
     renders a cache not in splan.cache_store."""
     off = (None, None, 0.0)
-    if cfg.farfield != "auto" or splan.num_clusters <= 8:
+    if (lights is not None or cfg.farfield != "auto"
+            or splan.num_clusters <= 8):
         return off
     width = cfg.farfield_cache_width
     if samples * eplan.n < width * (width // 2):
@@ -1182,19 +1385,360 @@ def _sky_build(splan, eplan, omms_p, local_space, samples: int, kcand: int,
             torch.as_tensor(scatter, device=dev), sky_means, ngl, kcand,
             rmax)
 
+# ------------------------------------------------------------ shadow plan
+# A lit frame traces one shadow ray per (sample, light).  Each (light,
+# group) pair gets its own occluder rows: the triangles that can lie between
+# the light and the group's hit points.  The rows are memoised per (eye,
+# samples, pose, lights): the first lit frame at a pose probes its own hit
+# points with one extra K1 launch, bounds them per group, and packs each
+# light's shafts; later frames at the pose pay one K3 launch and the GGX
+# math (compound_ray_tpu/eye/pipeline.py:1917-2434).
+
+
+def _shadow_pseudo_omms(cg, rg, light_pos, ratio: float):
+    """(NG, 8) pseudo-ommatidia whose cull cone has its apex at the light
+    and covers each group's bound sphere (cg (NG, 3), rg (NG,)), and the
+    refine's distance bound dmax (NG,) at the sphere's far side
+    (compound_ray_tpu/eye/pipeline.py:1918).  ratio turns a half-angle into
+    the omm[6] encoding _cull_groups reads; an empty group (rg < 0) gets a
+    zero cone and dmax -1, so it culls everything."""
+    d = cg - light_pos[None, :]
+    dist = torch.sqrt((d * d).sum(dim=-1))
+    axis = d / torch.clamp(dist, min=1e-30)[:, None]
+    sin_half = torch.clamp(rg / torch.clamp(dist, min=1e-30), 0.0, 1.0)
+    half = torch.where(dist > torch.clamp(rg, min=0.0),
+                       torch.arcsin(sin_half), math.pi)
+    half = torch.where(rg < 0.0, 0.0, half)
+    n = cg.shape[0]
+    out = torch.zeros((n, 8), dtype=torch.float32, device=cg.device)
+    out[:, 0:3] = light_pos
+    out[:, 3:6] = axis
+    out[:, 6] = half * ratio
+    dmax = torch.where(rg < 0.0, -1.0, dist + rg)
+    return out, dmax
+
+
+def _hit_bound_spheres(hit_f, px, py, pz, ng: int, rg_pad: int):
+    """Per-group bounding sphere of the group's hit points (planar kernel-
+    order inputs (R,)): centres (NG, 3) and radii (NG,), radius -1 where
+    the group hit nothing (compound_ray_tpu/eye/pipeline.py:1940)."""
+    big = 3e38
+    hm = hit_f.reshape(ng, rg_pad)
+
+    def mm(c):
+        c2 = c.reshape(ng, rg_pad)
+        return (torch.where(hm, c2, big).amin(dim=1),
+                torch.where(hm, c2, -big).amax(dim=1))
+
+    x0, x1 = mm(px)
+    y0, y1 = mm(py)
+    z0, z1 = mm(pz)
+    any_h = hm.any(dim=1)
+    cx = torch.where(any_h, 0.5 * (x0 + x1), 0.0)
+    cy = torch.where(any_h, 0.5 * (y0 + y1), 0.0)
+    cz = torch.where(any_h, 0.5 * (z0 + z1), 0.0)
+    dx_, dy_, dz_ = x1 - x0, y1 - y0, z1 - z0
+    r = 0.5 * torch.sqrt(dx_ * dx_ + dy_ * dy_ + dz_ * dz_) + 1e-3
+    return torch.stack([cx, cy, cz], dim=-1), torch.where(any_h, r, -1.0)
+
+
+def _sound_bound_spheres(packed_mm, sc_flat, sr_flat):
+    """Guaranteed per-group hit bounds from the pack itself: the sphere
+    enclosing the bounding spheres of the group's candidate triangles,
+    which holds every hit of every frame at this pose
+    (compound_ray_tpu/eye/pipeline.py:1966).  Padding columns are found
+    by an all-zero normal in the den block."""
+    leaf = KERNEL_LEAF
+    ids = torch.clamp(packed_mm[:, :, 10, 0:leaf].long(), 0,
+                      sr_flat.shape[0] - 1)  # (NG, rmax, 128)
+    nmag = torch.abs(packed_mm[:, :, 0:3, 2 * leaf:3 * leaf]).sum(dim=2)
+    valid = nmag > 0.0
+    c = sc_flat[ids]  # (NG, rmax, 128, 3)
+    r = torch.clamp(sr_flat[ids], min=0.0)
+    big = 3e38
+    lo = torch.where(valid[..., None], c - r[..., None], big).amin(dim=(1, 2))
+    hi = torch.where(valid[..., None], c + r[..., None], -big).amax(
+        dim=(1, 2))
+    any_v = valid.any(dim=2).any(dim=1)
+    ctr = torch.where(any_v[:, None], 0.5 * (lo + hi), 0.0)
+    ext = hi - lo
+    rad = 0.5 * torch.sqrt((ext * ext).sum(dim=-1)) + 1e-3
+    return ctr, torch.where(any_v, rad, -1.0)
+
+
+def mark_shadow_unsound(scene_flat, leak_groups=None, device=None) -> bool:
+    """Corrective response to the lit-frame shadow audit
+    (compound_ray_tpu/eye/pipeline.py:1997): the groups in `leak_groups`
+    (eye-plan group indices, the audit's per-group tail) switch to
+    guaranteed candidate-extent bounds; without it the whole scene does
+    (shadow_sound_all).  Either way the memoised shadow plans are evicted
+    so the next lit frame replans.  Acts on the scene's plan on `device`,
+    or on the plan its last frame used.  Returns True when the mode
+    changed."""
+    if device is not None:
+        splan = scene_plan(scene_flat, device)
+    else:
+        splan = getattr(scene_flat, "_kernel_plan", None)
+        if splan is None:
+            raise RuntimeError("the scene has no plan yet: render a frame "
+                               "first or name the device")
+    if leak_groups is None:
+        if splan.shadow_sound_all:
+            return False
+        splan.shadow_sound_all = True
+        splan.shadow_store.clear()
+        return True
+    new = set(int(g_) for g_ in leak_groups) - splan.shadow_unsound_groups
+    if not new:
+        return False
+    splan.shadow_unsound_groups |= new
+    splan.shadow_store.clear()
+    return True
+
+
+def _light_frame(device):
+    """The light-apexed pseudo-ommatidia's pose: origin, identity axes."""
+    return (torch.zeros(3, dtype=torch.float32, device=device),
+            torch.eye(3, dtype=torch.float32, device=device))
+
+
+def _shadow_cull(splan, cg, rg_sph, light_pos, cull_sigmas: float,
+                 kcand: int):
+    """One light's shafts over all groups: pseudo-ommatidia, the cone cull
+    distance-bounded at the sphere's far side, and the nearest-first
+    shortlist.  Returns (ps, dmax, counts (NG,), ids (NG, kcand))."""
+    ps, dm = _shadow_pseudo_omms(cg, rg_sph, light_pos,
+                                 FWHM_SD_RATIO / cull_sigmas)
+    zero3, eye3 = _light_frame(cg.device)
+    gmask, _, dmin_all = _cull_groups(ps, zero3, eye3, splan.half_center,
+                                      splan.half_radius, cull_sigmas, 1)
+    gmask = gmask & (dmin_all <= dm[:, None])
+    counts = gmask.sum(dim=-1).to(torch.int32)
+    ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
+    return ps, dm, counts, ids
+
+
+def _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas: float,
+                         kcand_probe: int, probe_chunk: int):
+    """Per light, the shafts' widths on given per-group bound spheres
+    (compound_ray_tpu/eye/pipeline.py:2144): the most clusters (kc_need)
+    and refined payload rows (rows_need) any group's shaft needs, both
+    (L,) tensors, returned with (cg, rg_sph).  The refine runs in group
+    chunks (probe_chunk groups at most)."""
+    zero3, eye3 = _light_frame(cg.device)
+    kc_list, row_list = [], []
+    for li in range(lights.shape[0]):
+        ps, dm, counts, ids = _shadow_cull(splan, cg, rg_sph,
+                                           lights[li, 4:7], cull_sigmas,
+                                           kcand_probe)
+        cl = torch.clamp(counts, max=kcand_probe)
+        row_max = []
+        for g0, g1 in _refine_chunks(ps.shape[0], 1, kcand_probe,
+                                     max_groups=probe_chunk):
+            mask, _, _ = _refine_mask(
+                ps[g0:g1], zero3, eye3, ids[g0:g1], cl[g0:g1],
+                splan.slot_center_cl, splan.slot_radius_cl, 1, cull_sigmas,
+                tri_cl=splan.slot_tri_cl, dmax=dm[g0:g1])
+            row_max.append(_rows(mask.sum(dim=-1)).max())
+        kc_list.append(counts.max())
+        row_list.append(torch.stack(row_max).max())
+    return torch.stack(kc_list), torch.stack(row_list), cg, rg_sph
+
+
+def _shadow_probe(packed_mm, row_counts, omms_p, position, local_space,
+                  splay, spin, lights, splan, samples: int, ng: int, g: int,
+                  nrb: int, rb_size: int, rmax: int, cull_sigmas: float,
+                  kcand_probe: int, probe_chunk: int, tracer=None):
+    """The shadow plan's probe (compound_ray_tpu/eye/pipeline.py:2084):
+    trace the frame's primary rays once (K1, or `tracer`), bound each
+    group's hit points, inflate the bounds (SHADOW_BOUND_INFLATE) and
+    measure the shafts' widths on them.  The JAX probe draws its angles
+    from the frame's key (:2099-2100), so it traces exactly the first lit
+    frame's rays; here the caller passes that frame's splay and spin.  As
+    there, every lane of a live group counts, ray-block padding included.
+    Returns _shadow_probe_widths' (kc_need, rows_need, cg, rg_sph)."""
+    rays, (dx, dy, dz) = _gen_ray_features(
+        omms_p, position, local_space, splay, spin, samples=samples, ng=ng,
+        g=g, nrb=nrb, rb_size=rb_size)
+    trace = run_packed_tracer if tracer is None else tracer
+    t_f = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
+                rmax=rmax)[0]
+    del rays
+    rg, rg_pad = g * samples, nrb * rb_size
+
+    def repad(x):
+        return _repad(x, ng, rg, rg_pad)
+
+    hit_f = (t_f < 1e30) & torch.repeat_interleave(row_counts > 0, rg_pad)
+    neg_o = _neg_origins(omms_p, position, local_space, dx, dy, dz)
+    t_c = torch.where(hit_f, t_f, 0.0)
+    pxf = -repad(neg_o[0]) + t_c * repad(dx)
+    pyf = -repad(neg_o[1]) + t_c * repad(dy)
+    pzf = -repad(neg_o[2]) + t_c * repad(dz)
+    cg, rg_sph = _hit_bound_spheres(hit_f, pxf, pyf, pzf, ng, rg_pad)
+    rg_sph = torch.where(rg_sph >= 0.0,
+                         rg_sph * SHADOW_BOUND_INFLATE + 1e-2, rg_sph)
+    return _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas,
+                                kcand_probe, probe_chunk)
+
+
+def _shadow_pack_one(cg, rg_sph, light_pos, splan, kcand_s: int,
+                     rmax_s: int, cull_sigmas: float):
+    """One light's occluder payload for a run of groups
+    (compound_ray_tpu/eye/pipeline.py:2028): cull, shortlist, refine with
+    dmax and pack as the primary payload is packed, then fold the light in
+    as the shared ray origin with tmin 0 (transform_payload_affine) and
+    keep feature rows 0-7.  Returns (rc_s (n,) int32, packed_s (n, rmax_s,
+    8, 512)), a transient the caller flattens."""
+    ps, dm, counts, ids = _shadow_cull(splan, cg, rg_sph, light_pos,
+                                       cull_sigmas, kcand_s)
+    zero3, eye3 = _light_frame(cg.device)
+    rc_s, packed_s = _refine_pack(
+        ps, zero3, eye3, ids, torch.clamp(counts, max=kcand_s),
+        splan.slot_center_cl, splan.slot_radius_cl, splan.mm_flat, 1,
+        kcand_s, rmax_s, cull_sigmas, tri_cl=splan.slot_tri_cl, dmax=dm)
+    n = packed_s.shape[0]
+    packed_s = transform_payload_affine(
+        packed_s, light_pos[None, :].expand(n, 3),
+        torch.zeros(n, dtype=torch.float32, device=cg.device))
+    return rc_s, packed_s[:, :, 0:SHADOW_FEATS, :]
+
+
+def _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg):
+    """shadow_store key (compound_ray_tpu/eye/pipeline.py:2240-2243 without
+    the affine, rows-per-block and shard fields, which are not ported)."""
+    return (eplan.sig, samples, pose_sig, lights_np.tobytes(),
+            cfg.cull_sigmas, splan.shadow_sound_all,
+            tuple(sorted(splan.shadow_unsound_groups)))
+
+
+def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
+                 lights_np: np.ndarray, samples: int, splay, spin,
+                 packed_mm, row_counts, rmax: int, tracer=None):
+    """The memoised shadow plan of a lit frame
+    (compound_ray_tpu/eye/pipeline.py:2200, one row per block, one shard):
+    (counts (L, NG) int32, r2v (TB,) int32, flag (TB,) int32, flat_rows
+    (TB, 8, 512) f32, sph (NG, 4) [centre, radius]).
+
+    Per light, each group's shaft is exact-refined and packed from the
+    probed (or, in a corrective mode, guaranteed) bound spheres, and the
+    live rows of the transient dense pack go into one table sorted by
+    virtual group light * NG + group: flag 2 marks a group's first row, 1
+    a live row, 0 padding; TB is padded to a multiple of 64 and padding
+    rows inherit the last live group.  Chunked over groups at
+    shadow_pack_chunk: an unchunked dense pack at 256 clusters takes
+    several GB.  Row counts come to the host once per chunk; a plan in
+    splan.shadow_store is served as it is."""
+    cfg = get_config()
+    sk = _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg)
+    hit = splan.shadow_store.get(sk)
+    if hit is not None:
+        splan.shadow_store[sk] = splan.shadow_store.pop(sk)  # LRU refresh
+        return hit
+    dev = packed_mm.device
+    lights = torch.as_tensor(lights_np, device=dev)
+    # probe every cluster: a narrower probe would under-measure the rows
+    # and the pack's rmax would drop the farthest occluders
+    kcand_probe = splan.num_clusters
+    ng = eplan.ng
+    sig = cfg.cull_sigmas
+    chunk = cfg.shadow_pack_chunk
+    unsound = splan.shadow_unsound_groups
+    if splan.shadow_sound_all or unsound:
+        cg_s, rg_s = _sound_bound_spheres(
+            packed_mm, splan.slot_center_cl.reshape(-1, 3),
+            splan.slot_radius_cl.reshape(-1))
+    if splan.shadow_sound_all:
+        kc_need, rows_need, cg, rg_sph = _shadow_probe_widths(
+            cg_s, rg_s, lights, splan, sig, kcand_probe, chunk)
+    else:
+        kc_need, rows_need, cg, rg_sph = _shadow_probe(
+            packed_mm, row_counts, omms_p, position, local_space, splay,
+            spin, lights, splan, samples, ng, eplan.g, eplan.nrb,
+            eplan.rb_size, rmax, sig, kcand_probe, chunk, tracer=tracer)
+        if unsound:
+            um = np.zeros(ng, bool)
+            um[[g_ for g_ in unsound if g_ < ng]] = True
+            um_d = torch.as_tensor(um, device=dev)
+            cg = torch.where(um_d[:, None], cg_s, cg)
+            rg_sph = torch.where(um_d, rg_s, rg_sph)
+            # re-measure on the hybrid spheres so rmax covers the fattened
+            # shafts
+            kc_need, rows_need, _, _ = _shadow_probe_widths(
+                cg, rg_sph, lights, splan, sig, kcand_probe, chunk)
+    kc = int(kc_need.max().item())
+    rw_all = rows_need.cpu().numpy()
+    shadow_kmax = min(splan.num_clusters, _ceil_to(max(kc, 1), 8))
+    n_lights = lights_np.shape[0]
+    cnts_np = np.zeros((n_lights, ng), np.int64)
+    parts = []
+    for li in range(n_lights):
+        rmax_li = min(shadow_kmax, _ceil_to(max(int(rw_all[li]), 1), 2))
+        for lo, hi in _refine_chunks(ng, 1, shadow_kmax, max_groups=chunk):
+            rc_s, packed_s = _shadow_pack_one(
+                cg[lo:hi], rg_sph[lo:hi], lights[li, 4:7], splan,
+                shadow_kmax, rmax_li, sig)
+            rc_np = np.minimum(rc_s.cpu().numpy().astype(np.int64), rmax_li)
+            cnts_np[li, lo:hi] = rc_np
+            if rc_np.sum():
+                # the live rows of the chunk's dense transient, group-major
+                src = np.concatenate([gl * rmax_li + np.arange(rc_np[gl])
+                                      for gl in range(hi - lo)])
+                parts.append(packed_s.reshape(-1, SHADOW_FEATS, MM_COLS)[
+                    torch.as_tensor(src, device=dev)])
+            del packed_s  # the dense transient is freed per chunk
+    rows = int(cnts_np.sum())
+    tb = _ceil_to(max(rows, 1), 64)
+    r2v_np = np.zeros(tb, np.int32)
+    flag_np = np.zeros(tb, np.int32)
+    cnt_flat = cnts_np.reshape(-1)  # virtual group order light * NG + g
+    live_v = np.flatnonzero(cnt_flat)
+    if rows:
+        r2v_np[:rows] = np.repeat(live_v, cnt_flat[live_v])
+        flag_np[:rows] = 1
+        flag_np[np.cumsum(cnt_flat[live_v]) - cnt_flat[live_v]] = 2
+        # padding rows inherit the last live group
+        r2v_np[rows:] = r2v_np[rows - 1]
+    parts.append(torch.zeros((tb - rows, SHADOW_FEATS, MM_COLS),
+                             dtype=torch.float32, device=dev))
+    flat_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
+    out = (torch.as_tensor(cnts_np.astype(np.int32), device=dev),
+           torch.as_tensor(r2v_np, device=dev),
+           torch.as_tensor(flag_np, device=dev), flat_rows,
+           torch.cat([cg, rg_sph[:, None]], dim=-1))
+    while len(splan.shadow_store) >= cfg.shadow_store_size:
+        splan.shadow_store.pop(next(iter(splan.shadow_store)))
+    splan.shadow_store[sk] = out
+    return out
+
+
+def _shading_rows(splan, scene_dev):
+    """The scene's build_shading_rows table, built once per plan."""
+    if splan.shading_rows is None:
+        splan.shading_rows = build_shading_rows(scene_dev)
+    return splan.shading_rows
+
 
 def render_means(scene_flat, scene_dev: Dict[str, Any],
                  omms_np: np.ndarray, position, local_space,
                  generator: torch.Generator, samples: int, background: int,
-                 tracer=None, cache_tracer=None) -> torch.Tensor:
-    """One unlit frame: (N, 3) mean radiance per ommatidium in the original
+                 lights=None, shadow_audit: bool = False, tracer=None,
+                 cache_tracer=None, shadow_tracer=None):
+    """One frame: (N, 3) mean radiance per ommatidium in the original
     ommatidium order (compound_ray_tpu/eye/pipeline.py:2676,
     render_means_pallas, planned as _plan_frame :2516-2673 without the
-    speculative widths or the lit parts).  The frame runs on the
-    generator's device; scene_dev must live there too.  position (3,) and
-    local_space (3, 3) are host arrays: the pose keys the memoised plans.
-    `tracer` and `cache_tracer` replace K1 and K2 (the chip check renders
-    through the twins with them)."""
+    speculative widths).  The frame runs on the generator's device;
+    scene_dev must live there too.  position (3,) and local_space (3, 3)
+    are host arrays: the pose keys the memoised plans.
+
+    lights (L, 7) host rows [colour, intensity, position] light the frame:
+    the far-field cache and the sky split are off, the dense pack is traced
+    by K1 and the shadow rays by K3 over the memoised shadow plan, whose
+    first build at a pose probes this frame's own rays (one more K1
+    launch).  With shadow_audit a lit frame returns (means, audit), audit
+    = [out-of-shaft hits, hits, per-group out-of-shaft hits] (int64 on the
+    device).  `tracer`, `cache_tracer` and `shadow_tracer` replace K1, K2
+    and K3 (the chip check renders through the twins with them)."""
     device = generator.device
     splan = scene_plan(scene_flat, device)
     eplan = eye_plan(omms_np, samples)
@@ -1205,13 +1749,14 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
     pos = torch.as_tensor(pos_np, device=device)
     ls = torch.as_tensor(ls_np, device=device)
     cfg = get_config()
+    lit = lights is not None
     near_mask, cache, d_thresh = _farfield_plan(
         splan, eplan, scene_dev, omms_np, pos_np, ls_np, samples, background,
-        cfg, tracer=cache_tracer)
+        cfg, tracer=cache_tracer, lights=lights)
     use_cache = near_mask is not None
     cache_shape = (cfg.farfield_cache_width // 2, cfg.farfield_cache_width)
     sky = sky_key = None
-    if cfg.sky_split and use_cache and eplan.g == 1:
+    if cfg.sky_split and use_cache and not lit and eplan.g == 1:
         sky_key = _sky_key(eplan, samples, pose_sig, d_thresh, background,
                            cfg)
         found, sky = _sky_probe(splan, sky_key)
@@ -1240,12 +1785,26 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
          rmax) = sky
     splay, spin = sample_angles_ns(generator, omms_f[:, 6] / FWHM_SD_RATIO,
                                    samples)
-    means_p = _trace_shade_angles(
+    lit_kw = {}
+    if lit:
+        lights_np = np.ascontiguousarray(np.asarray(lights, np.float32))
+        lit_kw = dict(
+            lights=torch.as_tensor(lights_np, device=device),
+            slot_tri=splan.slot_tri,
+            shading_rows=_shading_rows(splan, scene_dev),
+            shadow=_shadow_plan(splan, eplan, omms_p, pos, ls, pose_sig,
+                                lights_np, samples, splay, spin, packed_mm,
+                                row_counts, rmax, tracer=tracer),
+            shadow_audit=shadow_audit, shadow_tracer=shadow_tracer)
+    out = _trace_shade_angles(
         packed_mm, row_counts, splan.attr_table, scene_dev,
         splan.quad_table, omms_f, pos, ls, splay, spin, samples=samples,
         background=background, ng=ng, g=eplan.g, nrb=eplan.nrb,
         rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
         tex_only=splan.tex_only, tracer=tracer, cache=cache,
         cache_shape=cache_shape, sky_means=sky_means,
-        sky_scatter=sky_scatter)
-    return means_p[inv_valid]
+        sky_scatter=sky_scatter, **lit_kw)
+    if lit and shadow_audit:
+        means_p, audit = out
+        return means_p[inv_valid], audit
+    return out[inv_valid]

@@ -218,6 +218,14 @@ class FlatScene:
                 "tex_wrap_t": dev(self.tex_wrap_t),
                 "tex_filter": dev(self.tex_filter),
             }
+            # present only when some material references a metallic-
+            # roughness or normal texture: the lit epilogue gates its
+            # material-texture modulation on these keys, as the JAX package
+            # does (compound_ray_tpu/scene/flat.py:223-230)
+            if (self.mat_mr_tex >= 0).any() or (self.mat_normal_tex >= 0).any():
+                self._device_cache["mat_mr_tex"] = dev(self.mat_mr_tex)
+                self._device_cache["mat_normal_tex"] = dev(
+                    self.mat_normal_tex)
         return self._device_cache
 
 

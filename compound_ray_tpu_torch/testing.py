@@ -253,6 +253,125 @@ def make_two_texture_scene(background: str = "black") -> FlatScene:
     return scene
 
 
+def make_mr_normal_scene(background: str = "black") -> FlatScene:
+    """The textured floor quad with a metallic-roughness texture and a
+    normal map on its material (compound_ray_tpu/testing.py:155): the lit
+    path's material-texture modulation.  The MR map halves roughness and
+    quarters metallic on the left half; the normal map tilts normals
+    toward +u on the left half and leaves them flat on the right."""
+    scene = make_textured_quad_scene(8, background)
+    scene.mat_metallic = np.array([0.8], np.float32)
+    scene.mat_roughness = np.array([0.6], np.float32)
+    # upward vertex normals: the quad's winding gives a downward geometric
+    # normal, which would fail the facing test for an eye above the floor
+    up = np.tile(np.array([0.0, 1.0, 0.0], np.float32), (2, 1))
+    scene.n0 = up.copy()
+    scene.n1 = up.copy()
+    scene.n2 = up.copy()
+    scene.has_normals = np.ones(2, bool)
+    mr = np.ones((4, 4, 4), np.float32)  # (occlusion, roughness, metal, 1)
+    mr[:, :2, 1] = 0.5
+    mr[:, :2, 2] = 0.25
+    nm = np.empty((4, 4, 4), np.float32)
+    nm[:, :, 0] = 0.5
+    nm[:, :, 1] = 0.5
+    nm[:, :, 2] = 1.0
+    nm[:, :, 3] = 1.0
+    nm[:, :2, 0] = 0.7
+    base = scene.tex_data.shape[0]
+    scene.tex_data = np.concatenate(
+        [scene.tex_data, mr.reshape(-1, 4), nm.reshape(-1, 4)])
+    scene.tex_offset = np.concatenate(
+        [scene.tex_offset, np.array([base, base + 16], np.int32)])
+    scene.tex_width = np.concatenate([scene.tex_width,
+                                      np.array([4, 4], np.int32)])
+    scene.tex_height = np.concatenate([scene.tex_height,
+                                       np.array([4, 4], np.int32)])
+    scene.tex_wrap_s = np.concatenate([scene.tex_wrap_s,
+                                       np.zeros(2, np.int32)])
+    scene.tex_wrap_t = np.concatenate([scene.tex_wrap_t,
+                                       np.zeros(2, np.int32)])
+    scene.tex_filter = np.concatenate([scene.tex_filter,
+                                       np.ones(2, np.int32)])
+    scene.mat_mr_tex = np.array([1], np.int32)
+    scene.mat_normal_tex = np.array([2], np.int32)
+    scene._device_cache = None
+    return scene
+
+
+def make_silhouette_leak_scene(with_slab: bool = True,
+                               pillar_half_width: float = 0.18) -> FlatScene:
+    """The shadow plan's adversarial geometry (compound_ray_tpu/testing.py:
+    200): a near pillar in front of a far wall, and a horizontal slab that
+    shadows the wall but not the pillar from leak_scene_light.  A probe
+    whose samples all hit the pillar packs a shaft without the slab; a
+    later sample past the pillar's edge hits the wall outside the shaft
+    and leaks the wall's light term.
+
+    Layout: pillar x in [-w, w], y in [-2, 2], z = -2; wall x, y in
+    [-20, 20], z = -10; slab x in [-12, 12], z in [-11, -4], y = 5."""
+    w = pillar_half_width
+    quads = [
+        ([[-w, -2, -2], [w, -2, -2], [w, 2, -2], [-w, 2, -2]],
+         (0.9, 0.3, 0.2)),
+        ([[-20, -20, -10], [20, -20, -10], [20, 20, -10], [-20, 20, -10]],
+         (0.6, 0.6, 0.6)),
+    ]
+    if with_slab:
+        quads.append(([[-12, 5, -11], [12, 5, -11], [12, 5, -4],
+                       [-12, 5, -4]], (0.2, 0.2, 0.8)))
+    all_v, all_f, all_c = [], [], []
+    off = 0
+    for corners, col in quads:
+        all_v.append(np.asarray(corners, np.float64))
+        all_f.append(np.array([[0, 1, 2], [0, 2, 3]], np.int64) + off)
+        all_c.append(np.tile(np.asarray(col, np.float32), (4, 1)))
+        off += 4
+    return build_scene_from_arrays(
+        np.concatenate(all_v), np.concatenate(all_f),
+        vertex_colors=np.concatenate(all_c),
+        background_shader="black", name="silhouette-leak",
+    )
+
+
+def leak_scene_light() -> np.ndarray:
+    """The single point light the leak scene is built around."""
+    out = np.zeros((1, 7), np.float32)
+    out[0, 0:3] = [1.0, 1.0, 0.9]
+    out[0, 3] = 15.0
+    out[0, 4:7] = [0.0, 30.0, -7.0]
+    return out
+
+
+def make_canopy_scene() -> FlatScene:
+    """A floor, a partial canopy and a side wall, grey-blue, on a black
+    background: the mixed-occlusion scene of the JAX package's lit-frame
+    test (tests/test_lighting.py:79-98), where the canopy shadows some
+    lights and the wall others."""
+    v1, f1 = box_mesh((0.0, -1.0, 0.0), (20.0, 0.2, 20.0))
+    v2, f2 = box_mesh((3.0, 3.0, 0.0), (4.0, 0.2, 4.0))
+    v3, f3 = box_mesh((-4.0, 1.0, 0.0), (0.2, 4.0, 6.0))
+    verts = np.concatenate([v1, v2, v3])
+    faces = np.concatenate([f1, f2 + len(v1), f3 + len(v1) + len(v2)])
+    return build_scene_from_arrays(verts, faces, base_color=(0.4, 0.5, 0.6),
+                                   background_shader="black",
+                                   name="canopy")
+
+
+def canopy_eye(accept_deg: float = 2.0) -> List[Ommatidium]:
+    """30 ommatidia in a 6 x 5 fan over the canopy scene's floor, looking
+    down and outward (tests/test_lighting.py:100-106, with a real
+    acceptance cone)."""
+    out = []
+    for ix in range(6):
+        for iz in range(5):
+            p = np.array([ix - 2.5, 2.0, iz - 2.0])
+            d = np.array([0.15 * (ix - 2.5), -1.0, 0.1 * (iz - 2.0)])
+            out.append(Ommatidium(p, d / np.linalg.norm(d),
+                                  math.radians(accept_deg), 0.0))
+    return out
+
+
 # -- small frames from fixed angles: the card checks of tests/test_torch_cuda.py
 # -- and chip_smoke.py trace the same rays on two devices or through two tracers
 
@@ -384,3 +503,97 @@ def cluster_hit_agreement(ref, got, counts, rg: int):
     return (agree.double().mean().item() if agree.numel() else 1.0,
             err.max().item() if err.numel() else 0.0,
             rel.max().item() if rel.numel() else 0.0)
+
+
+def lit_frame_means(scene: FlatScene, f: SimpleNamespace, lights,
+                    tracer=None, shadow_tracer=None) -> np.ndarray:
+    """(N, 3) lit means of a frame_pack frame (the far field off), in
+    ommatidium order: the shadow plan probes the frame's own angles, then
+    the frame traces its shadow rays on K3 (or `shadow_tracer`)."""
+    ep = f.eplan
+    lights_np = np.asarray(lights, np.float32)
+    dev = f.pos.device
+    scene_dev = scene.device_triangles(dev)
+    pose_sig = (f.pos.cpu().numpy().tobytes(), f.ls.cpu().numpy().tobytes())
+    shadow = P._shadow_plan(f.splan, ep, f.omms_p, f.pos, f.ls, pose_sig,
+                            lights_np, f.samples, f.splay, f.spin,
+                            f.packed_mm, f.row_counts, f.rmax, tracer=tracer)
+    means = P._trace_shade_angles(
+        f.packed_mm, f.row_counts, f.splan.attr_table, scene_dev,
+        f.splan.quad_table, f.omms_p, f.pos, f.ls, f.splay, f.spin,
+        samples=f.samples, background=miss_id(scene.background_shader),
+        ng=f.ng, g=ep.g, nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax,
+        textured=f.splan.textured, tex_only=f.splan.tex_only, tracer=tracer,
+        lights=torch.as_tensor(lights_np, device=dev),
+        slot_tri=f.splan.slot_tri,
+        shading_rows=P._shading_rows(f.splan, scene_dev), shadow=shadow,
+        shadow_tracer=shadow_tracer)
+    return means[f.inv].cpu().numpy()
+
+
+def lit_occlusion_inputs(scene: FlatScene, f: SimpleNamespace, lights):
+    """K3's inputs in the lit frame of a frame_pack frame, exactly as the
+    frame hands them over: (r2v, flag, flat_rows, rays, {nrb, rb_size}).
+    The recorded frame traces its shadow rays through the twin."""
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        rows_occlusion_reference,
+    )
+
+    seen = []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return rows_occlusion_reference(*args, **kw)
+
+    lit_frame_means(scene, f, lights, shadow_tracer=record)
+    (args, kw), = seen
+    return (*args, kw)
+
+
+def pack_occlusion_table(f: SimpleNamespace, feats: int = 16, skip=(),
+                         scale: float = 50.0):
+    """A K3 table from a frame_pack frame's pose pack, one row per block,
+    sorted by group, with 5 padding rows at the end (flag 0): (r2v, flag,
+    flat_rows, rays, row counts (NG,) numpy, {nrb, rb_size}).  Groups in
+    `skip` get no rows.  feats 16: the frame's 16-feature rays with the
+    direction rows (d and o x d) scaled by `scale`, so t in [0, 1] spans
+    that many world units; feats 8: the rows folded with their group's ray
+    origin (transform_payload_affine) against [scale d, 1, 0 x 4]."""
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        transform_payload_affine,
+    )
+
+    ep = f.eplan
+    rc = f.row_counts.cpu().numpy().copy()
+    rc[list(skip)] = 0
+    g_of_row = np.repeat(np.arange(ep.ng), rc)
+    j_of_row = np.concatenate([np.arange(c) for c in rc])
+    dev = f.packed_mm.device
+    rows = f.packed_mm[torch.as_tensor(g_of_row, device=dev),
+                       torch.as_tensor(j_of_row, device=dev)]
+    flag = np.where(j_of_row == 0, 2, 1).astype(np.int32)
+    r2v = g_of_row.astype(np.int32)
+    rays, _ = P._gen_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
+                                  samples=f.samples, ng=ep.ng, g=ep.g,
+                                  nrb=ep.nrb, rb_size=ep.rb_size)
+    if feats == 8:
+        (ox, oy, oz), tmin, _, _ = P._omm_world_origins(f.omms_p, f.pos,
+                                                        f.ls)
+        gi = torch.as_tensor(g_of_row, device=dev)
+        rows = transform_payload_affine(
+            rows[:, None], torch.stack([ox, oy, oz], dim=-1)[gi],
+            tmin[gi])[:, 0, 0:8]
+        rays8 = torch.zeros((8, rays.shape[1]), device=dev)
+        rays8[0:3] = rays[0:3] * scale
+        rays8[3] = 1.0
+        rays = rays8
+    else:
+        rays = rays.clone()
+        rays[0:6] *= scale
+    rows = torch.cat([rows, rows.new_zeros((5,) + rows.shape[1:])])
+    r2v = np.concatenate([r2v, np.full(5, r2v[-1], np.int32)])
+    flag = np.concatenate([flag, np.zeros(5, np.int32)])
+    return (torch.as_tensor(r2v, device=dev),
+            torch.as_tensor(flag, device=dev), rows.contiguous(),
+            rays.contiguous(), rc,
+            dict(nrb=ep.nrb, rb_size=ep.rb_size))

@@ -111,3 +111,9 @@ def cluster_tracer_lib() -> ctypes.CDLL:
     """The K2 library (csrc/cluster_tracer.cu)."""
     return _load("cluster_tracer", "cr_cluster_tracer",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
+
+def rows_occlusion_lib() -> ctypes.CDLL:
+    """The K3 library (csrc/rows_occlusion.cu)."""
+    return _load("rows_occlusion", "cr_rows_occlusion",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P])

@@ -1,4 +1,5 @@
-"""Packed closest-hit tracer K1 (compound_ray_tpu/trace/mm_tracer.py in torch).
+"""Packed tracers K1 (closest hit) and K3 (any-hit occlusion)
+(compound_ray_tpu/trace/mm_tracer.py in torch).
 
 A group of rays (one ommatidium, or a few when samples are few) is traced
 against its own packed payload: `row_counts[g]` rows of 128 triangle SLOTS,
@@ -22,6 +23,15 @@ Two implementations of one contract:
     (csrc/packed_tracer.cu) for CUDA tensors; CPU tensors take the twin.
   * packed_tracer_reference — the plain torch twin (einsum + the same
     candidate algebra and winner order).
+
+K3 traces the lit frame's shadow rays against the shadow plan's ragged
+occluder table (eye/pipeline.py _shadow_plan): rows of transform_payload_
+affine'd columns, their feature rows 0-7 only, sorted by virtual group
+(light * NG + group).  A shadow ray is [D, 1, 0 x 4] with its origin at
+the light, so the products give w1, w2, den and tnum directly and the test
+needs no division (sign-folded, see run_rows_occlusion).  Again two
+implementations: run_rows_occlusion (csrc/rows_occlusion.cu on CUDA
+tensors) and rows_occlusion_reference (the torch twin).
 """
 
 from __future__ import annotations
@@ -45,8 +55,14 @@ BATCH_RAYS = 256
 # its temporaries to a few hundred MB at the full-size frame
 _TWIN_CHUNK_ELEMS = 1 << 26
 
+# elements of the K3 twin's (groups, rays, 512) product per chunk: its few
+# live temporaries of that size stay near 2 GB at the full-size frame
+_OCC_TWIN_CHUNK_ELEMS = 1 << 27
+
 # K1 launches by run_packed_tracer (the kernel only, never the twin)
 launches = 0
+# K3 launches by run_rows_occlusion (the kernel only, never the twin)
+occlusion_launches = 0
 
 
 def build_mm_features(cluster_set, uv=None, texid=None, rgb=None) -> np.ndarray:
@@ -255,4 +271,171 @@ def run_packed_tracer(row_counts, packed_mm, rays, ng: int, nrb: int,
     if err != 0:
         raise RuntimeError(f"packed tracer launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def transform_payload_affine(packed_mm, o_g, tmin_g):
+    """Fold a per-group ray origin o_g (NG, 3) and tmin tmin_g (NG,) into a
+    (NG, rmax, 16, 512) payload (compound_ray_tpu/trace/mm_tracer.py:371),
+    so rays [d, 1, 0 x 4] against the result give the products that
+    [d, m, -o', 1, 0 x 6] give against the original.  Per column:
+    Q_d = P[0:3] + P[3:6] x o - tmin P[6:9] (rows 0-2),
+    Q_c = P[9] - o . P[6:9] (row 3), rows 4-7 zero, rows 8-15 unchanged.
+    The den block keeps Q_d = n exactly, so all-zero padding columns stay
+    all zero.  The shadow plan applies it with the light as the origin and
+    tmin 0."""
+    p_d = packed_mm[:, :, 0:3, :]
+    p_m = packed_mm[:, :, 3:6, :]
+    p_o = packed_mm[:, :, 6:9, :]
+    p_1 = packed_mm[:, :, 9, :]
+    o = o_g[:, None, :, None]  # (NG, 1, 3, 1)
+    tm = tmin_g[:, None, None, None]
+    cross = torch.cat([
+        p_m[:, :, 1:2] * o[:, :, 2:3] - p_m[:, :, 2:3] * o[:, :, 1:2],
+        p_m[:, :, 2:3] * o[:, :, 0:1] - p_m[:, :, 0:1] * o[:, :, 2:3],
+        p_m[:, :, 0:1] * o[:, :, 1:2] - p_m[:, :, 1:2] * o[:, :, 0:1],
+    ], dim=2)
+    q_d = p_d + cross - tm * p_o
+    q_c = p_1 - torch.sum(o * p_o, dim=2)
+    return torch.cat([q_d, q_c[:, :, None, :],
+                      torch.zeros_like(packed_mm[:, :, 0:4, :]),
+                      packed_mm[:, :, 8:16, :]], dim=2)
+
+
+def _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb, rb_size):
+    """Raise on anything K3 and its twin do not take; returns (F, NVG)."""
+    dev = rays.device
+    for name, x, dtype in (("r2v", r2v, torch.int32),
+                           ("flag", flag, torch.int32),
+                           ("flat_rows", flat_rows, torch.float32),
+                           ("rays", rays, torch.float32)):
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if rb_size <= 0 or rb_size % KERNEL_LEAF:
+        raise ValueError(
+            f"rb_size={rb_size} must be a positive multiple of {KERNEL_LEAF}")
+    if nrb < 1:
+        raise ValueError(f"nrb={nrb} must be >= 1")
+    if flat_rows.dim() != 3 or flat_rows.shape[2] != MM_COLS:
+        raise ValueError(f"flat_rows {tuple(flat_rows.shape)} is not "
+                         f"(TB, F, {MM_COLS}): one occluder row per block")
+    feats = flat_rows.shape[1]
+    if feats not in (8, 16):
+        raise ValueError(f"F={feats} feature rows: K3 takes 8 or 16")
+    tb = flat_rows.shape[0]
+    if tuple(r2v.shape) != (tb,) or tuple(flag.shape) != (tb,):
+        raise ValueError(f"r2v {tuple(r2v.shape)} and flag "
+                         f"{tuple(flag.shape)} must both be ({tb},)")
+    rg = nrb * rb_size
+    if rays.dim() != 2 or rays.shape[0] != feats or rays.shape[1] % rg:
+        raise ValueError(f"rays {tuple(rays.shape)} != ({feats}, NVG * "
+                         f"{rg})")
+    return feats, rays.shape[1] // rg
+
+
+def _row_ranges(r2v, flag, nvg: int):
+    """(first row (NVG,) int32, live rows (NVG,) int32) of each virtual
+    group, on the device with no host sync: a weighted count of the live
+    rows (flag > 0) per r2v, then an exclusive prefix sum.  Valid because
+    the table lists each group's live rows contiguously, groups in
+    ascending order, and padding rows (flag 0) only at its end."""
+    count = torch.zeros(nvg, dtype=torch.int32, device=r2v.device)
+    count.index_add_(0, r2v.long(), (flag > 0).to(torch.int32))
+    start = (torch.cumsum(count, 0) - count).to(torch.int32)
+    return start, count
+
+
+def rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb: int,
+                             rb_size: int) -> torch.Tensor:
+    """Plain torch twin of K3: (1, R) f32, 1.0 where some occluder row of
+    the ray's virtual group passes the any-hit test, else 0.0 (zero-row
+    groups included).
+
+    Virtual group v owns rays [v * nrb * rb_size, (v + 1) * nrb * rb_size).
+    For each row j of each group the F products are summed in feature
+    order, one rounded multiply and one rounded add per term, exactly as
+    the kernel sums them (no fused multiply-add), so kernel and twin decide
+    every ray alike.  Loops over the row index, chunked over groups so the
+    (groups, rays, 512) temporaries stay near 2 GB."""
+    feats, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb,
+                                         rb_size)
+    dev = rays.device
+    rg = nrb * rb_size
+    out = torch.zeros((1, rays.shape[1]), dtype=torch.float32, device=dev)
+    start, count = _row_ranges(r2v, flag, nvg)
+    count_np = count.cpu().numpy()
+    rays_g = rays.reshape(feats, nvg, rg)
+    chunk = max(1, _OCC_TWIN_CHUNK_ELEMS // (rg * MM_COLS))
+    leaf = KERNEL_LEAF
+    for v0 in range(0, nvg, chunk):
+        v1 = min(nvg, v0 + chunk)
+        cnt = count_np[v0:v1]
+        if not cnt.any():
+            continue
+        occ = torch.zeros((v1 - v0, rg), dtype=torch.bool, device=dev)
+        for j in range(int(cnt.max())):
+            sel = torch.as_tensor(np.flatnonzero(cnt > j) + v0, device=dev)
+            rows = flat_rows[(start[sel] + j).long()]  # (G, F, 512)
+            ray = rays_g[:, sel]  # (F, G, rg)
+            p = ray[0, :, :, None] * rows[:, None, 0, :]
+            for k in range(1, feats):
+                p = p + ray[k, :, :, None] * rows[:, None, k, :]
+            w1, w2, den, tnum = p.split(leaf, dim=-1)
+            s = torch.where(den >= 0.0, 1.0, -1.0)
+            a = w1 * s
+            b = w2 * s
+            d = den * s
+            tt = tnum * s
+            ok = ((a >= 0.0) & (b >= 0.0) & (a + b <= d) & (tt >= 0.0)
+                  & (tt <= d) & (d > 0.0)).any(dim=-1)  # (G, rg)
+            occ[sel - v0] |= ok
+        out[0, v0 * rg:v1 * rg] = occ.to(torch.float32).reshape(-1)
+    return out
+
+
+def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int,
+                       rb_size: int) -> torch.Tensor:
+    """K3: any-hit of shadow rays in t in [0, 1] of their own
+    parameterisation against their virtual group's occluder rows
+    (compound_ray_tpu/trace/mm_tracer.py:897).
+
+    r2v (TB,) int32 row -> virtual group (light * NG + group); flag (TB,)
+    int32, 2 first row of a group, 1 live, 0 padding; flat_rows (TB, F,
+    512) f32 with F = 8 (the shadow plan's reverse-affine rows) or 16; rays
+    (F, NVG * nrb * rb_size) f32 planar.  Returns (1, R) f32: 1.0
+    occluded, 0.0 clear; zero-row groups are written 0.0.  CUDA tensors
+    launch csrc/rows_occlusion.cu on the current stream (or raise); CPU
+    tensors take rows_occlusion_reference."""
+    global occlusion_launches
+    dev = rays.device
+    if dev.type == "cpu":
+        return rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb,
+                                        rb_size)
+    feats, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb,
+                                         rb_size)
+    if dev.type != "cuda":
+        raise ValueError(f"run_rows_occlusion takes CPU or CUDA tensors, "
+                         f"not {dev.type}")
+    from compound_ray_tpu_torch.trace import _build
+
+    lib = _build.rows_occlusion_lib()
+    start, count = _row_ranges(r2v, flag, nvg)
+    r = rays.shape[1]
+    out = torch.empty((1, r), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cr_rows_occlusion(
+            ctypes.c_void_p(start.data_ptr()),
+            ctypes.c_void_p(count.data_ptr()),
+            ctypes.c_void_p(flat_rows.data_ptr()),
+            ctypes.c_void_p(rays.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            nvg, feats, nrb * rb_size, r, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"rows occlusion launch failed: CUDA error {err}")
+    occlusion_launches += 1
     return out

@@ -1,4 +1,4 @@
-"""Miss shaders and texture sampling of the unlit frame
+"""Miss shaders and texture sampling of the compound-eye frame
 (compound_ray_tpu/trace/shade.py in torch).
 
 Colour priority of __closesthit__radiance (shaders.cu:797-824):
@@ -10,8 +10,10 @@ Rays that hit nothing take one of the four miss programs
 tensors per channel.
 
 Only the general texture path is ported: every textured scene samples
-through the (P, 16) quad table with per-ray sampler constants.  The JAX
-package's single-texture and grayscale variants (texture_quad_coords_single,
+through the (P, 16) quad table with per-ray sampler constants, and the
+lit path's material textures through the per-ray four-texel
+sample_texture.  The JAX package's single-texture and grayscale variants
+(texture_quad_coords_single,
 texture_bilinear4_single, quad_bilinear_gray_c) exist to dodge TPU gather
 costs and compute the same texels.
 """
@@ -80,6 +82,42 @@ def _addr_dynamic(coord, n, mode):
                       torch.where(mode == 2, mirrored, wrapped))
     out = torch.minimum(torch.clamp(out, min=0.0), nf - 1.0)
     return out.to(torch.int32)
+
+
+def sample_texture(scene: Dict[str, Any], tex_id, uv) -> torch.Tensor:
+    """(R, 4) per-ray bilinear or nearest fetch from the flat texture atlas
+    for texture ids (R,) and coordinates uv (R, 2)
+    (compound_ray_tpu/trace/shade.py:128): normalised coordinates,
+    wrap/clamp/mirror addressing, texel centres at (i + 0.5) / w, no sRGB
+    conversion.  The lit path's metallic-roughness and normal maps read
+    through it."""
+    safe_tex = torch.clamp(tex_id, min=0).long()
+    off = scene["tex_offset"][safe_tex]
+    w = scene["tex_width"][safe_tex]
+    h = scene["tex_height"][safe_tex]
+    wrap_s = scene["tex_wrap_s"][safe_tex]
+    wrap_t = scene["tex_wrap_t"][safe_tex]
+    filt = scene["tex_filter"][safe_tex]
+    x = uv[:, 0] * w.to(torch.float32) - 0.5
+    y = uv[:, 1] * h.to(torch.float32) - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+
+    def fetch(xi, yi):
+        xi = _addr_dynamic(xi, w, wrap_s)
+        yi = _addr_dynamic(yi, h, wrap_t)
+        return scene["tex_data"][(off + yi * w + xi).long()]
+
+    c00 = fetch(x0f, y0f)
+    c10 = fetch(x0f + 1.0, y0f)
+    c01 = fetch(x0f, y0f + 1.0)
+    c11 = fetch(x0f + 1.0, y0f + 1.0)
+    fx4, fy4 = fx[:, None], fy[:, None]
+    bilinear = (c00 * (1 - fx4) * (1 - fy4) + c10 * fx4 * (1 - fy4)
+                + c01 * (1 - fx4) * fy4 + c11 * fx4 * fy4)
+    # nearest rounds half to even, as jnp.round
+    nearest = fetch(torch.round(x), torch.round(y))
+    return torch.where((filt == 1)[:, None], bilinear, nearest)
 
 
 def _wrap_index_np(i, n, mode):

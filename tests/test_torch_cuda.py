@@ -7,7 +7,9 @@ JAX-free, so the file runs where JAX is absent (the card's machine):
 Inputs come from the port's own pipeline.  Thresholds as in
 tests/test_torch_k1.py: slot ids (K1) or cluster and lane (K2) equal on
 >= 99.9 % of live rays, t within rtol 1e-5 where they agree (the kernels
-fuse products into FMAs, the twins do not); frame means within 2e-4.
+fuse products into FMAs, the twins do not); frame means within 2e-4.  K3
+sums its products in the twin's order without FMAs, so its decisions must
+equal the twin's on every ray.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from compound_ray_tpu_torch.eye import pipeline as P
 from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
 from compound_ray_tpu_torch.trace import cluster_tracer as CT
 from compound_ray_tpu_torch.trace import mm_tracer as TM
+from compound_ray_tpu_torch.trace.lighting import default_lights
 
 SLOT_AGREE = 0.999
 T_RTOL = 1e-5
@@ -120,4 +123,71 @@ def test_cache_frame_on_card_matches_cpu(cuda_device, sky):
         out.append(testing.frame_means(scene, testing.frame_pack(
             scene, omms, 128, (0.0, 2.0, 0.0), dev, cache_width=64,
             sky=sky)))
+    np.testing.assert_allclose(out[0], out[1], atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feats", [16, 8])
+@pytest.mark.parametrize("size", ["small", "medium"])
+def test_k3_matches_twin(cuda_device, size, feats):
+    """K3 on a pose pack laid out as an occluder table (two groups with
+    no rows): small = the 60-box scene, 16 ommatidia, 640 samples; medium =
+    the 2000-box bench scene at its bench pose, 256 ommatidia, 640
+    samples."""
+    if size == "small":
+        scene, n_omm = testing.make_big_scene(60, seed=5), 16
+        pos = (0.0, 2.0, 0.0)
+    else:
+        scene, n_omm = testing.make_big_scene(2000, seed=0), 256
+        c = scene.aabb_center()
+        pos = (float(c[0]), float(c[1]) + 1.0, float(c[2]))
+    omms = ommatidia_to_array(testing.make_sphere_eye(n_omm, 4.0))
+    f = testing.frame_pack(scene, omms, 640, pos, cuda_device, seed=9)
+    r2v, flag, rows, rays, rc, kw = testing.pack_occlusion_table(
+        f, feats=feats, skip=(0, 3))
+    before = TM.occlusion_launches
+    got = TM.run_rows_occlusion(r2v, flag, rows, rays, **kw)
+    torch.cuda.synchronize()
+    assert TM.occlusion_launches == before + 1
+    ref = TM.rows_occlusion_reference(r2v, flag, rows, rays, **kw)
+    assert torch.equal(got, ref)
+    live = torch.repeat_interleave(torch.as_tensor(rc > 0, device=got.device),
+                                   kw["nrb"] * kw["rb_size"])
+    assert got[0, live].any() and not got[0, live].all()
+    assert not got[0, ~live].any()
+
+
+@pytest.mark.cuda
+def test_k3_matches_twin_on_a_lit_frame(cuda_device):
+    """K3 on the shadow rays and table of a lit frame (the reverse-affine
+    F = 8 form), the canopy scene with its default lights."""
+    scene = testing.make_canopy_scene()
+    omms = ommatidia_to_array(testing.canopy_eye(2.0))
+    f = testing.frame_pack(scene, omms, 256, (0.0, 0.0, 0.0), cuda_device)
+    r2v, flag, rows, rays, kw = testing.lit_occlusion_inputs(
+        scene, f, default_lights(scene.aabb_min, scene.aabb_max))
+    got = TM.run_rows_occlusion(r2v, flag, rows, rays, **kw)
+    ref = TM.rows_occlusion_reference(r2v, flag, rows, rays, **kw)
+    assert torch.equal(got, ref) and got.any() and not got.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["canopy", "mr_normal"])
+def test_lit_frame_on_card_matches_cpu(cuda_device, name):
+    """The same lit frame (same numpy angles, so the same probe) on the card
+    (K1, K3) and on the CPU (the twins)."""
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        if name == "canopy":
+            scene = testing.make_canopy_scene()
+            omms = ommatidia_to_array(testing.canopy_eye(2.0))
+            pos = (0.0, 0.0, 0.0)
+        else:
+            scene = testing.make_mr_normal_scene()
+            omms = ommatidia_to_array(testing.make_sphere_eye(24, 5.0))
+            pos = (0.0, 5.0, 0.0)
+        f = testing.frame_pack(scene, omms, 128, pos, dev, seed=4)
+        out.append(testing.lit_frame_means(
+            scene, f, default_lights(scene.aabb_min, scene.aabb_max)))
+    assert out[0].max() > 0.7
     np.testing.assert_allclose(out[0], out[1], atol=ATOL)

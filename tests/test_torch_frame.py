@@ -176,8 +176,11 @@ def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
         tr.render_frame()
     with pytest.raises(NotImplementedError):
         tr.load_gltf_scene(str(tmp_path / "scene.blend"))
-    with pytest.raises(NotImplementedError):
-        tr.set_lighting(True)
+    with pytest.raises(RuntimeError, match="lights"):
+        tr.get_lights()  # lights come with a scene
+    for bad in (np.zeros((4, 6)), np.zeros(7), np.zeros((0, 7))):
+        with pytest.raises(ValueError, match="lights"):
+            tr.set_lights(bad)
     tr.set_lighting(False)
     with pytest.raises(NotImplementedError):
         tr.set_render_size(64, 32)

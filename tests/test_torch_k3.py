@@ -1,0 +1,115 @@
+"""Port vs JAX: the any-hit occlusion tracer K3's contract.
+
+rows_occlusion_reference (the torch twin, which run_rows_occlusion takes on
+CPU tensors) against the JAX run_rows_occlusion in interpret mode at
+precision "highest", on the row tables of tests/test_pallas_tracer.py:549-
+636: make_big_scene(60, seed=5), a 16-ommatidium 4-degree eye at
+(0, 2, 0), 640 samples (rb_size 768), the pose pack's rows laid out one per
+block and sorted by group, with padding rows at the end.  F = 16 traces the
+16-feature rays with their direction rows scaled by 50, so t in [0, 1]
+spans 50 world units; F = 8 traces the same rows folded with each
+group's origin (transform_payload_affine) against [50 d, 1, 0 x 4].
+Decisions must be equal on every ray of a group with rows; the JAX kernel
+leaves zero-row groups unwritten, the port writes 0.0 there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from compound_ray_tpu import native_ext  # noqa: E402
+from compound_ray_tpu.trace import mm_tracer as JM  # noqa: E402
+from compound_ray_tpu.scene.eye_io import ommatidia_to_array  # noqa: E402
+from compound_ray_tpu_torch import config as tcfg  # noqa: E402
+from compound_ray_tpu_torch import testing as ttesting  # noqa: E402
+from compound_ray_tpu_torch.eye import pipeline as TP  # noqa: E402
+from compound_ray_tpu_torch.trace import mm_tracer as TM  # noqa: E402
+
+SAMPLES = 640
+
+
+@pytest.fixture
+def pinned(monkeypatch):
+    monkeypatch.setattr(native_ext, "build_cluster_order",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(JM, "SHADOW_PRECISION", "highest")
+    monkeypatch.setattr(TP, "_eye_plans", {})
+    monkeypatch.setattr(tcfg, "_global_config",
+                        tcfg.RenderConfig(farfield="off"))
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _table(feats=16, skip=()):
+    """The pose pack as a K3 table (testing.pack_occlusion_table)."""
+    scene = ttesting.make_big_scene(n_boxes=60, seed=5)
+    omms = ommatidia_to_array(ttesting.make_sphere_eye(16, 4.0))
+    f = ttesting.frame_pack(scene, omms, SAMPLES, (0.0, 2.0, 0.0), "cpu",
+                            seed=9)
+    return ttesting.pack_occlusion_table(f, feats=feats, skip=skip)
+
+
+@pytest.mark.parametrize("feats", [16, 8])
+def test_twin_matches_jax(pinned, feats):
+    r2v, flag, rows, rays, rc, kw = _table(feats, skip=(3,))
+    assert rows.shape[1] == rays.shape[0] == feats
+    want = np.asarray(JM.run_rows_occlusion(
+        *(jnp.asarray(x.numpy()) for x in (r2v, flag, rows, rays)), **kw))
+    before = TM.occlusion_launches
+    got = TM.run_rows_occlusion(r2v, flag, rows, rays, **kw)
+    assert TM.occlusion_launches == before, "the CPU path is the twin"
+    ref = TM.rows_occlusion_reference(r2v, flag, rows, rays, **kw)
+    assert torch.equal(got, ref) and got.shape == (1, rays.shape[1])
+    got = got.numpy()
+    live = np.repeat(rc > 0, kw["nrb"] * kw["rb_size"])
+    assert set(np.unique(got)) <= {0.0, 1.0}
+    np.testing.assert_array_equal(got[0, live], want[0, live])
+    assert got[0, live].sum() > 0 and (got[0, live] == 0.0).any()
+    # the skipped group and every other zero-row group come out clear
+    assert not got[0, ~live].any() and (~live).any()
+
+
+def test_twin_chunking_and_row_ranges(monkeypatch):
+    """Group chunks only bound the twin's memory; the row ranges follow the
+    table's sorted layout and ignore padding rows."""
+    monkeypatch.setattr(TP, "_eye_plans", {})
+    monkeypatch.setattr(tcfg, "_global_config",
+                        tcfg.RenderConfig(farfield="off"))
+    r2v, flag, rows, rays, rc, kw = _table(skip=(0, 7))
+    args = (r2v, flag, rows, rays)
+    one = TM.rows_occlusion_reference(*args, **kw)
+    monkeypatch.setattr(TM, "_OCC_TWIN_CHUNK_ELEMS", 1)
+    assert torch.equal(TM.rows_occlusion_reference(*args, **kw), one)
+    start, count = TM._row_ranges(r2v, flag, rc.shape[0])
+    np.testing.assert_array_equal(count.numpy(), rc)
+    np.testing.assert_array_equal(start.numpy(), np.cumsum(rc) - rc)
+    assert count.dtype == start.dtype == torch.int32
+
+
+def test_inputs_are_checked():
+    r2v = torch.zeros(4, dtype=torch.int32)
+    flag = torch.tensor([2, 1, 1, 0], dtype=torch.int32)
+    rows = torch.zeros((4, 8, 512))
+    rays = torch.zeros((8, 256))
+    ok = dict(nrb=1, rb_size=256)
+    assert not TM.run_rows_occlusion(r2v, flag, rows, rays, **ok).any()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        TM.run_rows_occlusion(r2v, flag, rows, rays, nrb=1, rb_size=200)
+    with pytest.raises(ValueError, match="8 or 16"):
+        TM.run_rows_occlusion(r2v, flag, torch.zeros((4, 12, 512)),
+                              torch.zeros((12, 256)), **ok)
+    with pytest.raises(TypeError):
+        TM.run_rows_occlusion(r2v.long(), flag, rows, rays, **ok)
+    with pytest.raises(ValueError, match="rays"):
+        TM.run_rows_occlusion(r2v, flag, rows, torch.zeros((16, 256)), **ok)
+    with pytest.raises(ValueError, match="contiguous"):
+        TM.run_rows_occlusion(r2v, flag, rows, torch.zeros((256, 8)).t(),
+                              **ok)
+    with pytest.raises(ValueError, match="both"):
+        TM.run_rows_occlusion(r2v[:3], flag, rows, rays, **ok)
