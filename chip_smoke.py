@@ -9,10 +9,13 @@ speed-test size: make_big_scene(n_boxes=2000, seed=0) (24,012 triangles,
 far-field cache off (100 and 3200 samples per ommatidium), on (3200
 samples: a 1024 x 512 cache rendered by K2), on with the sky split (3200
 samples), and lit (3200 samples, the four default lights: K1 and the
-shadow rays on K3).  Phases, each failing loudly:
+shadow rays on K3); then the kernel-measurement tools' path, the probes
+(K4, K5, and K1 for real_bary) and the skinny-K dot bench (K6), at the
+tools' full sizes.  Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
-  2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu) and K3
-     (csrc/rows_occlusion.cu) with nvcc for sm_90a, one process per source,
+  2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
+     (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
+     (csrc/microbench_k.cu) with nvcc for sm_90a, one process per source,
      started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
      and the near-clusters pack of the cache frame), and K3 against its
@@ -23,19 +26,25 @@ shadow rays on K3).  Phases, each failing loudly:
   6. each path's frame against a reference: the twin-rendered frames, the
      direct frame for the cache, the dense cache frame for the sky split,
      the unlit frame for the lit one, and small scenes on the card against
-     the CPU.
-The last lines are the kernel table, the card and {"ok": true, "device": ...}.
+     the CPU;
+  7. K4 and K5 against their twin in every mode at the probe tool's shape,
+     K6 against its twin at each swept (K, N, precision) with 4000 steps;
+     then both tools' main() with the launch counts set to 0 before and
+     read after.
+The last lines are the kernel table (each kernel's launches, error, time,
+plain time and bound), the card and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from compound_ray_tpu_torch.tools import time_ms
 
 N_BOXES = 2000
 N_OMM = 1000
@@ -57,16 +66,36 @@ K3_SOURCE = "compound_ray_tpu_torch/csrc/rows_occlusion.cu"
 # K3 vs twin: decisions equal on this share of live shadow rays (the kernel
 # sums in the twin's order without FMAs, so 100 % is expected)
 K3_AGREE = 0.9999
+K4_REPLACES = "tools/probe_step.py:141"
+K5_REPLACES = "tools/probe_step.py:216"
+K45_SOURCE = "compound_ray_tpu_torch/csrc/probe_step.cu"
+K6_REPLACES = "tools/microbench_k.py:59"
+K6_SOURCE = "compound_ray_tpu_torch/csrc/microbench_k.cu"
+# K6 vs twin: max error over the sum of |terms| of each output element; both
+# round the operands alike ("default": to bf16) and sum in f32
+K6_REL = 1e-5
+K6_ENTRY = (16, 512, "default")  # the (K, N, precision) of K6's table entry
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
-           ("rows_occlusion", K3_SOURCE))
+           ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
+           ("microbench_k", K6_SOURCE))
+# bounds: NVIDIA's H100 SXM data sheet (dense): f32 outside the tensor cores,
+# bf16 on them, and device memory
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+HBM_BYTES_PER_S = 3.35e12
 
 
-def _card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(flop: float, nbytes: int, peak: float = PEAK_F32) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate and the bytes over the memory rate, and which."""
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                flop=flop, bytes=nbytes)
 
 
 def _set_config(**kw):
@@ -97,22 +126,8 @@ def _pose(cam):
     return pos, ls, (pos.tobytes(), ls.tobytes())
 
 
-def _time_ms(fn, iters: int, warmup: int) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def build_kernels():
-    """Phase 2: the three sources through nvcc at once; prints what ptxas
+    """Phase 2: the five sources through nvcc at once; prints what ptxas
     says."""
     from compound_ray_tpu_torch.trace import _build
 
@@ -121,6 +136,8 @@ def build_kernels():
     _build.packed_tracer_lib()
     _build.cluster_tracer_lib()
     _build.rows_occlusion_lib()
+    _build.probe_step_lib()
+    _build.microbench_k_lib()
     wall = time.perf_counter() - t0
     for name, src in SOURCES:
         secs, log = _build.build_info[name]
@@ -128,7 +145,9 @@ def build_kernels():
               f"{secs:.2f} s ({wall:.2f} s for all with load): "
               f"{paths[name]}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:  # the mangled name
+                print(f"  ptxas: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -140,6 +159,7 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.eye.sampling import sample_angles_ns
     from compound_ray_tpu_torch.testing import hit_agreement
+    from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF
     from compound_ray_tpu_torch.trace.mm_tracer import (
         packed_tracer_reference,
         run_packed_tracer,
@@ -180,15 +200,48 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
                live_groups=int((rc > 0).sum().item()),
                payload_rows=int(rc.sum().item()),
                slot_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
+    # 40 FMAs per (ray, slot) of every live payload row of the ray's group
+    pairs = (rc.clamp(0, rmax).sum().item() * eplan.nrb * eplan.rb_size
+             * KERNEL_LEAF)
+    res.update(_bound(80.0 * pairs, _nbytes(rc, pmm, rays, got)))
     if timed:
-        res["ms"] = _time_ms(lambda: run_packed_tracer(rc, pmm, rays, **kw),
-                             iters=20, warmup=3)
-        res["plain_ms"] = _time_ms(
+        res["ms"] = time_ms(lambda: run_packed_tracer(rc, pmm, rays, **kw),
+                            reps=20, warmup=3)
+        res["plain_ms"] = time_ms(
             lambda: packed_tracer_reference(rc, pmm, rays, **kw),
-            iters=3, warmup=1)
+            reps=3, warmup=1)
     if not (agree >= SLOT_AGREE and max_rel <= T_RTOL):
         raise AssertionError(f"K1 disagrees with its twin: {res}")
     return res
+
+
+def _k2_pair_tests(c, ref) -> int:
+    """The (ray, slot) tests K2 must make on these inputs with the early
+    exit, counted from below: a 128-ray batch walks its group's whole
+    shortlist when one of its rays misses (+inf never exits), else at least
+    up to the shortlist position of its last winner."""
+    from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF
+    from compound_ray_tpu_torch.trace.cluster_tracer import BATCH_RAYS
+
+    dev = ref.device
+    ng, kmax = c.kw["ng"], c.kw["kmax"]
+    rg = c.kw["nrb"] * c.kw["rb_size"]
+    n_cl = c.payload.shape[0]
+    cnt = c.counts.clamp(0, kmax).long()
+    p_ix = torch.arange(c.ids.shape[1], device=dev).expand(ng, -1)
+    valid = p_ix < cnt[:, None]
+    ids = torch.where(valid, c.ids.long().clamp(0, n_cl - 1), n_cl)
+    pos = torch.full((ng, n_cl + 1), -1, dtype=torch.long, device=dev)
+    pos.scatter_(1, ids, torch.where(valid, p_ix, -1))
+    hit = torch.isfinite(ref[:, 0])
+    g_of_ray = torch.arange(ref.shape[0], device=dev) // rg
+    wpos = torch.where(hit, pos[g_of_ray, ref[:, 3].long().clamp(0, n_cl)],
+                       -1)
+    nb = ref.shape[0] // BATCH_RAYS
+    cnt_b = cnt.repeat_interleave(rg // BATCH_RAYS)
+    walked = torch.where((~hit).reshape(nb, BATCH_RAYS).any(1), cnt_b,
+                         wpos.reshape(nb, BATCH_RAYS).amax(1) + 1)
+    return int(walked.clamp(max=cnt_b).sum().item()) * BATCH_RAYS * KERNEL_LEAF
 
 
 def k2_vs_twin(r, cam):
@@ -223,20 +276,22 @@ def k2_vs_twin(r, cam):
                hit_share=float(torch.isfinite(ref[live, 0]).float().mean()
                                .item()),
                winner_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
-    res["ms"] = _time_ms(lambda: run_tracer_kernel(*args, early_exit=True,
-                                                   **c.kw),
-                         iters=20, warmup=3)
-    res["ms_no_early_exit"] = _time_ms(
+    # 18 FMAs per (ray, slot): w1, w2 (6 terms each), den and o . n (3 each)
+    res.update(_bound(36.0 * _k2_pair_tests(c, ref), _nbytes(*args, got)))
+    res["ms"] = time_ms(lambda: run_tracer_kernel(*args, early_exit=True,
+                                                  **c.kw),
+                        reps=20, warmup=3)
+    res["ms_no_early_exit"] = time_ms(
         lambda: run_tracer_kernel(*args, early_exit=False, **c.kw),
-        iters=5, warmup=1)
-    res["plain_ms"] = _time_ms(
+        reps=5, warmup=1)
+    res["plain_ms"] = time_ms(
         lambda: cluster_tracer_reference(*args, early_exit=True, **c.kw),
-        iters=2, warmup=1)
+        reps=2, warmup=1)
     splan = P.scene_plan(r.scene, r.device)
     center = torch.tensor(np.asarray(
         pos_np + cam.ommatidia[:, 0:3].mean(axis=0), np.float32),
         device=r.device)
-    res["cache_build_ms"] = _time_ms(lambda: P.build_equirect_quads(
+    res["cache_build_ms"] = time_ms(lambda: P.build_equirect_quads(
         P._render_cache(
             splan.payload, splan.attr_table,
             r.scene.device_triangles(r.device), splan.quad_table,
@@ -244,7 +299,7 @@ def k2_vs_twin(r, cam):
             torch.as_tensor(c.far, device=r.device), width=width,
             background=miss_id(r.scene.background_shader),
             kmax=c.kw["kmax"], textured=splan.textured,
-            tex_only=splan.tex_only)), iters=5, warmup=1)
+            tex_only=splan.tex_only)), reps=5, warmup=1)
     if not (agree >= SLOT_AGREE and max_rel <= T_RTOL):
         raise AssertionError(f"K2 disagrees with its twin: {res}")
     return res
@@ -311,20 +366,29 @@ def _report(tag, res):
           f"{res['peak_mb']:.1f} MB")
 
 
-def _path(r, name, run):
-    """Run one main path with the launch counts set to 0 just before it;
-    returns (its result, K1 launches, K2 launches, K3 launches)."""
+def _counters() -> dict:
+    """{kernel: (module, name of its launch count)} for K1 to K6."""
+    from compound_ray_tpu_torch.tools import microbench_k, probe_step
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
 
-    mm_tracer.launches = 0
-    cluster_tracer.launches = 0
-    mm_tracer.occlusion_launches = 0
+    return {"k1": (mm_tracer, "launches"), "k2": (cluster_tracer, "launches"),
+            "k3": (mm_tracer, "occlusion_launches"),
+            "k4": (probe_step, "probe_launches"),
+            "k5": (probe_step, "probe3d_launches"),
+            "k6": (microbench_k, "dot_bench_launches")}
+
+
+def _path(r, name, run):
+    """Run one main path with every launch count set to 0 just before it;
+    returns (its result, {kernel: launches in the path})."""
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     res = run()
-    k1, k2 = mm_tracer.launches, cluster_tracer.launches
-    k3 = mm_tracer.occlusion_launches
-    print(f"phase 5: {name}: K1 launches {k1}, K2 launches {k2}, K3 "
-          f"launches {k3}")
-    return res, k1, k2, k3
+    n = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    print(f"phase 5: {name}: launches " + ", ".join(
+        f"{k.upper()} {v}" for k, v in n.items()))
+    return res, n
 
 
 def _render_out(r, cam, seed_frame: int, **kw):
@@ -356,6 +420,7 @@ def lit_k3_vs_twin(r, cam, samples: int):
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.trace.mm_tracer import (
         _row_ranges,
+        _rows_occlusion_twin,
         rows_occlusion_reference,
         run_rows_occlusion,
     )
@@ -394,7 +459,11 @@ def lit_k3_vs_twin(r, cam, samples: int):
     r2v, flag, flat_rows, rays = args
     counts = next(iter(splan.shadow_store.values()))[0]
     got = run_rows_occlusion(*args, **kw)
-    ref = rows_occlusion_reference(*args, **kw)
+    ref, tests = _rows_occlusion_twin(*args, **kw, count_tests=True)
+    # 2 flop per term of the four 128-slot dots, over the features that are
+    # not zero in both rows and rays (4 of the shadow plan's 8)
+    feats = int(((flat_rows.abs().amax((0, 2)) > 0)
+                 & (rays.abs().amax(1) > 0)).sum().item())
     _, vg_rows = _row_ranges(r2v, flag, rays.shape[1] // (kw["nrb"]
                                                           * kw["rb_size"]))
     live = torch.repeat_interleave(vg_rows > 0, kw["nrb"] * kw["rb_size"])
@@ -404,7 +473,7 @@ def lit_k3_vs_twin(r, cam, samples: int):
         samples=samples, first_lit_frame_ms=first_ms,
         shadow_plan_build_ms=plan_ms[0],
         shape=dict(tb=int(flat_rows.shape[0]),
-                   feats=int(flat_rows.shape[1]),
+                   feats=int(flat_rows.shape[1]), live_feats=feats,
                    rays=int(rays.shape[1]),
                    virtual_groups=int(vg_rows.shape[0]), **kw),
         live_rows=int(counts.sum().item()),
@@ -417,11 +486,13 @@ def lit_k3_vs_twin(r, cam, samples: int):
         occluded_share=float(ref[0, live].mean().item()),
         max_abs_err=float((got - ref).abs().max().item()),
         first_frame_audit=[int(x) for x in audit[:2].tolist()],
-        first_frame_means_max=float(means.max().item()))
-    res["ms"] = _time_ms(lambda: run_rows_occlusion(*args, **kw), iters=20,
-                         warmup=3)
-    res["plain_ms"] = _time_ms(lambda: rows_occlusion_reference(*args, **kw),
-                               iters=1, warmup=0)
+        first_frame_means_max=float(means.max().item()), pair_tests=tests)
+    res.update(_bound(8.0 * feats * tests,
+                      _nbytes(r2v, flag, flat_rows, rays, got)))
+    res["ms"] = time_ms(lambda: run_rows_occlusion(*args, **kw), reps=20,
+                        warmup=3)
+    res["plain_ms"] = time_ms(lambda: rows_occlusion_reference(*args, **kw),
+                              reps=1, warmup=0)
     if not res["decision_agree"] >= K3_AGREE:
         raise AssertionError(f"K3 disagrees with its twin: {res}")
     return res
@@ -627,13 +698,141 @@ def sky_checks(r, cam, dense_cache_frame, live_groups: int):
     return res
 
 
+def probe_vs_twins(dev):
+    """Phase 7: K4 in every mode at rs 256, and dma_only and dot_cand at rs
+    512 and 1024; K5 at copy_only, dma_only, dot_cand and dot_only (which
+    must equal its dot_cand); each against probe_reference on the probe
+    tool's inputs (1000 groups of 3072 rays).  copy_only and dma_only must
+    be bit-equal, the dot modes agree on >= SLOT_AGREE of the rays within
+    T_RTOL.  Returns the K4 and K5 dot_cand entries, timed."""
+    from compound_ray_tpu_torch.testing import probe_agreement
+    from compound_ray_tpu_torch.tools import probe_step as PS
+
+    ng, rb, rmax = PS.NG, PS.RB_SIZE, PS.RMAX
+    rc, pmm, rays = (torch.as_tensor(x, device=dev)
+                     for x in PS.make_inputs(ng, rb, rmax))
+    rays3d = rays.reshape(16, ng, rb).permute(1, 0, 2).contiguous()
+    cases = ([(m, 256, "2d") for m in PS.MODES]
+             + [(m, rs, "2d") for rs in (512, 1024)
+                for m in ("dma_only", "dot_cand")]
+             + [(m, 256, "3d") for m in ("copy_only", "dma_only", "dot_cand",
+                                          "dot_only")])
+    twins, got3d, out = {}, {}, {}
+    for mode, rs, layout in cases:
+        ry = rays if layout == "2d" else rays3d
+        if (mode, layout) not in twins:
+            twins[mode, layout] = PS.probe_reference(rc, pmm, ry, ng, rb,
+                                                     rmax, mode, layout)
+        ref = twins[mode, layout]
+        if layout == "2d":
+            got = PS.run_probe(rc, pmm, rays, ng, rb, rmax, mode, rs)
+        else:
+            got = got3d[mode] = PS.run_probe3d(rc, pmm, rays3d, ng, rb, rmax,
+                                               mode)
+        if mode in ("copy_only", "dma_only"):
+            ok = torch.equal(got, ref)
+            agree, max_abs, max_rel = float(ok), 0.0 if ok else float(
+                (got - ref).abs().max().item()), 0.0
+        else:
+            agree, max_abs, max_rel = probe_agreement(ref, got, rc, rb)
+            ok = agree >= SLOT_AGREE and max_rel <= T_RTOL
+        tag = f"K{4 if layout == '2d' else 5} {mode} rs {rs}"
+        print(f"phase 7: {tag} vs twin: agree {agree:.6f}, max abs "
+              f"{max_abs:.3e}, max rel {max_rel:.3e}")
+        if not ok:
+            raise AssertionError(f"{tag} disagrees with its twin")
+        out[tag] = dict(max_abs_err=max_abs)
+    if not torch.equal(got3d["dot_only"], got3d["dot_cand"]):
+        raise AssertionError("K5 dot_only differs from its dot_cand")
+    flop = 2.0 * 16 * 512 * rb * rc.clamp(0, rmax).sum().item()
+    res = {}
+    for key, tag, fn, ry, layout in (
+            ("k4", "K4 dot_cand rs 256", PS.run_probe, rays, "2d"),
+            ("k5", "K5 dot_cand rs 256", PS.run_probe3d, rays3d, "3d")):
+        res[key] = dict(out[tag], **_bound(flop, _nbytes(
+            rc, pmm, ry, twins["dot_cand", layout])))
+        res[key]["ms"] = time_ms(
+            lambda f=fn, y=ry: f(rc, pmm, y, ng, rb, rmax, "dot_cand"),
+            reps=20, warmup=3)
+        res[key]["plain_ms"] = time_ms(
+            lambda y=ry, lay=layout: PS.probe_reference(
+                rc, pmm, y, ng, rb, rmax, "dot_cand", lay), reps=3, warmup=1)
+    print(f"phase 7: K4 / K5 dot_cand at {ng} x {rb}: {json.dumps(res)}")
+    return res
+
+
+def dot_bench_vs_twins(dev):
+    """Phase 7: K6 against dot_bench_reference at each swept (K, N,
+    precision), 4000 steps, the error over the sum of |terms| <= K6_REL;
+    returns the K6_ENTRY variant's entry, timed."""
+    from compound_ray_tpu_torch.testing import dot_bench_scale
+    from compound_ray_tpu_torch.tools import microbench_k as MB
+
+    res = None
+    for n in MB.NS:
+        for k, prec in MB.SWEEP:
+            ft, mm = MB.bench_inputs(k, n, dev)
+            got = MB.run_dot_bench(ft, mm, prec, MB.N_STEPS)
+            ref = MB.dot_bench_reference(ft, mm, prec, MB.N_STEPS)
+            err = (got.double() - ref.double()).abs()
+            rel = float((err / dot_bench_scale(ft, mm, prec,
+                                               MB.N_STEPS)).max().item())
+            print(f"phase 7: K6 K {k} N {n} {prec} vs twin: max abs "
+                  f"{err.max().item():.3e}, max over sum |terms| {rel:.3e}")
+            if not rel <= K6_REL:
+                raise AssertionError(f"K6 (K {k}, N {n}, {prec}) disagrees "
+                                     f"with its twin: {rel}")
+            if (k, n, prec) == K6_ENTRY:
+                peak = PEAK_BF16 if prec == "default" else PEAK_F32
+                res = dict(max_abs_err=float(err.max().item()),
+                           rel_to_scale=rel, **_bound(
+                               2.0 * MB.RS * k * n * MB.N_STEPS,
+                               _nbytes(ft, mm, got), peak))
+                res["ms"] = time_ms(lambda: MB.run_dot_bench(
+                    ft, mm, prec, MB.N_STEPS), reps=5, warmup=1)
+                res["plain_ms"] = time_ms(lambda: MB.dot_bench_reference(
+                    ft, mm, prec, MB.N_STEPS), reps=2, warmup=1)
+    print(f"phase 7: K6 at (K, N, precision) {K6_ENTRY}: {json.dumps(res)}")
+    return res
+
+
+def tools_main():
+    """The tools' path: probe_step's and microbench_k's main() at their full
+    sizes on the card; each prints its table and writes its JSON under
+    build/compound_ray_tpu_torch/."""
+    from compound_ray_tpu_torch.tools import microbench_k, probe_step
+
+    probe = probe_step.main([])
+    micro = microbench_k.main([])
+    for rec in (probe, micro):
+        if rec["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"a tool ran on {rec['device']}")
+    # a time under its bound means the compiler dropped work the kernel
+    # must keep (the products no output reads)
+    rays = probe["shape"]["rays"]
+    under = [(key, ms) for key, ms in probe["times_ms"].items()
+             if key.startswith("dot") and ms < _bound(
+                 2.0 * 16 * 512 * rays, 0)["bound_ms"]]
+    for rec in micro["dot_step"]:
+        peak = PEAK_BF16 if rec["prec"] == "default" else PEAK_F32
+        if rec["ms"] < _bound(2.0 * microbench_k.RS * rec["K"] * rec["N"]
+                              * rec["n_steps"], 0, peak)["bound_ms"]:
+            under.append((rec["K"], rec["N"], rec["prec"], rec["ms"]))
+    if under:
+        raise AssertionError(f"timed under their bound: {under}")
+    return probe, micro
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
     from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.tools import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the twins are plain f32
-    card = _card_line()
+    card = card_line()
+    if card is None:
+        raise RuntimeError("nvidia-smi did not report the card")
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -664,14 +863,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s)")
 
     splan = P.scene_plan(r.scene, r.device)
-    launches = dict(k1=0, k2=0, k3=0)
+    launches = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0)
 
-    def count(res_k):
-        res, a, b, c = res_k
-        launches["k1"] += a
-        launches["k2"] += b
-        launches["k3"] += c
-        return res, a, b, c
+    def count(res_n):
+        res, n = res_n
+        for k, v in n.items():
+            launches[k] += v
+        return res, n["k1"], n["k2"], n["k3"]
 
     # path a: the far field off, 100 and 3200 samples
     _set_config(farfield="off")
@@ -764,19 +962,39 @@ def main() -> int:
     print(f"phase 6: small lit scene (canopy), card (K1, K3) vs CPU "
           f"(twins): max abs {err:.3e} (<= {MEANS_ATOL})")
 
+    t0 = time.perf_counter()
+    k45 = probe_vs_twins(r.device)
+    k6 = dot_bench_vs_twins(r.device)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res_n = _path(r, "measurement tools", tools_main)
+    count(res_n)
+    n = res_n[1]
+    if not (n["k4"] > 0 and n["k5"] > 0 and n["k6"] > 0 and n["k1"] > 0
+            and n["k2"] == 0 and n["k3"] == 0):
+        raise AssertionError(f"the tools' path launched {n}")
+    print(f"phase 7: both tools' main() in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, source, replaces, key, res):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "K1 packed closest-hit tracer", "route": "cuda",
-         "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["k1"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "K2 cluster-shortlist closest-hit tracer", "route": "cuda",
-         "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "K3 any-hit occlusion tracer", "route": "cuda",
-         "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": launches["k3"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
+        entry("K1 packed closest-hit tracer", K1_SOURCE, K1_REPLACES, "k1",
+              k1),
+        entry("K2 cluster-shortlist closest-hit tracer", K2_SOURCE,
+              K2_REPLACES, "k2", k2),
+        entry("K3 any-hit occlusion tracer", K3_SOURCE, K3_REPLACES, "k3",
+              k3),
+        entry("K4 per-step probe (dot_cand, rs 256)", K45_SOURCE,
+              K4_REPLACES, "k4", k45["k4"]),
+        entry("K5 3-D probe (dot_cand)", K45_SOURCE, K5_REPLACES, "k5",
+              k45["k5"]),
+        entry("K6 skinny-K dot bench (K %d, N %d, %s)" % K6_ENTRY, K6_SOURCE,
+              K6_REPLACES, "k6", k6),
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

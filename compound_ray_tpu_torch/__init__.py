@@ -6,8 +6,10 @@ one torch device.  Its three tracers are CUDA kernels written for Hopper
 and built with nvcc at first use: K1 closest hit (csrc/packed_tracer.cu),
 K2 the cache's cluster-shortlist closest hit (csrc/cluster_tracer.cu) and
 K3 the shadow rays' any-hit occlusion (csrc/rows_occlusion.cu).  On CPU
-tensors the same contracts run as plain torch.  The package imports torch
-and numpy, never JAX or the JAX package.
+tensors the same contracts run as plain torch.  The kernel-measurement
+tools (compound_ray_tpu_torch.tools) add the probes of K1's row step
+(csrc/probe_step.cu) and the skinny-K dot bench (csrc/microbench_k.cu).
+The package imports torch and numpy, never JAX or the JAX package.
 """
 
 __version__ = "0.1.0"

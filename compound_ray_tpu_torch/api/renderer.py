@@ -3,11 +3,11 @@ compound_ray_tpu/api/renderer.py, unlit and lit.
 
 Scene loading, camera navigation, the per-eye sample count, render_frame
 and get_camera_data behave as in the JAX package (the reference C ABI,
-libEyeRenderer3/libEyeRenderer.h:30-120).  The device is explicit:
-EyeRenderer(device=...) renders there and nowhere else.  Each frame draws
-its angles from a torch.Generator on that device, seeded from
-(config.base_seed, the eye's frame counter) as the JAX package keys its
-frames (fold_in(PRNGKey(base_seed), rng_frame)).
+libEyeRenderer3/libEyeRenderer.h:30-120).  The device is a keyword that
+defaults to the card: EyeRenderer(device=...) renders there and nowhere
+else.  Each frame draws its angles from a torch.Generator on that device,
+seeded from (config.base_seed, the eye's frame counter) as the JAX package
+keys its frames (fold_in(PRNGKey(base_seed), rng_frame)).
 
 set_lighting(True) turns on GGX direct light with shadow rays from the
 point lights of set_lights (by default the reference's four, placed around
@@ -51,7 +51,11 @@ def frame_seed(base_seed: int, frame: int) -> int:
 class EyeRenderer:
     """Compound-eye renderer on one torch device."""
 
-    def __init__(self, device, verbose: bool = False):
+    def __init__(self, verbose: bool = False, *, device="cuda"):
+        """`verbose` first, as in compound_ray_tpu/api/renderer.py:84; the
+        device is keyword-only and defaults to the card.  Where torch sees
+        no CUDA device, the default raises: it never falls back to the
+        CPU, which a caller asks for with device="cpu"."""
         self.device = canonical_device(device)
         self.verbose = bool(verbose)
         self.lighting = False  # params.lighting (libEyeRenderer.cpp:127)

@@ -597,3 +597,42 @@ def pack_occlusion_table(f: SimpleNamespace, feats: int = 16, skip=(),
             torch.as_tensor(flag, device=dev), rows.contiguous(),
             rays.contiguous(), rc,
             dict(nrb=ep.nrb, rb_size=ep.rb_size))
+
+
+def probe_agreement(ref, got, rc, rb_size: int, rtol: float = 1e-5):
+    """Two (1, NG*rb) probe outputs (K4, K5) on live rays (groups with
+    rc > 0): the share of rays that agree (both +inf, or both finite within
+    rtol of ref), and the max absolute and max relative error over the rays
+    that agree.  A candidate near a boundary may pass on one side only, so
+    the dot modes are held to a share, not to every ray."""
+    live = torch.repeat_interleave(rc > 0, rb_size)
+    a, b = ref[0, live], got[0, live]
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    err = (a - b).abs()
+    close = fin & (err <= rtol * a.abs())
+    agree = close | (~fin & (a == b))
+    err, rel = err[close], err[close] / a[close].abs().clamp(min=1e-30)
+    return (agree.double().mean().item(),
+            err.max().item() if err.numel() else 0.0,
+            rel.max().item() if rel.numel() else 0.0)
+
+
+def dot_bench_scale(ft, mm, prec: str, n_steps: int) -> torch.Tensor:
+    """Sum of |terms| of each K6 output element, in f64: the sum over j <
+    n_steps and k of |ft[k, i]| |mm[j % 4, k, l]| (bf16-rounded operands for
+    "default"), the scale that K6's error is measured against."""
+    from compound_ray_tpu_torch.tools.microbench_k import (
+        NROWS,
+        OUT_COLS,
+        bf16_round,
+    )
+
+    if prec == "default":
+        ft, mm = bf16_round(ft), bf16_round(mm)
+    a = ft.abs().double().t()
+    scale = torch.zeros((a.shape[0], OUT_COLS), dtype=torch.float64,
+                        device=ft.device)
+    for r in range(NROWS):
+        steps_r = (n_steps - r + NROWS - 1) // NROWS
+        scale += steps_r * (a @ mm[r, :, :OUT_COLS].abs().double())
+    return scale

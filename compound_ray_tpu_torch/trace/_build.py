@@ -117,3 +117,16 @@ def rows_occlusion_lib() -> ctypes.CDLL:
     """The K3 library (csrc/rows_occlusion.cu)."""
     return _load("rows_occlusion", "cr_rows_occlusion",
                  [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P])
+
+
+def probe_step_lib() -> ctypes.CDLL:
+    """The K4 and K5 library (csrc/probe_step.cu)."""
+    return _load("probe_step", "cr_probe_step",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                  ctypes.c_longlong, _P])
+
+
+def microbench_k_lib() -> ctypes.CDLL:
+    """The K6 library (csrc/microbench_k.cu)."""
+    return _load("microbench_k", "cr_dot_bench",
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _P])

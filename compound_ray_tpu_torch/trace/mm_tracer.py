@@ -361,6 +361,15 @@ def rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb: int,
     the kernel sums them (no fused multiply-add), so kernel and twin decide
     every ray alike.  Loops over the row index, chunked over groups so the
     (groups, rays, 512) temporaries stay near 2 GB."""
+    return _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb, rb_size)[0]
+
+
+def _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
+                         count_tests: bool = False):
+    """rows_occlusion_reference's (1, R) result, and with count_tests the
+    number of (ray, slot) tests K3 makes on these inputs (else None): each
+    ray's rows in order, each up to its first occluding slot and none after
+    it, as the kernel's per-thread early exit tests them."""
     feats, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb,
                                          rb_size)
     dev = rays.device
@@ -371,6 +380,7 @@ def rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb: int,
     rays_g = rays.reshape(feats, nvg, rg)
     chunk = max(1, _OCC_TWIN_CHUNK_ELEMS // (rg * MM_COLS))
     leaf = KERNEL_LEAF
+    tests = torch.zeros((), dtype=torch.long, device=dev)
     for v0 in range(0, nvg, chunk):
         v1 = min(nvg, v0 + chunk)
         cnt = count_np[v0:v1]
@@ -391,10 +401,14 @@ def rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb: int,
             d = den * s
             tt = tnum * s
             ok = ((a >= 0.0) & (b >= 0.0) & (a + b <= d) & (tt >= 0.0)
-                  & (tt <= d) & (d > 0.0)).any(dim=-1)  # (G, rg)
-            occ[sel - v0] |= ok
+                  & (tt <= d) & (d > 0.0))  # (G, rg, leaf)
+            hit = ok.any(dim=-1)  # (G, rg)
+            if count_tests:
+                first = torch.where(hit, ok.int().argmax(dim=-1) + 1, leaf)
+                tests += (first * ~occ[sel - v0]).sum()
+            occ[sel - v0] |= hit
         out[0, v0 * rg:v1 * rg] = occ.to(torch.float32).reshape(-1)
-    return out
+    return out, int(tests.item()) if count_tests else None
 
 
 def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int,

@@ -9,7 +9,9 @@ tests/test_torch_k1.py: slot ids (K1) or cluster and lane (K2) equal on
 >= 99.9 % of live rays, t within rtol 1e-5 where they agree (the kernels
 fuse products into FMAs, the twins do not); frame means within 2e-4.  K3
 sums its products in the twin's order without FMAs, so its decisions must
-equal the twin's on every ray.
+equal the twin's on every ray.  The probes (K4, K5): copy_only and dma_only
+bit-equal, the dot modes equal on >= 99.9 % of live rays within rtol 1e-5.
+The dot bench (K6): within 1e-5 of the sum of |terms| in both precisions.
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ import torch
 from compound_ray_tpu_torch import testing
 from compound_ray_tpu_torch.eye import pipeline as P
 from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
+from compound_ray_tpu_torch.tools import microbench_k as MB
+from compound_ray_tpu_torch.tools import probe_step as PS
 from compound_ray_tpu_torch.trace import cluster_tracer as CT
 from compound_ray_tpu_torch.trace import mm_tracer as TM
 from compound_ray_tpu_torch.trace.lighting import default_lights
@@ -191,3 +195,68 @@ def test_lit_frame_on_card_matches_cpu(cuda_device, name):
             scene, f, default_lights(scene.aabb_min, scene.aabb_max)))
     assert out[0].max() > 0.7
     np.testing.assert_allclose(out[0], out[1], atol=ATOL)
+
+
+def _probe_inputs(device, ng=8, rb_size=1024, rmax=2):
+    """make_inputs with two rows in some groups and none in group 1."""
+    rc, pmm, rays = PS.make_inputs(ng, rb_size, rmax, seed=3)
+    rc[:] = 2
+    rc[1], rc[4] = 0, 1
+    return tuple(torch.as_tensor(x, device=device) for x in (rc, pmm, rays))
+
+
+def _hold_probe(ref, got, rc, rb_size, mode):
+    live = torch.repeat_interleave(rc > 0, rb_size)
+    assert torch.isinf(got[0, ~live]).all() and (got[0, ~live] > 0).all()
+    if mode in ("copy_only", "dma_only"):
+        assert torch.equal(got[0, live], ref[0, live])
+    else:
+        agree, _, max_rel = testing.probe_agreement(ref, got, rc, rb_size)
+        assert agree >= SLOT_AGREE and max_rel <= T_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rs", PS.CHAIN_WIDTHS)
+@pytest.mark.parametrize("mode", PS.MODES)
+def test_k4_probe_matches_twin(cuda_device, mode, rs):
+    rc, pmm, rays = _probe_inputs(cuda_device)
+    ng, rb, rmax = pmm.shape[0], rays.shape[1] // pmm.shape[0], pmm.shape[1]
+    before = PS.probe_launches
+    got = PS.run_probe(rc, pmm, rays, ng, rb, rmax, mode, rs)
+    torch.cuda.synchronize()
+    assert PS.probe_launches == before + 1
+    ref = PS.probe_reference(rc, pmm, rays, ng, rb, rmax, mode)
+    _hold_probe(ref, got, rc, rb, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", PS.MODES)
+def test_k5_probe3d_matches_twin(cuda_device, mode):
+    """The 3-D layout; its dot_only is the full dot_cand, as on the TPU."""
+    rc, pmm, rays = _probe_inputs(cuda_device)
+    ng, rb, rmax = pmm.shape[0], rays.shape[1] // pmm.shape[0], pmm.shape[1]
+    rays3d = rays.reshape(16, ng, rb).permute(1, 0, 2).contiguous()
+    before = PS.probe3d_launches
+    got = PS.run_probe3d(rc, pmm, rays3d, ng, rb, rmax, mode)
+    torch.cuda.synchronize()
+    assert PS.probe3d_launches == before + 1
+    ref = PS.probe_reference(rc, pmm, rays3d, ng, rb, rmax, mode, "3d")
+    _hold_probe(ref, got, rc, rb, mode)
+    if mode == "dot_only":
+        assert torch.equal(got, PS.run_probe3d(rc, pmm, rays3d, ng, rb, rmax,
+                                               "dot_cand"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 2048])
+@pytest.mark.parametrize("k,prec", [(16, "highest"), (16, "default"),
+                                    (96, "highest"), (256, "default")])
+def test_k6_dot_bench_matches_twin(cuda_device, k, prec, n):
+    ft, mm = MB.bench_inputs(k, n, cuda_device)
+    before = MB.dot_bench_launches
+    got = MB.run_dot_bench(ft, mm, prec, 40)
+    torch.cuda.synchronize()
+    assert MB.dot_bench_launches == before + 1
+    ref = MB.dot_bench_reference(ft, mm, prec, 40)
+    scale = testing.dot_bench_scale(ft, mm, prec, 40)
+    assert ((got.double() - ref.double()).abs() / scale).max() <= 1e-5

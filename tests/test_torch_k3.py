@@ -92,6 +92,48 @@ def test_twin_chunking_and_row_ranges(monkeypatch):
     assert count.dtype == start.dtype == torch.int32
 
 
+@pytest.mark.parametrize("feats", [16, 8])
+def test_twin_counts_the_kernels_pair_tests(monkeypatch, feats):
+    """The (ray, slot) tests K3's per-thread early exit makes, as the twin
+    counts them for the kernel's bound, against a numpy walk of each ray's
+    rows: every slot of a row the ray passes, up to the first occluding
+    slot of the row that occludes it, and none after."""
+    monkeypatch.setattr(TP, "_eye_plans", {})
+    monkeypatch.setattr(tcfg, "_global_config",
+                        tcfg.RenderConfig(farfield="off"))
+    r2v, flag, rows, rays, rc, kw = _table(feats, skip=(3,))
+    out, tests = TM._rows_occlusion_twin(r2v, flag, rows, rays, **kw,
+                                         count_tests=True)
+    assert torch.equal(out, TM.rows_occlusion_reference(r2v, flag, rows,
+                                                        rays, **kw))
+    assert TM._rows_occlusion_twin(r2v, flag, rows, rays, **kw)[1] is None
+    rg, leaf = kw["nrb"] * kw["rb_size"], 128
+    rows_np, rays_np = rows.numpy(), rays.numpy()
+    start = np.cumsum(rc) - rc
+    want = 0
+    for v in range(rc.shape[0]):
+        ray = rays_np[:, v * rg:(v + 1) * rg]  # (F, rg)
+        alive = np.ones(rg, bool)
+        for j in range(rc[v]):
+            col = rows_np[start[v] + j]  # (F, 512)
+            p = ray[0][:, None] * col[0][None, :]
+            for k in range(1, feats):
+                p = p + ray[k][:, None] * col[k][None, :]
+            w1, w2, den, tnum = np.split(p, 4, axis=1)
+            s = np.where(den >= 0.0, 1.0, -1.0).astype(np.float32)
+            a, b, d, tt = w1 * s, w2 * s, den * s, tnum * s
+            ok = ((a >= 0) & (b >= 0) & (a + b <= d) & (tt >= 0) & (tt <= d)
+                  & (d > 0))
+            hit = ok.any(axis=1)
+            first = np.where(hit, ok.argmax(axis=1) + 1, leaf)
+            want += int(first[alive].sum())
+            alive &= ~hit
+        np.testing.assert_array_equal(
+            out[0, v * rg:(v + 1) * rg].numpy() > 0, ~alive)
+    assert tests == want
+    assert 0 < tests < int(rc.sum()) * rg * leaf
+
+
 def test_inputs_are_checked():
     r2v = torch.zeros(4, dtype=torch.int32)
     flag = torch.tensor([2, 1, 1, 0], dtype=torch.int32)
