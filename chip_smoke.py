@@ -19,7 +19,10 @@ tools' full sizes.  Phases, each failing loudly:
      started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
      and the near-clusters pack of the cache frame), and K3 against its
-     twin on the first lit frame's own shadow table and rays;
+     twin on the first lit frame's own shadow table and rays, which the
+     frame hands over with live_feats 4; each with its rays per thread, K3
+     with its pair tests, the tests its warps issue and their lane
+     efficiency;
   4. K2 against its torch twin at the bench cache's real shapes;
   5. the four paths through EyeRenderer(device="cuda"), with the launch
      counts set to 0 before each and read after it;
@@ -32,7 +35,8 @@ tools' full sizes.  Phases, each failing loudly:
      then both tools' main() with the launch counts set to 0 before and
      read after.
 The last lines are the kernel table (each kernel's launches, error, time,
-plain time and bound), the card and {"ok": true, "device": ...}.
+plain time and bound; a kernel timed under its bound fails the run), the
+card and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ K3_SOURCE = "compound_ray_tpu_torch/csrc/rows_occlusion.cu"
 # K3 vs twin: decisions equal on this share of live shadow rays (the kernel
 # sums in the twin's order without FMAs, so 100 % is expected)
 K3_AGREE = 0.9999
+# the rays each thread of K1 and K3 holds, as csrc/packed_tracer.cu
+# (kRaysPerThread) and csrc/rows_occlusion.cu (one per thread) fix them
+K1_RAYS_PER_THREAD = 2
+K3_RAYS_PER_THREAD = 1
 K4_REPLACES = "tools/probe_step.py:141"
 K5_REPLACES = "tools/probe_step.py:216"
 K45_SOURCE = "compound_ray_tpu_torch/csrc/probe_step.cu"
@@ -195,15 +203,21 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
     agree, max_abs, max_rel = hit_agreement(ref, got, rc, eplan.rg_pad)
     res = dict(samples=samples, farfield=farfield,
                cache=near is not None,
+               rays_per_thread=K1_RAYS_PER_THREAD,
                shape=dict(ng=eplan.ng, rmax=rmax, kcand=kcand,
                           rays=rays.shape[1]),
                live_groups=int((rc > 0).sum().item()),
                payload_rows=int(rc.sum().item()),
                slot_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
-    # 40 FMAs per (ray, slot) of every live payload row of the ray's group
-    pairs = (rc.clamp(0, rmax).sum().item() * eplan.nrb * eplan.rb_size
-             * KERNEL_LEAF)
-    res.update(_bound(80.0 * pairs, _nbytes(rc, pmm, rays, got)))
+    # 40 FMAs per (ray, slot) of every live payload row of the ray's group;
+    # beside it the bound of the 10-FMA products the kernel's staged test
+    # needs on these inputs
+    nbytes = _nbytes(rc, pmm, rays, got)
+    res.update(pairs=int(rc.clamp(0, rmax).sum().item()) * eplan.nrb
+               * eplan.rb_size * KERNEL_LEAF,
+               products=_k1_products(rc, pmm, rays, kw))
+    res.update(_bound(80.0 * res["pairs"], nbytes))
+    res["staged_bound_ms"] = _bound(20.0 * res["products"], nbytes)["bound_ms"]
     if timed:
         res["ms"] = time_ms(lambda: run_packed_tracer(rc, pmm, rays, **kw),
                             reps=20, warmup=3)
@@ -213,6 +227,31 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
     if not (agree >= SLOT_AGREE and max_rel <= T_RTOL):
         raise AssertionError(f"K1 disagrees with its twin: {res}")
     return res
+
+
+def _k1_products(rc, pmm, rays, kw) -> int:
+    """The 10-term products K1 needs on these inputs: den and w1 for each
+    (ray, slot) of each live payload row of the ray's group, w2 and tnum
+    where k1_keep_first holds (counted per pair, from f32 products of the
+    same inputs)."""
+    from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF as leaf
+    from compound_ray_tpu_torch.trace.mm_tracer import k1_keep_first
+
+    ng, rmax, rg = kw["ng"], kw["rmax"], kw["nrb"] * kw["rb_size"]
+    feats = rays[:10].reshape(10, ng, rg)
+    cnt = rc.clamp(0, rmax)
+    row_ix = torch.arange(rmax, device=rc.device)
+    kept = 0
+    chunk = max(1, (1 << 26) // (rmax * rg * leaf))
+    for g0 in range(0, ng, chunk):
+        g1 = min(ng, g0 + chunk)
+        pm = pmm[g0:g1, :, :10]
+        w1, den = (torch.einsum("fgr,gjfc->gjrc", feats[:, g0:g1],
+                                pm[..., b * leaf:(b + 1) * leaf])
+                   for b in (0, 2))
+        live = (row_ix < cnt[g0:g1, None])[:, :, None, None]
+        kept += int((k1_keep_first(w1, den) & live).sum().item())
+    return 2 * int(cnt.sum().item()) * rg * leaf + 2 * kept
 
 
 def _k2_pair_tests(c, ref) -> int:
@@ -456,12 +495,15 @@ def lit_k3_vs_twin(r, cam, samples: int):
     finally:
         P._shadow_plan = plan
     (args, kw), = seen
+    if kw.get("live_feats") != P.SHADOW_LIVE_FEATS:
+        raise AssertionError(f"the lit frame called K3 with {kw}, not "
+                             f"live_feats={P.SHADOW_LIVE_FEATS}")
     r2v, flag, flat_rows, rays = args
     counts = next(iter(splan.shadow_store.values()))[0]
     got = run_rows_occlusion(*args, **kw)
-    ref, tests = _rows_occlusion_twin(*args, **kw, count_tests=True)
-    # 2 flop per term of the four 128-slot dots, over the features that are
-    # not zero in both rows and rays (4 of the shadow plan's 8)
+    ref, work = _rows_occlusion_twin(*args, **kw, count_tests=True)
+    tests, issued = work["pair_tests"], work["warp_issued"]
+    # the features not zero in both rows and rays (4 of the shadow plan's 8)
     feats = int(((flat_rows.abs().amax((0, 2)) > 0)
                  & (rays.abs().amax(1) > 0)).sum().item())
     _, vg_rows = _row_ranges(r2v, flag, rays.shape[1] // (kw["nrb"]
@@ -473,9 +515,10 @@ def lit_k3_vs_twin(r, cam, samples: int):
         samples=samples, first_lit_frame_ms=first_ms,
         shadow_plan_build_ms=plan_ms[0],
         shape=dict(tb=int(flat_rows.shape[0]),
-                   feats=int(flat_rows.shape[1]), live_feats=feats,
+                   feats=int(flat_rows.shape[1]), nonzero_feats=feats,
                    rays=int(rays.shape[1]),
                    virtual_groups=int(vg_rows.shape[0]), **kw),
+        rays_per_thread=K3_RAYS_PER_THREAD,
         live_rows=int(counts.sum().item()),
         rows_per_light=[int(x) for x in counts.sum(dim=1).tolist()],
         zero_row_groups_per_light=[int(x) for x in
@@ -486,9 +529,16 @@ def lit_k3_vs_twin(r, cam, samples: int):
         occluded_share=float(ref[0, live].mean().item()),
         max_abs_err=float((got - ref).abs().max().item()),
         first_frame_audit=[int(x) for x in audit[:2].tolist()],
-        first_frame_means_max=float(means.max().item()), pair_tests=tests)
-    res.update(_bound(8.0 * feats * tests,
-                      _nbytes(r2v, flag, flat_rows, rays, got)))
+        first_frame_means_max=float(means.max().item()), pair_tests=tests,
+        products=work["products"],
+        warp_issued_tests=issued, lane_efficiency=tests / max(issued, 1))
+    # 2 flop per term of the four 128-slot dots of each pair test, over the
+    # features that are not zero in both rows and rays; beside it the bound
+    # of the products the kernel's staged tests need on these inputs
+    nbytes = _nbytes(r2v, flag, flat_rows, rays, got)
+    res.update(_bound(8.0 * feats * tests, nbytes))
+    res["staged_bound_ms"] = _bound(2.0 * feats * work["products"],
+                                    nbytes)["bound_ms"]
     res["ms"] = time_ms(lambda: run_rows_occlusion(*args, **kw), reps=20,
                         warmup=3)
     res["plain_ms"] = time_ms(lambda: rows_occlusion_reference(*args, **kw),
@@ -982,7 +1032,7 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": None}
 
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("K1 packed closest-hit tracer", K1_SOURCE, K1_REPLACES, "k1",
               k1),
         entry("K2 cluster-shortlist closest-hit tracer", K2_SOURCE,
@@ -995,7 +1045,20 @@ def main() -> int:
               k45["k5"]),
         entry("K6 skinny-K dot bench (K %d, N %d, %s)" % K6_ENTRY, K6_SOURCE,
               K6_REPLACES, "k6", k6),
-    ]}))
+    ]
+    # a time under its bound means the compiler dropped work the kernel must
+    # keep, or the bound counts work the kernel does not need; K1 and K3
+    # skip products that their staged tests do not need, so they are held to
+    # the bound of the products they need
+    under = [(key, res["ms"], bound)
+             for key, res in (("K1 dense", k1_dense), ("K1", k1), ("K2", k2),
+                              ("K3", k3), ("K4", k45["k4"]),
+                              ("K5", k45["k5"]), ("K6", k6))
+             for bound in [res.get("staged_bound_ms", res["bound_ms"])]
+             if res["ms"] < bound]
+    if under:
+        raise AssertionError(f"kernels timed under their bound: {under}")
+    print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

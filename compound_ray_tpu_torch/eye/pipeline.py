@@ -102,6 +102,9 @@ SHADOW_BOUND_INFLATE = 1.25
 # shadow rows keep only the product feature rows [Q_d, Q_c, 0 x 4]: the
 # occlusion test never reads the metadata rows 8-15
 SHADOW_FEATS = 8
+# of which K3 reads the first 4: rows 4-7 are zero by construction
+# (transform_payload_affine), as are the shadow rays' [D, 1, 0 x 4]
+SHADOW_LIVE_FEATS = 4
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -897,7 +900,8 @@ def _lit_epilogue(out, hit, rr, gg, bb, dx, dy, dz, neg_o, scene_dev,
         ldirs.append((lx, ly, lz))
     trace = run_rows_occlusion if shadow_tracer is None else shadow_tracer
     occ_all = trace(r2v, flag, flat_rows, torch.cat(ray_parts, dim=1),
-                    nrb=nrb, rb_size=rb_size)[0]
+                    nrb=nrb, rb_size=rb_size,
+                    live_feats=SHADOW_LIVE_FEATS)[0]
     for li in range(n_lights):
         o_l = occ_all[li * r_per_light:(li + 1) * r_per_light]
         cnt_ray = torch.repeat_interleave(counts[li], rg_pad)

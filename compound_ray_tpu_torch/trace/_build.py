@@ -116,7 +116,8 @@ def cluster_tracer_lib() -> ctypes.CDLL:
 def rows_occlusion_lib() -> ctypes.CDLL:
     """The K3 library (csrc/rows_occlusion.cu)."""
     return _load("rows_occlusion", "cr_rows_occlusion",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P])
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+                  _P])
 
 
 def probe_step_lib() -> ctypes.CDLL:

@@ -29,7 +29,8 @@ occluder table (eye/pipeline.py _shadow_plan): rows of transform_payload_
 affine'd columns, their feature rows 0-7 only, sorted by virtual group
 (light * NG + group).  A shadow ray is [D, 1, 0 x 4] with its origin at
 the light, so the products give w1, w2, den and tnum directly and the test
-needs no division (sign-folded, see run_rows_occlusion).  Again two
+needs no division (sign-folded, see run_rows_occlusion); rows and rays are
+zero in features 4-7, so the lit frame asks K3 for live_feats=4.  Again two
 implementations: run_rows_occlusion (csrc/rows_occlusion.cu on CUDA
 tensors) and rows_occlusion_reference (the torch twin).
 """
@@ -58,6 +59,8 @@ _TWIN_CHUNK_ELEMS = 1 << 26
 # elements of the K3 twin's (groups, rays, 512) product per chunk: its few
 # live temporaries of that size stay near 2 GB at the full-size frame
 _OCC_TWIN_CHUNK_ELEMS = 1 << 27
+# rays of a K3 warp (one per thread), for the twin's warp-issued count
+_WARP = 32
 
 # K1 launches by run_packed_tracer (the kernel only, never the twin)
 launches = 0
@@ -235,6 +238,35 @@ def packed_tracer_reference(row_counts, packed_mm, rays, ng: int, nrb: int,
     return out
 
 
+def k1_keep_first(w1, den):
+    """The first two conditions of k1_reject's keep test, on den and w1
+    alone: d > 0 and a >= -m.  K1 computes w2 and tnum for a slot only
+    where they hold for one of a thread's rays."""
+    s = torch.where(den >= 0.0, 1.0, -1.0).to(den.dtype)
+    d = den * s
+    return (d > 0.0) & (w1 * s >= -(d * 2.0 ** -20))
+
+
+def k1_reject(w1, w2, den, tnum):
+    """K1's divide-free reject test (csrc/packed_tracer.cu mirrors it):
+    True only where the exact test (inv = 1 / den, u = w1 inv, v = w2 inv,
+    t = tnum inv; u >= 0, v >= 0, u + v <= 1, t >= 0) rejects the pair, so
+    the kernel runs the exact test only on the pairs this leaves.  With s
+    the sign of den (+1 at +-0), a = w1 s, b = w2 s, tt = tnum s, d = den s
+    and the margin m = d 2^-20, a pair is kept iff d > 0, a >= -m (the
+    first two: k1_keep_first), b >= -m, tt >= -m and a + b <= d + m, so
+    all-zero padding columns and NaNs are rejected.  A bare sign test would
+    not be sound, since a tiny negative w1 inv rounds to -0, which passes
+    u >= 0; the margin keeps every rejected product away from that
+    underflow (the proof is in the kernel's header note).  Not on
+    packed_tracer_reference's path: the twin runs the exact test alone."""
+    s = torch.where(den >= 0.0, 1.0, -1.0).to(den.dtype)
+    a, b, tt, d = w1 * s, w2 * s, tnum * s, den * s
+    m = d * 2.0 ** -20
+    return ~(k1_keep_first(w1, den) & (b >= -m) & (tt >= -m)
+             & (a + b <= d + m))
+
+
 def run_packed_tracer(row_counts, packed_mm, rays, ng: int, nrb: int,
                       rb_size: int, rmax: int) -> torch.Tensor:
     """K1: closest hit of every ray against its group's packed payload
@@ -302,8 +334,10 @@ def transform_payload_affine(packed_mm, o_g, tmin_g):
                       packed_mm[:, :, 8:16, :]], dim=2)
 
 
-def _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb, rb_size):
-    """Raise on anything K3 and its twin do not take; returns (F, NVG)."""
+def _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb, rb_size,
+                            live_feats=None):
+    """Raise on anything K3 and its twin do not take; returns (F, L, NVG)
+    with L the live features, F unless `live_feats` says fewer."""
     dev = rays.device
     for name, x, dtype in (("r2v", r2v, torch.int32),
                            ("flag", flag, torch.int32),
@@ -334,7 +368,11 @@ def _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb, rb_size):
     if rays.dim() != 2 or rays.shape[0] != feats or rays.shape[1] % rg:
         raise ValueError(f"rays {tuple(rays.shape)} != ({feats}, NVG * "
                          f"{rg})")
-    return feats, rays.shape[1] // rg
+    live = feats if live_feats is None else live_feats
+    if live not in (4, 8, 16) or live > feats:
+        raise ValueError(f"live_feats={live_feats}: K3 reads 4, 8 or 16 "
+                         f"features, at most the table's F={feats}")
+    return feats, live, rays.shape[1] // rg
 
 
 def _row_ranges(r2v, flag, nvg: int):
@@ -350,28 +388,41 @@ def _row_ranges(r2v, flag, nvg: int):
 
 
 def rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb: int,
-                             rb_size: int) -> torch.Tensor:
+                             rb_size: int,
+                             live_feats: int | None = None) -> torch.Tensor:
     """Plain torch twin of K3: (1, R) f32, 1.0 where some occluder row of
     the ray's virtual group passes the any-hit test, else 0.0 (zero-row
     groups included).
 
     Virtual group v owns rays [v * nrb * rb_size, (v + 1) * nrb * rb_size).
-    For each row j of each group the F products are summed in feature
-    order, one rounded multiply and one rounded add per term, exactly as
-    the kernel sums them (no fused multiply-add), so kernel and twin decide
-    every ray alike.  Loops over the row index, chunked over groups so the
-    (groups, rays, 512) temporaries stay near 2 GB."""
-    return _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb, rb_size)[0]
+    For each row j of each group the products over the first `live_feats`
+    features (default F) are summed in feature order, one rounded multiply
+    and one rounded add per term, exactly as the kernel sums them (no fused
+    multiply-add), so kernel and twin decide every ray alike.  Loops over
+    the row index, chunked over groups so the (groups, rays, 512)
+    temporaries stay near 2 GB."""
+    return _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb, rb_size,
+                                live_feats)[0]
 
 
 def _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
+                         live_feats: int | None = None,
                          count_tests: bool = False):
-    """rows_occlusion_reference's (1, R) result, and with count_tests the
-    number of (ray, slot) tests K3 makes on these inputs (else None): each
-    ray's rows in order, each up to its first occluding slot and none after
-    it, as the kernel's per-thread early exit tests them."""
-    feats, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb,
-                                         rb_size)
+    """(rows_occlusion_reference's (1, R) result, counts), counts None
+    unless count_tests, else a dict of what K3 does on these inputs:
+
+    pair_tests: the (ray, slot) tests, each ray's rows in order, each up to
+    its first occluding slot and none after it, as the kernel's per-ray
+    early exit tests them.  products: the L-term products those tests
+    compute, as the kernel stages them: den and w1 for every test, w2 where
+    a >= 0 and d > 0, tnum where b >= 0 and a + b <= d as well.
+    warp_issued: for each warp of K3 (32 consecutive rays of a group, one
+    per thread) and each row, the largest test count among its rays still
+    open, times 32, since a warp steps over a row's slots until its last
+    open ray is occluded or the row ends.  pair_tests / warp_issued is the
+    lane efficiency."""
+    feats, live, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays,
+                                               nrb, rb_size, live_feats)
     dev = rays.device
     rg = nrb * rb_size
     out = torch.zeros((1, rays.shape[1]), dtype=torch.float32, device=dev)
@@ -381,6 +432,9 @@ def _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
     chunk = max(1, _OCC_TWIN_CHUNK_ELEMS // (rg * MM_COLS))
     leaf = KERNEL_LEAF
     tests = torch.zeros((), dtype=torch.long, device=dev)
+    products = torch.zeros((), dtype=torch.long, device=dev)
+    issued = torch.zeros((), dtype=torch.long, device=dev)
+    slot_ix = torch.arange(leaf, device=dev)
     for v0 in range(0, nvg, chunk):
         v1 = min(nvg, v0 + chunk)
         cnt = count_np[v0:v1]
@@ -392,7 +446,7 @@ def _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
             rows = flat_rows[(start[sel] + j).long()]  # (G, F, 512)
             ray = rays_g[:, sel]  # (F, G, rg)
             p = ray[0, :, :, None] * rows[:, None, 0, :]
-            for k in range(1, feats):
+            for k in range(1, live):
                 p = p + ray[k, :, :, None] * rows[:, None, k, :]
             w1, w2, den, tnum = p.split(leaf, dim=-1)
             s = torch.where(den >= 0.0, 1.0, -1.0)
@@ -400,19 +454,30 @@ def _rows_occlusion_twin(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
             b = w2 * s
             d = den * s
             tt = tnum * s
-            ok = ((a >= 0.0) & (b >= 0.0) & (a + b <= d) & (tt >= 0.0)
-                  & (tt <= d) & (d > 0.0))  # (G, rg, leaf)
+            stage2 = (a >= 0.0) & (d > 0.0)
+            stage3 = stage2 & (b >= 0.0) & (a + b <= d)
+            ok = stage3 & (tt >= 0.0) & (tt <= d)  # (G, rg, leaf)
             hit = ok.any(dim=-1)  # (G, rg)
             if count_tests:
                 first = torch.where(hit, ok.int().argmax(dim=-1) + 1, leaf)
-                tests += (first * ~occ[sel - v0]).sum()
+                first = first * ~occ[sel - v0]  # (G, rg), 0 once occluded
+                tests += first.sum()
+                tested = slot_ix < first[..., None]
+                products += (2 * tested.sum() + (stage2 & tested).sum()
+                             + (stage3 & tested).sum())
+                issued += first.reshape(len(sel), rg // _WARP, _WARP).amax(
+                    dim=-1).sum() * _WARP
             occ[sel - v0] |= hit
         out[0, v0 * rg:v1 * rg] = occ.to(torch.float32).reshape(-1)
-    return out, int(tests.item()) if count_tests else None
+    if not count_tests:
+        return out, None
+    return out, dict(pair_tests=int(tests.item()),
+                     products=int(products.item()),
+                     warp_issued=int(issued.item()))
 
 
-def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int,
-                       rb_size: int) -> torch.Tensor:
+def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
+                       live_feats: int | None = None) -> torch.Tensor:
     """K3: any-hit of shadow rays in t in [0, 1] of their own
     parameterisation against their virtual group's occluder rows
     (compound_ray_tpu/trace/mm_tracer.py:897).
@@ -420,17 +485,20 @@ def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int,
     r2v (TB,) int32 row -> virtual group (light * NG + group); flag (TB,)
     int32, 2 first row of a group, 1 live, 0 padding; flat_rows (TB, F,
     512) f32 with F = 8 (the shadow plan's reverse-affine rows) or 16; rays
-    (F, NVG * nrb * rb_size) f32 planar.  Returns (1, R) f32: 1.0
-    occluded, 0.0 clear; zero-row groups are written 0.0.  CUDA tensors
+    (F, NVG * nrb * rb_size) f32 planar; live_feats L (4, 8 or 16, at
+    most F; default F): the products read features 0..L-1 only, which
+    decides every ray as the F-term sum does when features L..F-1 are zero
+    in rows or rays (csrc/rows_occlusion.cu says why).  Returns (1, R) f32:
+    1.0 occluded, 0.0 clear; zero-row groups are written 0.0.  CUDA tensors
     launch csrc/rows_occlusion.cu on the current stream (or raise); CPU
     tensors take rows_occlusion_reference."""
     global occlusion_launches
     dev = rays.device
     if dev.type == "cpu":
         return rows_occlusion_reference(r2v, flag, flat_rows, rays, nrb,
-                                        rb_size)
-    feats, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays, nrb,
-                                         rb_size)
+                                        rb_size, live_feats)
+    feats, live, nvg = _check_occlusion_inputs(r2v, flag, flat_rows, rays,
+                                               nrb, rb_size, live_feats)
     if dev.type != "cuda":
         raise ValueError(f"run_rows_occlusion takes CPU or CUDA tensors, "
                          f"not {dev.type}")
@@ -448,7 +516,7 @@ def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int,
             ctypes.c_void_p(flat_rows.data_ptr()),
             ctypes.c_void_p(rays.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
-            nvg, feats, nrb * rb_size, r, ctypes.c_void_p(stream))
+            nvg, feats, live, nrb * rb_size, r, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rows occlusion launch failed: CUDA error {err}")
     occlusion_launches += 1

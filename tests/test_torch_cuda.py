@@ -67,6 +67,108 @@ def test_k1_matches_twin(cuda_device, accept_deg, samples):
     assert torch.equal(got[4:], torch.zeros_like(got[4:]))
 
 
+def _adversarial_k1_case(device, rg=256):
+    """Four groups of rg rays [d = +z, o in [0, 1)^2 at binary fractions]
+    against payloads with exact products: group 0 ties in t across lanes
+    and rows (one triangle at lanes 3 and 100 of row 0 and lane 3 of row
+    1, another at lane 50, all at z = 1; a nearer one at lane 120 of row 1
+    over x < 1/2; a farther one at lane 0), group 1 hits at t = 0 with
+    half its rays on the edge u + v = 1 exactly, group 2 has one row of
+    padding columns only, group 3 no rows.  The other lanes are padding."""
+    from compound_ray_tpu_torch.trace.plucker import triangle_constants
+
+    ng, rmax = 4, 2
+    pm = np.zeros((ng, rmax, 16, 512), np.float32)
+
+    def put(g, j, lane, v0, e1, e2, slot):
+        tri = triangle_constants(*(np.asarray([x], np.float32)
+                                   for x in (v0, e1, e2)))
+        col = np.zeros((4, 16), np.float32)
+        col[0, 0:6] = tri["edge6"][0, 1]
+        col[0, 10] = slot
+        col[1, 0:6] = tri["edge6"][0, 2]
+        col[2, 0:3] = tri["normal"][0]
+        col[3, 6:9] = tri["normal"][0]
+        col[3, 9] = tri["c0"][0]
+        for b in range(4):
+            pm[g, j, :, 128 * b + lane] = col[b]
+
+    big = ((-1.0, -1.0, 1.0), (4.0, 0.0, 0.0), (0.0, 4.0, 0.0))
+    for j, lane, slot in ((0, 3, 3.0), (0, 100, 100.0), (1, 3, 1003.0)):
+        put(0, j, lane, *big, slot)
+    put(0, 0, 50, (-2.0, -2.0, 1.0), (8.0, 0.0, 0.0), (0.0, 8.0, 0.0), 50.0)
+    put(0, 0, 0, (-1.0, -1.0, 2.0), (4.0, 0.0, 0.0), (0.0, 4.0, 0.0), 0.0)
+    put(0, 1, 120, (-1.0, -1.0, 0.5), (1.5, 0.0, 0.0), (0.0, 4.0, 0.0),
+        1120.0)
+    put(1, 0, 7, (0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0), 7.0)
+    rc = np.array([2, 1, 1, 0], np.int32)
+    i = np.arange(rg)
+    x = (i % 16) / 16.0 + 1.0 / 64.0
+    y = (i // 16 % 16) / 16.0 + 1.0 / 64.0
+    o = np.zeros((ng, rg, 3), np.float32)
+    o[:, :, 0], o[:, :, 1] = x, y
+    edge = i % 2 == 0  # group 1: every other ray on x + y = 1, the rest
+    o[1, edge, 0] = (i[edge] % 128) / 128.0  # inside, at half the scale
+    o[1, edge, 1] = 1.0 - o[1, edge, 0]
+    o[1, ~edge, :2] *= 0.5
+    d = np.zeros_like(o)
+    d[..., 2] = 1.0
+    rays = TM.pack_rays_mm(torch.as_tensor(d.reshape(-1, 3)),
+                           torch.as_tensor(o.reshape(-1, 3)),
+                           torch.zeros(ng * rg))
+    return (torch.as_tensor(rc, device=device),
+            torch.as_tensor(pm, device=device), rays.to(device),
+            dict(ng=ng, nrb=1, rb_size=rg, rmax=rmax))
+
+
+@pytest.mark.cuda
+def test_k1_adversarial_payload_equals_twin(cuda_device):
+    """Ties across lanes and rows, t = 0, u + v = 1 exactly and padding
+    columns, all with exact products: winners, t, u and v equal the
+    twin's bit for bit, and the tie order is the TPU's."""
+    rc, pm, rays, kw = _adversarial_k1_case(cuda_device)
+    got = TM.run_packed_tracer(rc, pm, rays, **kw)
+    ref = TM.packed_tracer_reference(rc, pm, rays, **kw)
+    assert torch.equal(got, ref)
+    rg = kw["rb_size"]
+    slots = got[3].reshape(4, rg)
+    assert set(slots[0].unique().tolist()) == {3.0, 1120.0}
+    assert (slots[1] == 7.0).all() and (got[0].reshape(4, rg)[1] == 0).all()
+    u, v = got[1].reshape(4, rg)[1], got[2].reshape(4, rg)[1]
+    assert ((u + v)[0::2] == 1.0).all()
+    assert (slots[2:] == -1.0).all() and torch.isinf(got[0].reshape(
+        4, rg)[2:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rg", [1, 100, 255, 300, 511])
+def test_k1_ragged_groups_match_twin(cuda_device, rg):
+    """K1's C entry at groups of rays that fill no whole number of blocks
+    of 256 rays (the wrapper pads groups to 256, so this calls the library
+    directly): each group's first rg rays of the adversarial case at 512
+    rays per group, traced alone, give the twin's output for them, and
+    nothing past the output is written."""
+    import ctypes
+
+    from compound_ray_tpu_torch.trace import _build
+
+    rc, pm, rays, kw = _adversarial_k1_case(cuda_device, rg=512)
+    ref = TM.packed_tracer_reference(rc, pm, rays, **kw)
+    ng = kw["ng"]
+    cut = rays.reshape(16, ng, 512)[:, :, :rg].contiguous()
+    out = torch.full((8 * ng * rg + 64,), 7.0, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.packed_tracer_lib().cr_packed_tracer(
+        ctypes.c_void_p(rc.data_ptr()), ctypes.c_void_p(pm.data_ptr()),
+        ctypes.c_void_p(cut.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ng, kw["rmax"], rg, ng * rg, ctypes.c_void_p(stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    want = ref.reshape(8, ng, 512)[:, :, :rg].reshape(8, -1)
+    assert torch.equal(out[:8 * ng * rg].reshape(8, -1), want)
+    assert (out[8 * ng * rg:] == 7.0).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["make_box_scene", "make_mixed_flat_scene",
                                   "make_two_texture_scene"])
@@ -164,15 +266,111 @@ def test_k3_matches_twin(cuda_device, size, feats):
 @pytest.mark.cuda
 def test_k3_matches_twin_on_a_lit_frame(cuda_device):
     """K3 on the shadow rays and table of a lit frame (the reverse-affine
-    F = 8 form), the canopy scene with its default lights."""
+    F = 8 form), the canopy scene with its default lights: the frame reads
+    the 4 live features, and its decisions equal the twin's at L = 4 and
+    at L = F = 8."""
     scene = testing.make_canopy_scene()
     omms = ommatidia_to_array(testing.canopy_eye(2.0))
     f = testing.frame_pack(scene, omms, 256, (0.0, 0.0, 0.0), cuda_device)
     r2v, flag, rows, rays, kw = testing.lit_occlusion_inputs(
         scene, f, default_lights(scene.aabb_min, scene.aabb_max))
+    assert kw["live_feats"] == P.SHADOW_LIVE_FEATS == 4
+    assert rows.shape[1] == P.SHADOW_FEATS == 8
     got = TM.run_rows_occlusion(r2v, flag, rows, rays, **kw)
     ref = TM.rows_occlusion_reference(r2v, flag, rows, rays, **kw)
     assert torch.equal(got, ref) and got.any() and not got.all()
+    kw8 = dict(kw, live_feats=8)
+    assert torch.equal(TM.run_rows_occlusion(r2v, flag, rows, rays, **kw8),
+                       got)
+    assert torch.equal(TM.rows_occlusion_reference(r2v, flag, rows, rays,
+                                                   **kw8), ref)
+
+
+def _random_occlusion_table(device, nvg, rg, feats, live, seed):
+    """A K3 table of random rows (0-3 per virtual group, one group with
+    none, then 3 padding rows) whose features live..F-1 are zero in rows
+    and rays, as in the shadow plan's table."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, nvg)
+    counts[1] = 0
+    counts[0] = 3
+    tb = int(counts.sum()) + 3
+    rows = np.zeros((tb, feats, 512), np.float32)
+    rows[:, :live] = rng.standard_normal((tb, live, 512))
+    # tnum's feature 3 against the rays' 1: most slots fail tt <= d
+    rows[:, 3, 384:512] = rng.choice([-4.0, 4.0], (tb, 128))
+    rows[-3:] = 0.0
+    rays = np.zeros((feats, nvg * rg), np.float32)
+    rays[:live] = rng.standard_normal((live, nvg * rg))
+    rays[3] = 1.0
+    r2v = np.concatenate([np.repeat(np.arange(nvg), counts),
+                          np.full(3, nvg - 1)]).astype(np.int32)
+    flag = np.concatenate([np.concatenate([[2] + [1] * (c - 1) for c in
+                                           counts if c]), np.zeros(3)])
+    return (torch.as_tensor(r2v, device=device),
+            torch.as_tensor(flag.astype(np.int32), device=device),
+            torch.as_tensor(rows, device=device),
+            torch.as_tensor(rays, device=device), counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feats,live", [(8, 4), (8, 8), (16, 4), (16, 16)])
+@pytest.mark.parametrize("nrb", [1, 3, 5])
+def test_k3_ragged_groups_match_twin(cuda_device, feats, live, nrb):
+    """Groups of 128, 384 and 640 rays (one, three and five blocks of 128
+    threads, several blocks to a group): every decision equals the twin's,
+    zero-row groups come out clear, and L = 4 reads of a table whose
+    features 4..F-1 are zero decide as L = F does."""
+    nvg, rb = 6, 128
+    r2v, flag, rows, rays, counts = _random_occlusion_table(
+        cuda_device, nvg, nrb * rb, feats, live, seed=feats + nrb)
+    kw = dict(nrb=nrb, rb_size=rb, live_feats=live)
+    before = TM.occlusion_launches
+    got = TM.run_rows_occlusion(r2v, flag, rows, rays, **kw)
+    torch.cuda.synchronize()
+    assert TM.occlusion_launches == before + 1
+    ref = TM.rows_occlusion_reference(r2v, flag, rows, rays, **kw)
+    assert torch.equal(got, ref)
+    full = TM.rows_occlusion_reference(r2v, flag, rows, rays, nrb=nrb,
+                                       rb_size=rb)
+    assert torch.equal(full, ref)
+    live_rays = torch.repeat_interleave(
+        torch.as_tensor(counts > 0, device=got.device), nrb * rb)
+    assert got[0, live_rays].any() and not got[0, live_rays].all()
+    assert not got[0, ~live_rays].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rg", [1, 100, 200])
+def test_k3_ragged_rays_match_twin(cuda_device, rg):
+    """K3's C entry at groups of rays that fill no whole block of 128
+    threads (the wrapper takes groups of whole 128-ray blocks, so this calls
+    the library directly): each group's first rg rays of a random table at
+    256 rays per group, traced alone at L = 4, give the twin's decisions for
+    them, and nothing past the output is written."""
+    import ctypes
+
+    from compound_ray_tpu_torch.trace import _build
+
+    nvg = 6
+    r2v, flag, rows, rays, _ = _random_occlusion_table(
+        cuda_device, nvg, 256, 8, 4, seed=rg)
+    ref = TM.rows_occlusion_reference(r2v, flag, rows, rays, nrb=2,
+                                      rb_size=128, live_feats=4)
+    cut = rays.reshape(8, nvg, 256)[:, :, :rg].contiguous()
+    start, count = TM._row_ranges(r2v, flag, nvg)
+    out = torch.full((nvg * rg + 64,), 7.0, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.rows_occlusion_lib().cr_rows_occlusion(
+        ctypes.c_void_p(start.data_ptr()), ctypes.c_void_p(count.data_ptr()),
+        ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(cut.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), nvg, 8, 4, rg, nvg * rg,
+        ctypes.c_void_p(stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    want = ref.reshape(nvg, 256)[:, :rg].reshape(-1)
+    assert torch.equal(out[:nvg * rg], want)
+    assert (out[nvg * rg:] == 7.0).all()
 
 
 @pytest.mark.cuda

@@ -202,3 +202,28 @@ def test_cuda_kernel_matches_twin(jax_unlit, cuda_device, accept_deg):
                                        rc, kw["nrb"] * kw["rb_size"])
     assert frac >= SLOT_AGREE, frac
     np.testing.assert_allclose(t_got, t_ref, rtol=T_RTOL)
+
+
+def _exact_accepts(w1, w2, den, tnum):
+    """The twin's exact candidate test on float32 tensors."""
+    inv = 1.0 / den
+    u, v, t = w1 * inv, w2 * inv, tnum * inv
+    return (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0)
+
+
+def test_reject_rule_rejects_padding_and_misses():
+    """The rule is not vacuous: on a real pose pack it rejects the
+    padding columns and nearly every pair the exact test rejects, and no
+    pair it accepts."""
+    rc, pmm, rays, kw = _jax_case(20.0)
+    rg = kw["nrb"] * kw["rb_size"]
+    p = torch.einsum("fgr,gjfc->gjrc",
+                     torch.tensor(rays).reshape(16, kw["ng"], rg),
+                     torch.tensor(pmm))
+    w1, w2, den, tnum = p.split(128, dim=-1)
+    ok = _exact_accepts(w1, w2, den, tnum)
+    rej = TM.k1_reject(w1, w2, den, tnum)
+    assert ok.any() and not (ok & rej).any()
+    pad = (den == 0) & (w1 == 0) & (w2 == 0) & (tnum == 0)
+    assert pad.any() and rej[pad].all()
+    assert rej[~ok].float().mean() > 0.95
