@@ -23,7 +23,8 @@ tools' full sizes.  Phases, each failing loudly:
      frame hands over with live_feats 4; each with its rays per thread, K3
      with its pair tests, the tests its warps issue and their lane
      efficiency;
-  4. K2 against its torch twin at the bench cache's real shapes;
+  4. K2 against its torch twin at the bench cache's real shapes, bit for
+     bit with the early exit on and off, with the pair tests it walks;
   5. the four paths through EyeRenderer(device="cuda"), with the launch
      counts set to 0 before each and read after it;
   6. each path's frame against a reference: the twin-rendered frames, the
@@ -31,8 +32,9 @@ tools' full sizes.  Phases, each failing loudly:
      the unlit frame for the lit one, and small scenes on the card against
      the CPU;
   7. K4 and K5 against their twin in every mode at the probe tool's shape,
-     K6 against its twin at each swept (K, N, precision) with 4000 steps;
-     then both tools' main() with the launch counts set to 0 before and
+     K6 against its twin at each swept (K, N, precision) with 4000 steps,
+     and one batched torch.matmul over the same bf16 products as a
+     yardstick; then both tools' main() with the launch counts set to 0 before and
      read after.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
@@ -117,7 +119,7 @@ def _bench_renderer(device):
     from compound_ray_tpu_torch.cameras.types import CompoundEyeCamera
     from compound_ray_tpu_torch.testing import make_big_scene, make_sphere_eye
 
-    r = EyeRenderer(device=device)
+    r = EyeRenderer(verbose=False, device=device)
     r.scene = make_big_scene(n_boxes=N_BOXES, seed=0)
     cam = CompoundEyeCamera("bench-eye", "single_dimension_fast",
                             make_sphere_eye(N_OMM, acceptance_deg=ACCEPT_DEG))
@@ -286,11 +288,19 @@ def _k2_pair_tests(c, ref) -> int:
 def k2_vs_twin(r, cam):
     """Phase 4: K2 and cluster_tracer_reference on the bench cache's own
     inputs (2048 tiles of 256 rays, KP 256) with the early exit on, as
-    _render_cache traces them; also the whole cache build timed."""
+    _render_cache traces them, and with it off: every row of a live tile
+    must equal the twin's bit for bit (the kernel rounds each product and
+    sum as the twin does).  Counts the (ray, lane) pair tests three ways:
+    from below (the bound's), as the 128-ray batches walk their shortlists
+    (the twin counts the clusters each batch walks), and with no early
+    exit.  Also the whole cache build timed."""
     from compound_ray_tpu_torch import testing
     from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF
     from compound_ray_tpu_torch.trace.cluster_tracer import (
+        BATCH_RAYS,
+        _cluster_tracer_twin,
         cluster_tracer_reference,
         run_tracer_kernel,
     )
@@ -303,10 +313,18 @@ def k2_vs_twin(r, cam):
                                    width)
     args = (c.counts, c.ids, c.dmin, c.payload, c.rays)
     got = run_tracer_kernel(*args, early_exit=True, **c.kw)
-    ref = cluster_tracer_reference(*args, early_exit=True, **c.kw)
+    ref, walked = _cluster_tracer_twin(*args, early_exit=True, **c.kw,
+                                       count_walked=True)
     agree, max_abs, max_rel = testing.cluster_hit_agreement(
         ref, got, c.counts, c.kw["rb_size"])
     live = torch.repeat_interleave(c.counts > 0, c.kw["rb_size"])
+    rows_differ = int((got[live] != ref[live]).any(dim=1).sum().item())
+    got_full = run_tracer_kernel(*args, early_exit=False, **c.kw)
+    ref_full = cluster_tracer_reference(*args, early_exit=False, **c.kw)
+    rows_differ_full = int((got_full[live] != ref_full[live]).any(dim=1)
+                           .sum().item())
+    del got_full, ref_full
+    pair = BATCH_RAYS * KERNEL_LEAF  # pair tests per walked cluster
     res = dict(shape=dict(tiles=c.kw["ng"], kp=int(c.ids.shape[1]),
                           kmax=c.kw["kmax"], rays=int(c.rays.shape[0])),
                far_clusters=int(c.far.sum()),
@@ -314,9 +332,19 @@ def k2_vs_twin(r, cam):
                mean_shortlist=float(c.counts.float().mean().item()),
                hit_share=float(torch.isfinite(ref[live, 0]).float().mean()
                                .item()),
-               winner_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
+               winner_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel,
+               rows_differ=rows_differ,
+               rows_differ_no_early_exit=rows_differ_full,
+               pair_tests_from_below=_k2_pair_tests(c, ref),
+               pair_tests_walked=int(walked.sum().item()) * pair,
+               pair_tests_no_early_exit=int(
+                   c.counts.clamp(0, c.kw["kmax"]).sum().item())
+               * walked.shape[1] * pair)
     # 18 FMAs per (ray, slot): w1, w2 (6 terms each), den and o . n (3 each)
-    res.update(_bound(36.0 * _k2_pair_tests(c, ref), _nbytes(*args, got)))
+    nbytes = _nbytes(*args, got)
+    res.update(_bound(36.0 * res["pair_tests_from_below"], nbytes))
+    res["walked_bound_ms"] = _bound(36.0 * res["pair_tests_walked"],
+                                    nbytes)["bound_ms"]
     res["ms"] = time_ms(lambda: run_tracer_kernel(*args, early_exit=True,
                                                   **c.kw),
                         reps=20, warmup=3)
@@ -326,6 +354,11 @@ def k2_vs_twin(r, cam):
     res["plain_ms"] = time_ms(
         lambda: cluster_tracer_reference(*args, early_exit=True, **c.kw),
         reps=2, warmup=1)
+    res["ns_per_walked_pair_test"] = (res["ms"] * 1e6
+                                      / max(res["pair_tests_walked"], 1))
+    res["ns_per_pair_test_no_early_exit"] = (
+        res["ms_no_early_exit"] * 1e6
+        / max(res["pair_tests_no_early_exit"], 1))
     splan = P.scene_plan(r.scene, r.device)
     center = torch.tensor(np.asarray(
         pos_np + cam.ommatidia[:, 0:3].mean(axis=0), np.float32),
@@ -339,8 +372,8 @@ def k2_vs_twin(r, cam):
             background=miss_id(r.scene.background_shader),
             kmax=c.kw["kmax"], textured=splan.textured,
             tex_only=splan.tex_only)), reps=5, warmup=1)
-    if not (agree >= SLOT_AGREE and max_rel <= T_RTOL):
-        raise AssertionError(f"K2 disagrees with its twin: {res}")
+    if rows_differ or rows_differ_full:
+        raise AssertionError(f"K2 differs from its twin: {res}")
     return res
 
 
@@ -842,8 +875,28 @@ def dot_bench_vs_twins(dev):
                     ft, mm, prec, MB.N_STEPS), reps=5, warmup=1)
                 res["plain_ms"] = time_ms(lambda: MB.dot_bench_reference(
                     ft, mm, prec, MB.N_STEPS), reps=2, warmup=1)
+                res["batched_matmul_ms"] = _k6_yardstick(ft, mm)
     print(f"phase 7: K6 at (K, N, precision) {K6_ENTRY}: {json.dumps(res)}")
     return res
+
+
+def _k6_yardstick(ft, mm) -> float:
+    """One batched torch.matmul over the same bf16 products as K6's
+    "default" steps: ft^T against the (n_steps, K, N) stack of mm[j % 4].
+    A yardstick, not the same function: it reads n_steps B matrices from
+    device memory and writes every product, where K6 cycles four matrices
+    held in shared memory and writes one sum."""
+    from compound_ray_tpu_torch.tools import microbench_k as MB
+
+    a = ft.t().to(torch.bfloat16).contiguous()
+    stack = mm.to(torch.bfloat16)[
+        torch.arange(MB.N_STEPS, device=mm.device) % MB.NROWS]
+    ms = time_ms(lambda: torch.matmul(a, stack), reps=3, warmup=1)
+    print(f"phase 7: K6 yardstick: one batched torch.matmul of "
+          f"{tuple(a.shape)} bf16 against {tuple(stack.shape)} bf16: "
+          f"{ms:.4f} ms (reads {MB.N_STEPS} B matrices from device memory "
+          f"and writes every product; not the same function)")
+    return ms
 
 
 def tools_main():
@@ -902,8 +955,15 @@ def main() -> int:
     t0 = time.perf_counter()
     k2 = k2_vs_twin(r, cam)
     print(f"phase 4: K2 vs twin at the bench cache: {json.dumps(k2)} "
-          f"(thresholds: winners >= {SLOT_AGREE}, t rtol {T_RTOL}; "
-          f"{time.perf_counter() - t0:.1f} s)")
+          f"(threshold: every row of a live tile bit-equal, early exit on "
+          f"and off; {time.perf_counter() - t0:.1f} s)")
+    print(f"phase 4: K2 pair tests: from below "
+          f"{k2['pair_tests_from_below']}, walked {k2['pair_tests_walked']}, "
+          f"no early exit {k2['pair_tests_no_early_exit']}; "
+          f"{k2['ns_per_walked_pair_test'] * 1e3:.3f} ps per walked pair "
+          f"test, {k2['ns_per_pair_test_no_early_exit'] * 1e3:.3f} ps per "
+          f"pair test with no early exit; bound {k2['bound_ms']:.4f} ms "
+          f"from below, {k2['walked_bound_ms']:.4f} ms walked")
 
     t0 = time.perf_counter()
     k3 = lit_k3_vs_twin(r, cam, SAMPLES[-1])

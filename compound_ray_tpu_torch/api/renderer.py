@@ -51,9 +51,9 @@ def frame_seed(base_seed: int, frame: int) -> int:
 class EyeRenderer:
     """Compound-eye renderer on one torch device."""
 
-    def __init__(self, verbose: bool = False, *, device="cuda"):
-        """`verbose` first, as in compound_ray_tpu/api/renderer.py:84; the
-        device is keyword-only and defaults to the card.  Where torch sees
+    def __init__(self, verbose: bool = True, *, device="cuda"):
+        """`verbose` first and on by default, as in
+        compound_ray_tpu/api/renderer.py:84; the device is keyword-only and defaults to the card.  Where torch sees
         no CUDA device, the default raises: it never falls back to the
         CPU, which a caller asks for with device="cpu"."""
         self.device = canonical_device(device)
@@ -191,9 +191,17 @@ class EyeRenderer:
             self.last_shadow_audit = audit.cpu().numpy()
             self._check_shadow_audit(self.last_shadow_audit)
         ms = (time.perf_counter() - t0) * 1000.0
-        self.frame_times_ms.append(ms)
+        self._note_frame_time(ms)
         self._log(f"Rendered frame in {ms}ms.")
         return ms
+
+    def _note_frame_time(self, ms: float) -> None:
+        """Append a frame's wall time to frame_times_ms; past 10,000 entries
+        the oldest 5000 go (compound_ray_tpu/api/renderer.py:327-329), so a
+        closed loop of any length holds a bounded list."""
+        self.frame_times_ms.append(ms)
+        if len(self.frame_times_ms) > 10000:
+            del self.frame_times_ms[:5000]
 
     def _check_shadow_audit(self, audit) -> None:
         """Act on a lit frame's shadow-shaft audit [leaked, hits, per-group

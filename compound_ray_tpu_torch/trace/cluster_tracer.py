@@ -114,6 +114,33 @@ def _check_inputs(counts, ids, dmin, payload, rays, ng, nrb, rb_size, kmax):
                          f"({ng * nrb * rb_size}, {RAY_COMPS})")
 
 
+def k2_keep_first(w1, den):
+    """The first two conditions of k2_reject's keep test, on den and w1
+    alone: d > 0 and a >= -m.  K2 computes w2 for a lane only where they
+    hold for one of a thread's rays."""
+    s = torch.where(den >= 0.0, 1.0, -1.0).to(den.dtype)
+    d = den * s
+    return (d > 0.0) & (w1 * s >= -(d * 2.0 ** -20))
+
+
+def k2_reject(w1, w2, den):
+    """K2's divide-free reject test on the barycentric conditions
+    (csrc/cluster_tracer.cu mirrors it): True only where the exact test
+    (inv = 1 / den, u = w1 inv, v = w2 inv; u >= 0, v >= 0, u + v <= 1)
+    rejects the pair, so the kernel divides, and tests t >= tmin, only on
+    the pairs this leaves.  With s the sign of den (+1 at +-0), a = w1 s,
+    b = w2 s, d = den s and the margin m = d 2^-20, a pair is kept iff
+    d > 0, a >= -m (the first two: k2_keep_first), b >= -m and
+    a + b <= d + m, so all-zero padding lanes (den = 0) and NaNs are
+    rejected.  tmin is not part of it: t >= tmin stays in the exact test
+    after the divide.  The proof is in the kernel's header note.  Not on
+    cluster_tracer_reference's path: the twin runs the exact test alone."""
+    s = torch.where(den >= 0.0, 1.0, -1.0).to(den.dtype)
+    a, b, d = w1 * s, w2 * s, den * s
+    m = d * 2.0 ** -20
+    return ~(k2_keep_first(w1, den) & (b >= -m) & (a + b <= d + m))
+
+
 def cluster_tracer_reference(counts, ids, dmin, payload, rays, ng: int,
                              nrb: int, rb_size: int, kmax: int,
                              early_exit: bool = False) -> torch.Tensor:
@@ -130,6 +157,19 @@ def cluster_tracer_reference(counts, ids, dmin, payload, rays, ng: int,
     walks min(counts[g], kmax) clusters; counts <= 0 gives misses (the TPU
     leaves those groups unwritten; callers mask them either way).  Cluster
     ids are clamped into the payload, as the kernel clamps them."""
+    return _cluster_tracer_twin(counts, ids, dmin, payload, rays, ng, nrb,
+                                rb_size, kmax, early_exit)[0]
+
+
+def _cluster_tracer_twin(counts, ids, dmin, payload, rays, ng: int, nrb: int,
+                         rb_size: int, kmax: int, early_exit: bool = False,
+                         count_walked: bool = False):
+    """(cluster_tracer_reference's (R, 8) result, walked), walked None
+    unless count_walked, else the (NG, rg / 128) int64 count of the
+    clusters each 128-ray batch walks on these inputs, as the kernel's
+    block walks them: min(counts[g], kmax) without the early exit, with it
+    the shortlist entries up to the first one that no ray's best t
+    exceeds."""
     _check_inputs(counts, ids, dmin, payload, rays, ng, nrb, rb_size, kmax)
     dev = rays.device
     rg = nrb * rb_size
@@ -141,6 +181,8 @@ def cluster_tracer_reference(counts, ids, dmin, payload, rays, ng: int,
     cnt_all = counts.clamp(0, kmax)
     ids_c = ids.clamp(0, payload.shape[0] - 1)
     lane_ix = torch.arange(KERNEL_LEAF, device=dev)
+    walked = (torch.zeros((ng, nb), dtype=torch.int64, device=dev)
+              if count_walked else None)
     chunk = max(1, _TWIN_CHUNK_ELEMS // (rg * KERNEL_LEAF))
     for g0 in range(0, ng, chunk):
         g1 = min(ng, g0 + chunk)
@@ -174,6 +216,8 @@ def cluster_tracer_reference(counts, ids, dmin, payload, rays, ng: int,
                 active = live[:, None].expand(gn, nb)
             if not bool(active.any()):
                 break
+            if count_walked:
+                walked[g0:g1] += active
             cid = ids_c[g0:g1, j]
             tri = payload[cid]  # (G, 16, 128)
 
@@ -211,7 +255,7 @@ def cluster_tracer_reference(counts, ids, dmin, payload, rays, ng: int,
         rows[:, :, 2] = bv.gather(-1, first)[..., 0]
         rows[:, :, 3] = bj.gather(-1, first)[..., 0]
         rows[:, :, 4] = first[..., 0].to(torch.float32)
-    return out
+    return out, walked
 
 
 def run_tracer_kernel(counts, ids, dmin, payload, rays, ng: int, nrb: int,
@@ -235,9 +279,10 @@ def run_tracer_kernel(counts, ids, dmin, payload, rays, ng: int, nrb: int,
     if dev.type != "cuda":
         raise ValueError(f"run_tracer_kernel takes CPU or CUDA tensors, "
                          f"not {dev.type}")
-    if rays.data_ptr() % 16:
-        raise ValueError("rays must start on a 16-byte boundary (the kernel "
-                         "reads each ray as float4s)")
+    if rays.data_ptr() % 16 or payload.data_ptr() % 16:
+        raise ValueError("rays and payload must start on a 16-byte boundary "
+                         "(the kernel reads each ray as float4s and copies "
+                         "each cluster's payload in bulk)")
     from compound_ray_tpu_torch.trace import _build
 
     lib = _build.cluster_tracer_lib()

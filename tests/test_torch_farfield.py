@@ -367,7 +367,7 @@ def _port_renderer(samples, sky_split, cache_width=WIDTH):
     tcfg.set_config(tcfg.RenderConfig(
         farfield="auto", farfield_cache_width=cache_width,
         sky_split=sky_split))
-    r = EyeRenderer(device="cpu")
+    r = EyeRenderer(verbose=False, device="cpu")
     r.scene = ttesting.make_big_scene(n_boxes=200, seed=11)
     r.scene.cameras.append(CompoundEyeCamera(
         "eye", "single_dimension_fast", ttesting.make_sphere_eye(64, 4.0)))

@@ -140,7 +140,7 @@ def test_eye_renderer_matches_jax_end_to_end(jax_unlit):
     jr.render_frame()
     want = jr.get_camera_data()
 
-    tr = EyeRenderer(device="cpu")
+    tr = EyeRenderer(verbose=False, device="cpu")
     tr.scene = _bench_like(ttesting, CompoundEyeCamera, 32, 1e-6)
     tr.goto_camera(len(tr.scene.cameras) - 1)
     assert tr.is_compound_eye_active()
@@ -153,7 +153,7 @@ def test_eye_renderer_matches_jax_end_to_end(jax_unlit):
 
 
 def test_eye_renderer_frames_advance_the_rng(jax_unlit):
-    tr = EyeRenderer(device="cpu")
+    tr = EyeRenderer(verbose=False, device="cpu")
     tr.scene = _bench_like(ttesting, CompoundEyeCamera, 16, np.radians(5.0))
     tr.goto_camera(len(tr.scene.cameras) - 1)
     tr.set_current_eye_samples_per_ommatidium(32)
@@ -171,7 +171,7 @@ def test_eye_renderer_frames_advance_the_rng(jax_unlit):
 
 
 def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
-    tr = EyeRenderer(device="cpu")
+    tr = EyeRenderer(verbose=False, device="cpu")
     with pytest.raises(RuntimeError):
         tr.render_frame()
     with pytest.raises(NotImplementedError):

@@ -401,7 +401,7 @@ def test_eye_renderer_lit_matches_jax_end_to_end(pinned):
     jr.render_frame()
     want = jr.get_camera_data()
 
-    tr = EyeRenderer(device="cpu")
+    tr = EyeRenderer(verbose=False, device="cpu")
     tr.scene = _bench_like(ttesting, CompoundEyeCamera, 32, 1e-6)
     np.testing.assert_array_equal(tr.get_lights(), jr._lights)
     tr.goto_camera(len(tr.scene.cameras) - 1)
@@ -451,7 +451,7 @@ def test_shadow_audit_matches_jax_and_corrects(pinned):
     assert leaked is not None, "the geometry produced no leak to correct"
     # the renderer's hook: below the tolerance it only warns; at or above
     # it the leaking groups replan and the memoised plans go
-    r = EyeRenderer(device="cpu")
+    r = EyeRenderer(verbose=False, device="cpu")
     r.scene = ts
     assert p.tsp.shadow_store
     r._check_shadow_audit(np.asarray([1, 10 ** 6] + [0] * p.te.ng))
@@ -514,7 +514,7 @@ def test_shadow_config_and_store_bound(monkeypatch):
     monkeypatch.setattr(tcfg, "_global_config", dataclasses.replace(
         cfg, farfield="off"))
     monkeypatch.setattr(TP, "_eye_plans", {})
-    r = EyeRenderer(device="cpu")
+    r = EyeRenderer(verbose=False, device="cpu")
     r.scene = ttesting.make_canopy_scene()
     r.scene.cameras.append(CompoundEyeCamera(
         "e", "single_dimension_fast", ttesting.canopy_eye(2.0)))

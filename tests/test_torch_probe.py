@@ -145,7 +145,7 @@ def test_probe_tool_runs_on_the_cpu(tmp_path):
 
 
 def test_eye_renderer_defaults_to_the_card():
-    """EyeRenderer(verbose=False, *, device="cuda"), verbose first as in the
+    """EyeRenderer(verbose=True, *, device="cuda"), verbose first as in the
     JAX API: without a card the default raises and never falls back to the
     CPU; device="cpu" renders there."""
     if torch.cuda.is_available():
