@@ -32,6 +32,8 @@ tools' full sizes.  Phases, each failing loudly:
      the unlit frame for the lit one, and small scenes on the card against
      the CPU;
   7. K4 and K5 against their twin in every mode at the probe tool's shape,
+     then the K1 step split they give (every K4 mode, K5 and K1 timed alike,
+     with the probe's rays per thread and what ptxas said of each instance);
      K6 against its twin at each swept (K, N, precision) with 4000 steps,
      and one batched torch.matmul over the same bf16 products as a
      yardstick; then both tools' main() with the launch counts set to 0 before and
@@ -72,13 +74,16 @@ K3_SOURCE = "compound_ray_tpu_torch/csrc/rows_occlusion.cu"
 # K3 vs twin: decisions equal on this share of live shadow rays (the kernel
 # sums in the twin's order without FMAs, so 100 % is expected)
 K3_AGREE = 0.9999
-# the rays each thread of K1 and K3 holds, as csrc/packed_tracer.cu
-# (kRaysPerThread) and csrc/rows_occlusion.cu (one per thread) fix them
+# the rays each thread of K1, K3 and the probes holds, as
+# csrc/packed_tracer.cu (kRaysPerThread), csrc/rows_occlusion.cu (one per
+# thread) and csrc/probe_step.cu (kRaysPerThread) fix them
 K1_RAYS_PER_THREAD = 2
 K3_RAYS_PER_THREAD = 1
+K45_RAYS_PER_THREAD = 2
 K4_REPLACES = "tools/probe_step.py:141"
 K5_REPLACES = "tools/probe_step.py:216"
 K45_SOURCE = "compound_ray_tpu_torch/csrc/probe_step.cu"
+PROBE_REPS = 20  # timed launches of each probe entry of the step split
 K6_REPLACES = "tools/microbench_k.py:59"
 K6_SOURCE = "compound_ray_tpu_torch/csrc/microbench_k.cu"
 # K6 vs twin: max error over the sum of |terms| of each output element; both
@@ -787,9 +792,14 @@ def probe_vs_twins(dev):
     must equal its dot_cand); each against probe_reference on the probe
     tool's inputs (1000 groups of 3072 rays).  copy_only and dma_only must
     be bit-equal, the dot modes agree on >= SLOT_AGREE of the rays within
-    T_RTOL.  Returns the K4 and K5 dot_cand entries, timed."""
+    T_RTOL.  Then times K4 in every mode at rs 256, its dot_cand at rs 512
+    and 1024, K5's dot_cand and K1 on the same inputs, PROBE_REPS launches
+    each, with dma_only and dot_cand on a ragged three-row shape, and prints
+    the K1 step split they give.  Returns the K4 and K5
+    dot_cand entries.  (These launches come before the counted tools' run.)"""
     from compound_ray_tpu_torch.testing import probe_agreement
     from compound_ray_tpu_torch.tools import probe_step as PS
+    from compound_ray_tpu_torch.trace.mm_tracer import run_packed_tracer
 
     ng, rb, rmax = PS.NG, PS.RB_SIZE, PS.RMAX
     rc, pmm, rays = (torch.as_tensor(x, device=dev)
@@ -828,20 +838,82 @@ def probe_vs_twins(dev):
     if not torch.equal(got3d["dot_only"], got3d["dot_cand"]):
         raise AssertionError("K5 dot_only differs from its dot_cand")
     flop = 2.0 * 16 * 512 * rb * rc.clamp(0, rmax).sum().item()
+
+    def timed(fn, ry, mode, *rs):
+        return time_ms(lambda: fn(rc, pmm, ry, ng, rb, rmax, mode, *rs),
+                       reps=PROBE_REPS, warmup=3)
+
+    times = {mode: timed(PS.run_probe, rays, mode) for mode in PS.MODES}
+    for rs in (512, 1024):
+        times[f"dot_cand_rs{rs}"] = timed(PS.run_probe, rays, "dot_cand", rs)
+    times["dot_cand_3d"] = timed(PS.run_probe3d, rays3d, "dot_cand")
+    times["real_bary"] = time_ms(lambda: run_packed_tracer(
+        rc, pmm, rays, ng=ng, nrb=1, rb_size=rb, rmax=rmax),
+        reps=PROBE_REPS, warmup=3)
+    # a ragged shape (rmax 3, 0 to 3 rows per group in turn): what a row
+    # costs where a block stages several, beside the one-row shape's
+    rc3, pmm3, _ = PS.make_inputs(ng, 1, 3, seed=1)  # the rays stay as above
+    rc3[:] = np.arange(ng) % 4
+    rc3, pmm3 = (torch.as_tensor(x, device=dev) for x in (rc3, pmm3))
+    rows3 = int(rc3.sum().item())
+    ragged = {mode: time_ms(lambda m=mode: PS.run_probe(
+        rc3, pmm3, rays, ng, rb, 3, m), reps=PROBE_REPS, warmup=3)
+        for mode in ("dma_only", "dot_cand")}
     res = {}
-    for key, tag, fn, ry, layout in (
-            ("k4", "K4 dot_cand rs 256", PS.run_probe, rays, "2d"),
-            ("k5", "K5 dot_cand rs 256", PS.run_probe3d, rays3d, "3d")):
-        res[key] = dict(out[tag], **_bound(flop, _nbytes(
+    for key, tag, ms, ry, layout in (
+            ("k4", "K4 dot_cand rs 256", times["dot_cand"], rays, "2d"),
+            ("k5", "K5 dot_cand rs 256", times["dot_cand_3d"], rays3d, "3d")):
+        res[key] = dict(out[tag], ms=ms, **_bound(flop, _nbytes(
             rc, pmm, ry, twins["dot_cand", layout])))
-        res[key]["ms"] = time_ms(
-            lambda f=fn, y=ry: f(rc, pmm, y, ng, rb, rmax, "dot_cand"),
-            reps=20, warmup=3)
         res[key]["plain_ms"] = time_ms(
             lambda y=ry, lay=layout: PS.probe_reference(
                 rc, pmm, y, ng, rb, rmax, "dot_cand", lay), reps=3, warmup=1)
     print(f"phase 7: K4 / K5 dot_cand at {ng} x {rb}: {json.dumps(res)}")
+    products = times["dot_only"] - times["dma_only"]
+    split = {
+        "times_ms": times,
+        "staging_loop_sink_ms (dma - copy)":
+            times["dma_only"] - times["copy_only"],
+        "products_ms (dot - dma)": products,
+        "cand_math_ms (cand - dot)": times["dot_cand"] - times["dot_only"],
+        "k1_less_probe_ms (real_bary - cand)":
+            times["real_bary"] - times["dot_cand"],
+        "products_share_of_f32_peak": flop / PEAK_F32 * 1e3 / products,
+        "ragged_rmax3_ms": ragged,
+        "ragged_rows": rows3,
+        "ragged_dot_cand_ms_per_1000_rows": ragged["dot_cand"] / rows3 * 1e3,
+        "rays_per_thread": K45_RAYS_PER_THREAD,
+        "reps": PROBE_REPS,
+        "instances (mode, rs): registers, spill store + load bytes":
+            _probe_instances(),
+    }
+    print(f"phase 7: K1 step split by the probes at {ng} x {rb}, rs 256: "
+          f"{json.dumps(split)}")
     return res
+
+
+def _probe_instances() -> dict:
+    """What ptxas said of each probe_kernel<mode, rs> when the library was
+    built (nvcc's log, kept beside it): {"mode rs": [registers, spill
+    bytes]}."""
+    import re
+
+    from compound_ray_tpu_torch.tools import probe_step as PS
+    from compound_ray_tpu_torch.trace import _build
+
+    inst, cur, spill = {}, None, 0
+    for line in _build.build_info["probe_step"][1].splitlines():
+        m = re.search(r"probe_kernelILi(\d)ELi(\d+)EE", line)
+        if m and "Compiling entry function" in line:
+            cur = f"{PS.MODES[int(m.group(1))]} {m.group(2)}"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            inst[cur], cur = [int(m.group(1)), spill], None
+    return inst
 
 
 def dot_bench_vs_twins(dev):

@@ -1,6 +1,6 @@
 """Dissect the packed tracer's per-step cost on the card (tools/probe_step.py
 in torch): knock-out kernels K4 (run_probe) and K5 (run_probe3d) that share
-K1's grid and staging, and the sweep of the JAX tool.
+K1's grid, staging and ray tiling, and the sweep of the JAX tool.
 
     python -m compound_ray_tpu_torch.tools.probe_step [--out PATH]
     python -m compound_ray_tpu_torch.tools.probe_step --device cpu --ng 4 --rb-size 1024
@@ -18,7 +18,9 @@ the magnitudes of the JAX tool; timings are the signal, hits are junk.
 
 Not ported: real_uvs and its BATCH_RAYS sweep (tools/probe_step.py:280-307)
 and so the cu/cv delta.  The port's K1 has no uvs emit, and its block is
-fixed at 256 threads (ROADMAP.md, K1 notes).
+fixed at 256 rays (on 128 threads, two rays each; ROADMAP.md, K1 notes).
+The probes cover rs rays per block on rs / 2 threads, as K1 does at rs 256
+(kRaysPerThread of csrc/probe_step.cu).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from compound_ray_tpu_torch.trace.mm_tracer import (
 )
 
 MODES = ("copy_only", "dma_only", "dot_only", "dot_cand")
-CHAIN_WIDTHS = (256, 512, 1024)  # threads per block (the TPU's chain width)
+CHAIN_WIDTHS = (256, 512, 1024)  # rays per block (the TPU's chain width)
 RS = 256
 # the JAX tool's shape: ofstad-like, cnt = 1 everywhere; rb_size 3072
 # divides by every chain width
@@ -52,8 +54,8 @@ NG, RB_SIZE, RMAX = 1000, 3072, 1
 REPS = 10  # timed launches per entry, after one warm-up
 NOT_PORTED = {
     "real_uvs": "the port's K1 has no uvs emit",
-    "real_uvs_rs512": "the port's K1 block is fixed at 256 threads",
-    "real_uvs_rs1024": "the port's K1 block is fixed at 256 threads",
+    "real_uvs_rs512": "the port's K1 block is fixed at 256 rays",
+    "real_uvs_rs1024": "the port's K1 block is fixed at 256 rays",
 }
 
 # elements of the twin's (groups, rows, rays, columns) product per chunk
@@ -186,10 +188,10 @@ def run_probe(rc, pmm, rays, ng: int, rb_size: int, rmax: int, mode: str,
     """K4: the knock-out probe `mode` of K1's row step
     (tools/probe_step.py:125).  rc (NG,) i32, pmm (NG, rmax, 16, 512) f32,
     rays (16, NG*rb) f32; returns (1, NG*rb) f32, +inf in groups with
-    rc <= 0 (the TPU kernel leaves them unwritten).  rs threads per block
-    (256, 512 or 1024) do not change the output.  CUDA tensors launch
-    csrc/probe_step.cu on the current stream (or raise); CPU tensors take
-    probe_reference."""
+    rc <= 0 (the TPU kernel leaves them unwritten).  rs rays per block
+    (256, 512 or 1024) do not change the output, bit for bit.  CUDA tensors
+    launch csrc/probe_step.cu on the current stream (or raise); CPU tensors
+    take probe_reference."""
     global probe_launches
     _check_inputs(rc, pmm, rays, ng, rb_size, rmax, mode, rs, "2d")
     if rays.device.type == "cpu":
@@ -202,7 +204,7 @@ def run_probe(rc, pmm, rays, ng: int, rb_size: int, rmax: int, mode: str,
 
 def run_probe3d(rc, pmm, rays3d, ng: int, rb_size: int, rmax: int,
                 mode: str) -> torch.Tensor:
-    """K5: run_probe with rays in (NG, 16, rb) layout, 256 threads per
+    """K5: run_probe with rays in (NG, 16, rb) layout, 256 rays per
     block (tools/probe_step.py:151).  Its dot_only runs the full dot_cand
     body, as the JAX tool's 3-D kernel does (tools/probe_step.py:170-191).
     CUDA tensors launch csrc/probe_step.cu (or raise); CPU tensors take

@@ -3,7 +3,8 @@
 Each kernel source compiles with nvcc into a shared library with a plain C
 entry point, loaded with ctypes.  Libraries go to build/compound_ray_tpu_torch/
 next to the package, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+source rebuilds and an unchanged one loads the library already built; nvcc's
+log (ptxas -v: registers, spills) is kept beside the library.
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -62,7 +63,11 @@ def build_many(names) -> Dict[str, str]:
         lib = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
         paths[name] = lib
         if os.path.isfile(lib):
-            build_info.setdefault(name, (0.0, "cached: " + lib))
+            log = "cached: " + lib
+            if os.path.isfile(lib + ".log"):  # what nvcc said when it built
+                with open(lib + ".log") as f:
+                    log += "\n" + f.read()
+            build_info.setdefault(name, (0.0, log))
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
@@ -78,6 +83,8 @@ def build_many(names) -> Dict[str, str]:
             failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                           f"{log}")
             continue
+        with open(lib + ".log", "w") as f:
+            f.write(log)
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
         build_info[name] = (seconds, log)
     if failed:

@@ -482,11 +482,18 @@ def test_lit_frame_on_card_matches_cpu(cuda_device, name):
     np.testing.assert_allclose(out[0], out[1], atol=ATOL)
 
 
-def _probe_inputs(device, ng=8, rb_size=1024, rmax=2):
-    """make_inputs with two rows in some groups and none in group 1."""
-    rc, pmm, rays = PS.make_inputs(ng, rb_size, rmax, seed=3)
-    rc[:] = 2
-    rc[1], rc[4] = 0, 1
+# row counts per group of the probes' card cases: two rows in most groups and
+# none in group 1; and rmax 3 with 0 to 3 rows and one count above rmax, which
+# the kernel clamps
+PROBE_CASES = {"two_rows": (2, (2, 0, 2, 2, 1, 2, 2, 2)),
+               "ragged": (3, (3, 0, 2, 1, 5, 0, 3, 1))}
+
+
+def _probe_inputs(device, case="two_rows", rb_size=1024):
+    """make_inputs with the row counts of PROBE_CASES[case]."""
+    rmax, counts = PROBE_CASES[case]
+    rc, pmm, rays = PS.make_inputs(len(counts), rb_size, rmax, seed=3)
+    rc[:] = counts
     return tuple(torch.as_tensor(x, device=device) for x in (rc, pmm, rays))
 
 
@@ -501,10 +508,11 @@ def _hold_probe(ref, got, rc, rb_size, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", PROBE_CASES)
 @pytest.mark.parametrize("rs", PS.CHAIN_WIDTHS)
 @pytest.mark.parametrize("mode", PS.MODES)
-def test_k4_probe_matches_twin(cuda_device, mode, rs):
-    rc, pmm, rays = _probe_inputs(cuda_device)
+def test_k4_probe_matches_twin(cuda_device, mode, rs, case):
+    rc, pmm, rays = _probe_inputs(cuda_device, case)
     ng, rb, rmax = pmm.shape[0], rays.shape[1] // pmm.shape[0], pmm.shape[1]
     before = PS.probe_launches
     got = PS.run_probe(rc, pmm, rays, ng, rb, rmax, mode, rs)
@@ -515,10 +523,11 @@ def test_k4_probe_matches_twin(cuda_device, mode, rs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", PROBE_CASES)
 @pytest.mark.parametrize("mode", PS.MODES)
-def test_k5_probe3d_matches_twin(cuda_device, mode):
+def test_k5_probe3d_matches_twin(cuda_device, mode, case):
     """The 3-D layout; its dot_only is the full dot_cand, as on the TPU."""
-    rc, pmm, rays = _probe_inputs(cuda_device)
+    rc, pmm, rays = _probe_inputs(cuda_device, case)
     ng, rb, rmax = pmm.shape[0], rays.shape[1] // pmm.shape[0], pmm.shape[1]
     rays3d = rays.reshape(16, ng, rb).permute(1, 0, 2).contiguous()
     before = PS.probe3d_launches
@@ -530,6 +539,26 @@ def test_k5_probe3d_matches_twin(cuda_device, mode):
     if mode == "dot_only":
         assert torch.equal(got, PS.run_probe3d(rc, pmm, rays3d, ng, rb, rmax,
                                                "dot_cand"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PROBE_CASES)
+@pytest.mark.parametrize("mode", ["dot_only", "dot_cand"])
+def test_probe_value_does_not_depend_on_rs(cuda_device, mode, case):
+    """A ray's value is the same at 256, 512 and 1024 rays per block and in
+    both layouts, bit for bit: each product is one fmaf chain in feature
+    order, whatever the block's tiling."""
+    rc, pmm, rays = _probe_inputs(cuda_device, case)
+    ng, rb, rmax = pmm.shape[0], rays.shape[1] // pmm.shape[0], pmm.shape[1]
+    outs = [PS.run_probe(rc, pmm, rays, ng, rb, rmax, mode, rs)
+            for rs in PS.CHAIN_WIDTHS]
+    assert torch.isfinite(outs[0]).any()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    if mode == "dot_cand":
+        rays3d = rays.reshape(16, ng, rb).permute(1, 0, 2).contiguous()
+        assert torch.equal(PS.run_probe3d(rc, pmm, rays3d, ng, rb, rmax,
+                                          mode), outs[0])
 
 
 @pytest.mark.cuda

@@ -85,6 +85,46 @@ def test_probe3d_matches_jax(inputs, mode):
     _hold(want, got)
 
 
+RAGGED_NG, RAGGED_RB, RAGGED_RMAX = 5, 512, 3
+# 0 to 3 rows per group, and one count above rmax for the clamp
+RAGGED_RC = np.array([3, 0, 2, 1, 5], np.int32)
+
+
+@pytest.mark.parametrize("layout", ["2d", "3d"])
+@pytest.mark.parametrize("mode", PS.MODES)
+def test_probe_ragged_rows_match_jax(mode, layout):
+    """Row counts 0-3 under rmax 3 (the tool's own draw has one row
+    everywhere).  The port clamps a count above rmax; the JAX kernel has no
+    clamp and would read past the group's rows, so it is given the clamped
+    counts."""
+    ng, rb, rmax = RAGGED_NG, RAGGED_RB, RAGGED_RMAX
+    _, pmm, rays = PS.make_inputs(ng, rb, rmax, seed=11)
+    rays3d = rays.reshape(16, ng, rb).transpose(1, 0, 2).copy()
+    clamped = np.minimum(RAGGED_RC, rmax)
+    if layout == "2d":
+        want = jps.run_probe(clamped, pmm, rays, ng, rb, rmax, mode, 256)
+        got = PS.run_probe(torch.as_tensor(RAGGED_RC), torch.as_tensor(pmm),
+                           torch.as_tensor(rays), ng, rb, rmax, mode, 256)
+    else:
+        want = jps.run_probe3d(clamped, pmm, rays3d, ng, rb, rmax, mode)
+        got = PS.run_probe3d(torch.as_tensor(RAGGED_RC), torch.as_tensor(pmm),
+                             torch.as_tensor(rays3d), ng, rb, rmax, mode)
+    live = np.repeat(RAGGED_RC > 0, rb)
+    np.testing.assert_allclose(got.numpy()[0, live],
+                               np.asarray(want)[0, live], rtol=1e-5)
+    assert torch.isinf(got[0, ~torch.as_tensor(live)]).all()
+    # every row of a group counts: dropping the last row changes the answer
+    if mode != "copy_only":
+        fewer = np.maximum(clamped - 1, 0)
+        fn = PS.run_probe if layout == "2d" else PS.run_probe3d
+        less = fn(torch.as_tensor(fewer), torch.as_tensor(pmm),
+                  torch.as_tensor(rays if layout == "2d" else rays3d), ng,
+                  rb, rmax, mode)
+        many = np.repeat(clamped > 1, rb)
+        assert (less.numpy()[0, many] >= got.numpy()[0, many]).all()
+        assert (less.numpy()[0, many] > got.numpy()[0, many]).any()
+
+
 def test_probe3d_dot_only_is_dot_cand(inputs):
     """The JAX tool's 3-D kernel has no dot_only branch
     (tools/probe_step.py:170-191): its dot_only is the full dot_cand, and
