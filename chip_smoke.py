@@ -11,7 +11,9 @@ samples: a 1024 x 512 cache rendered by K2), on with the sky split (3200
 samples), and lit (3200 samples, the four default lights: K1 and the
 shadow rays on K3); then the kernel-measurement tools' path, the probes
 (K4, K5, and K1 for real_bary) and the skinny-K dot bench (K6), at the
-tools' full sizes.  Phases, each failing loudly:
+tools' full sizes; then the API surface through the ctypes shim at 640 x
+480 (raw samples, the eight projections, pipelined frames).  Phases, each
+failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
@@ -37,7 +39,13 @@ tools' full sizes.  Phases, each failing loudly:
      K6 against its twin at each swept (K, N, precision) with 4000 steps,
      and one batched torch.matmul over the same bf16 products as a
      yardstick; then both tools' main() with the launch counts set to 0 before and
-     read after.
+     read after;
+  8. the API surface through the ctypes shim (load_eye_renderer) on the
+     bench eye at 640 x 480, counted as a path: raw samples (K1) against
+     the K1 twin and their mean against the means frame, the eight
+     projections on the card against the CPU, render_frames_pipelined
+     against synced frames, the frame buffer and PPM, and the host syncs
+     one unsynced frame issues.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
 card and {"ok": true, "device": ...}.
@@ -90,6 +98,16 @@ K6_SOURCE = "compound_ray_tpu_torch/csrc/microbench_k.cu"
 # round the operands alike ("default": to bf16) and sum in f32
 K6_REL = 1e-5
 K6_ENTRY = (16, 512, "default")  # the (K, N, precision) of K6's table entry
+# phase 8: the display size, raw frames timed, pipelined frames, and the
+# thresholds: raw mean vs means frame, Voronoi maps card vs CPU (share of
+# equal pixels, and the angle gap of a pixel that differs), colours
+DISPLAY_W, DISPLAY_H = 640, 480
+RAW_TIMED = 3
+PIPELINED = 10
+RAW_MEAN_ATOL = 1e-5
+VORONOI_AGREE = 0.999
+NEAR_TIE_RAD = 1e-6
+COLOUR_ATOL = 1
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE))
@@ -455,7 +473,7 @@ def _counters() -> dict:
             "k6": (microbench_k, "dot_bench_launches")}
 
 
-def _path(r, name, run):
+def _path(r, name, run, phase: int = 5):
     """Run one main path with every launch count set to 0 just before it;
     returns (its result, {kernel: launches in the path})."""
     counters = _counters()
@@ -463,7 +481,7 @@ def _path(r, name, run):
         setattr(mod, attr, 0)
     res = run()
     n = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-    print(f"phase 5: {name}: launches " + ", ".join(
+    print(f"phase {phase}: {name}: launches " + ", ".join(
         f"{k.upper()} {v}" for k, v in n.items()))
     return res, n
 
@@ -998,6 +1016,177 @@ def tools_main():
     return probe, micro
 
 
+def _events_ms(fn):
+    """(fn's result, CUDA-event ms around one call of fn)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _host_syncs(fn) -> list:
+    """The synchronizing CUDA operations fn issues, as torch's sync debug
+    mode reports them: one "file:line" of the Python caller each."""
+    import os
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def projections_card_vs_cpu(means, raw, pos, dirs) -> dict:
+    """Phase 8: the eight projections at DISPLAY_W x DISPLAY_H from the same
+    means (and raw samples) on the card and on the CPU.  Each spherical
+    projection's index maps equal on >= VORONOI_AGREE of the pixels with
+    every differing pixel a near-tie (winners' angles within
+    NEAR_TIE_RAD); frames equal where the maps agree, colours within
+    COLOUR_ATOL.  Times each projection on the card (CUDA events, 5
+    calls)."""
+    from compound_ray_tpu_torch.projection import project as PR
+    from compound_ray_tpu_torch.testing import voronoi_agreement
+
+    w, h = DISPLAY_W, DISPLAY_H
+    on = {"card": (means, raw, pos, dirs),
+          "cpu": tuple(x.cpu() for x in (means, raw, pos, dirs))}
+    out = {}
+    for name in PR.PROJECTIONS:
+        frames = {dev: PR.project_frame(name, *args, w, h).cpu().numpy()
+                  for dev, args in on.items()}
+        out[name] = dict(ms=time_ms(
+            lambda n=name: PR.project_frame(n, *on["card"], w, h), reps=5,
+            warmup=1))
+        same = np.ones((h, w), bool)
+        if name.startswith("spherical"):
+            refs = 2 if "positionwise" in name else 3
+            maps = [PR.voronoi_index_map(
+                args[refs], w, h, split="split" in name,
+                positions_x=args[2][:, 0]).cpu().numpy()
+                for args in on.values()]
+            agree, gap = voronoi_agreement(*maps, on["cpu"][refs].numpy(),
+                                           w, h)
+            out[name].update(map_agree=agree, max_tie_gap_rad=gap)
+            if agree < VORONOI_AGREE or gap >= NEAR_TIE_RAD:
+                raise AssertionError(f"{name}: card and CPU maps disagree "
+                                     f"({agree}, gap {gap} rad)")
+            same = maps[0] == maps[1]
+        got, want = frames["card"], frames["cpu"]
+        diff = int(np.abs(got[same].astype(int)
+                          - want[same].astype(int)).max())
+        out[name]["max_channel_diff"] = diff
+        if got.shape != (h, w, 4) or diff > (0 if name.endswith("_ids")
+                                             else COLOUR_ATOL):
+            raise AssertionError(f"{name}: card vs CPU frame {got.shape}, "
+                                 f"max channel difference {diff}")
+    return out
+
+
+def api_surface(r, cam, tmp):
+    """Phase 8: the API surface through the shim's camelCase calls in
+    primary_example.py's order (configureFunctions, setRenderSize,
+    renderFrame, getFramePointer, saveFrameAs, setCurrentEyeSamplesPer-
+    Ommatidium, stop) on the bench scene and eye at DISPLAY_W x DISPLAY_H:
+    the raw frame (its samples against the K1 twin's, their mean against
+    the means frame of the same seed, both with the far field off), the
+    eight projections card vs CPU, render_frames_pipelined against as many
+    synced frames, and the host syncs of one unsynced frame."""
+    import os
+
+    from compound_ray_tpu_torch import eye_tools as eyeTools
+    from compound_ray_tpu_torch import load_eye_renderer
+    from compound_ray_tpu_torch.api.renderer import frame_seed
+    from compound_ray_tpu_torch.config import get_config
+    from compound_ray_tpu_torch.eye.pipeline import render_samples
+    from compound_ray_tpu_torch.trace.mm_tracer import packed_tracer_reference
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    shim = load_eye_renderer(verbose=False)
+    R = shim.renderer
+    R.scene = r.scene  # the bench scene and its memoised plans
+    eyeTools.configureFunctions(shim)
+    if not shim.gotoCameraByName(cam.name.encode()):
+        raise AssertionError("the bench eye is not in the scene")
+    eyeTools.setRenderSize(shim, DISPLAY_W, DISPLAY_H)
+    res = {}
+
+    _set_config(farfield="off")
+    shim.setCurrentEyeShaderName(b"raw_ommatidial_samples")
+    shim.setCurrentEyeSamplesPerOmmatidium(SAMPLES[-1])
+    res["first_raw_frame_ms"] = _events_ms(shim.renderFrame)[1]
+    raw_mean0 = R._raw_samples.mean(dim=0)
+    res["raw_frame_ms"] = [_events_ms(shim.renderFrame)[1]
+                           for _ in range(RAW_TIMED)]
+    frame, res["frame_pointer_copy_ms"] = _events_ms(shim.getFramePointer)
+    if frame.shape != (DISPLAY_H, DISPLAY_W, 4) or not frame.any():
+        raise AssertionError(f"raw frame buffer {frame.shape}")
+    gen = torch.Generator(device=R.device)
+    gen.manual_seed(frame_seed(get_config().base_seed, cam.rng_frame - 1))
+    pos, ls, _ = _pose(cam)
+    twin = render_samples(
+        r.scene, r.scene.device_triangles(R.device), cam.ommatidia, pos, ls,
+        gen, SAMPLES[-1], miss_id(r.scene.background_shader),
+        tracer=packed_tracer_reference)
+    raw = R._raw_samples
+    res["raw_shape"] = list(raw.shape)
+    res["raw_vs_twin_max_abs"] = float((raw - twin).abs().max().item())
+    if (raw.shape != (SAMPLES[-1], N_OMM, 3)
+            or not torch.isfinite(raw).all().item()
+            or not res["raw_vs_twin_max_abs"] <= MEANS_ATOL):
+        raise AssertionError(f"raw samples vs the twin's: {res}")
+    ppm = os.path.join(tmp, "raw.ppm")
+    shim.saveFrameAs(ppm.encode())
+    header = f"P6\n{DISPLAY_W} {DISPLAY_H}\n255\n"
+    if os.path.getsize(ppm) != len(header) + DISPLAY_W * DISPLAY_H * 3:
+        raise AssertionError("saveFrameAs wrote a wrong size")
+
+    shim.setCurrentEyeShaderName(
+        b"__raygen__compound_projection_spherical_orientationwise")
+    shim.setCurrentEyeSamplesPerOmmatidium(SAMPLES[-1])  # rewinds to seed 0
+    shim.renderFrame()
+    means = shim.getCameraData()
+    _check_means(means, "the phase 8 means frame")
+    res["raw_mean_vs_means_max_abs"] = float(np.abs(
+        raw_mean0.cpu().numpy() - means).max())
+    if not res["raw_mean_vs_means_max_abs"] <= RAW_MEAN_ATOL:
+        raise AssertionError(f"raw mean vs means frame: {res}")
+    if not shim.getFramePointer()[..., 3].all():
+        raise AssertionError("the spherical frame left pixels unwritten")
+    shim.saveFrameAs(os.path.join(tmp, "orientationwise.ppm").encode())
+    _, omm_pos, omm_dir = cam.device_ommatidia(R.device)
+    res["projections"] = projections_card_vs_cpu(R._device_means, raw,
+                                                 omm_pos, omm_dir)
+    _set_config()
+
+    shim.setCurrentEyeSamplesPerOmmatidium(SAMPLES[-1])
+    t0 = time.perf_counter()
+    for _ in range(PIPELINED):
+        shim.renderFrame()
+    res["synced_total_ms"] = (time.perf_counter() - t0) * 1000.0
+    synced = shim.getCameraData().copy()
+    shim.setCurrentEyeSamplesPerOmmatidium(SAMPLES[-1])
+    res["pipelined_total_ms"] = R.render_frames_pipelined(PIPELINED)
+    if not np.array_equal(shim.getCameraData(), synced):
+        raise AssertionError("pipelined frames differ from synced ones")
+    res["host_syncs_unsynced_frame"] = _host_syncs(
+        lambda: R.render_frame(sync=False))
+    R.sync()
+    shim.stop()
+    if R.scene is not None or R._device_frame is not None:
+        raise AssertionError("stop left the scene or the frame")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -1149,13 +1338,43 @@ def main() -> int:
     k6 = dot_bench_vs_twins(r.device)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    res_n = _path(r, "measurement tools", tools_main)
+    res_n = _path(r, "measurement tools", tools_main, phase=7)
     count(res_n)
     n = res_n[1]
     if not (n["k4"] > 0 and n["k5"] > 0 and n["k6"] > 0 and n["k1"] > 0
             and n["k2"] == 0 and n["k3"] == 0):
         raise AssertionError(f"the tools' path launched {n}")
     print(f"phase 7: both tools' main() in {time.perf_counter() - t0:.1f} s")
+
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res_n = _path(r, "API surface", lambda: api_surface(r, cam, tmp),
+                      phase=8)
+    api, n = count(res_n)[0], res_n[1]
+    # raw frames (1 + RAW_TIMED), the means frame, synced and pipelined
+    # frames, and the unsynced frame whose syncs are counted
+    n_frames = 1 + RAW_TIMED + 1 + 2 * PIPELINED + 1
+    if not (n["k1"] == n_frames and n["k3"] == 0 and n["k2"] <= 1):
+        raise AssertionError(f"the API path launched {n}, not K1 "
+                             f"{n_frames} times")
+    syncs = api.pop("host_syncs_unsynced_frame")
+    projections = api.pop("projections")
+    print(f"phase 8: API surface through the shim at {DISPLAY_W} x "
+          f"{DISPLAY_H}, {N_OMM} x {SAMPLES[-1]} ({card}): {json.dumps(api)}"
+          f" (raw vs twin <= {MEANS_ATOL}, raw mean vs means frame <= "
+          f"{RAW_MEAN_ATOL}; {time.perf_counter() - t0:.1f} s)")
+    print(f"phase 8: project_frame card vs CPU at {DISPLAY_W} x {DISPLAY_H} "
+          f"({card}): {json.dumps(projections)} (maps equal on >= "
+          f"{VORONOI_AGREE}, differing pixels within {NEAR_TIE_RAD} rad; "
+          f"colours within {COLOUR_ATOL})")
+    print(f"phase 8: pipelined {PIPELINED} frames "
+          f"{api['pipelined_total_ms']:.3f} ms against {PIPELINED} synced "
+          f"{api['synced_total_ms']:.3f} ms (wall); final camera data "
+          f"bit-equal")
+    print(f"phase 8: host syncs of one steady-state render_frame(sync=False):"
+          f" {len(syncs)} {json.dumps(syncs)}")
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,

@@ -1,8 +1,10 @@
 """CompoundRay on PyTorch and CUDA: the port of compound_ray_tpu.
 
 The compound-eye frame (EyeRenderer.render_frame: unlit with or without the
-far-field radiance cache, or lit with GGX light and shadow rays) runs on
-one torch device.  Its three tracers are CUDA kernels written for Hopper
+far-field radiance cache, or lit with GGX light and shadow rays; raw
+samples; the eight compound projections into a display buffer) runs on one
+torch device, through EyeRenderer or its libEyeRenderer3-shaped ctypes shim
+(load_eye_renderer).  Its three tracers are CUDA kernels written for Hopper
 and built with nvcc at first use: K1 closest hit (csrc/packed_tracer.cu),
 K2 the cache's cluster-shortlist closest hit (csrc/cluster_tracer.cu) and
 K3 the shadow rays' any-hit occlusion (csrc/rows_occlusion.cu).  On CPU
@@ -14,7 +16,8 @@ The package imports torch and numpy, never JAX or the JAX package.
 
 __version__ = "0.1.0"
 
-from compound_ray_tpu_torch.api.renderer import EyeRenderer  # noqa: F401
+from compound_ray_tpu_torch.api.renderer import EyeRenderer
+from compound_ray_tpu_torch.api.shim import load_eye_renderer
 from compound_ray_tpu_torch.trace.cluster_tracer import (
     cluster_tracer_reference,
     run_tracer_kernel,
@@ -26,6 +29,6 @@ from compound_ray_tpu_torch.trace.mm_tracer import (
     run_rows_occlusion,
 )
 
-__all__ = ["cluster_tracer_reference", "packed_tracer_reference",
-           "rows_occlusion_reference", "run_packed_tracer",
-           "run_rows_occlusion", "run_tracer_kernel"]
+__all__ = ["EyeRenderer", "cluster_tracer_reference", "load_eye_renderer",
+           "packed_tracer_reference", "rows_occlusion_reference",
+           "run_packed_tracer", "run_rows_occlusion", "run_tracer_kernel"]

@@ -1,31 +1,41 @@
-"""EyeRenderer on PyTorch: the compound-eye subset of
-compound_ray_tpu/api/renderer.py, unlit and lit.
+"""EyeRenderer on PyTorch: the compound-eye API of
+compound_ray_tpu/api/renderer.py.
 
-Scene loading, camera navigation, the per-eye sample count, render_frame
-and get_camera_data behave as in the JAX package (the reference C ABI,
-libEyeRenderer3/libEyeRenderer.h:30-120).  The device is a keyword that
-defaults to the card: EyeRenderer(device=...) renders there and nowhere
-else.  Each frame draws its angles from a torch.Generator on that device,
-seeded from (config.base_seed, the eye's frame counter) as the JAX package
-keys its frames (fold_in(PRNGKey(base_seed), rng_frame)).
+Method for method the reference C ABI (libEyeRenderer3/libEyeRenderer.h:
+30-120) in snake_case; the camelCase ctypes shim is
+compound_ray_tpu_torch.api.shim.  The device is a keyword that defaults to
+the card: EyeRenderer(device=...) renders there and nowhere else.  Each
+frame draws its angles from a torch.Generator on that device, seeded from
+(config.base_seed, the eye's frame counter) as the JAX package keys its
+frames (fold_in(PRNGKey(base_seed), rng_frame)).
+
+Per frame of a compound eye (renderFrame -> launchFrame,
+libEyeRenderer.cpp:174-244): the per-ommatidium means, or the raw samples
+and their mean under raw_ommatidial_samples; then, when the non-compound
+pipeline is required and the render size is not 0, the eye's projection
+into the (H, W, 4) uint8 display buffer on the device, copied to the host
+on first read (get_frame_pointer, save_frame_as).
 
 set_lighting(True) turns on GGX direct light with shadow rays from the
 point lights of set_lights (by default the reference's four, placed around
 the scene's bounds when a scene is set); each lit frame is audited for
 hits outside their memoised shadow shafts, and a leak at or above
 config.shadow_leak_tolerance replans the leaking groups with guaranteed
-bounds.
+bounds.  An unsynced frame (render_frame(sync=False)) keeps its audit on
+the device until the next sync().
 
-What this slice of the port refuses, loudly: the raw-sample projection, a
-non-zero render size (display projections), non-compound cameras and
-.blend scenes (ROADMAP.md, queue 1).
+What this slice of the port refuses, loudly: a real (non-compound) camera
+at a non-zero render size, raw samples with lighting on and .blend scenes;
+render_batch_poses and the one-dispatch burst of render_frames_pipelined
+are not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,10 +46,14 @@ from compound_ray_tpu_torch.eye.pipeline import (
     canonical_device,
     mark_shadow_unsound,
     render_means,
+    render_samples,
 )
+from compound_ray_tpu_torch.projection.project import project_frame
 from compound_ray_tpu_torch.scene.flat import FlatScene, load_scene
 from compound_ray_tpu_torch.trace.lighting import default_lights
 from compound_ray_tpu_torch.trace.shade import miss_id
+
+_SHADER_PREFIX = "__raygen__compound_projection_"
 
 
 def frame_seed(base_seed: int, frame: int) -> int:
@@ -61,15 +75,23 @@ class EyeRenderer:
         self.lighting = False  # params.lighting (libEyeRenderer.cpp:127)
         self._lights: Optional[np.ndarray] = None
         self._shadow_audit_warned = set()
-        # the last lit frame's shadow audit [leaked, hits, per-group leaks]
+        # the last checked lit frame's shadow audit [leaked, hits, per-group]
         self.last_shadow_audit: Optional[np.ndarray] = None
+        # an unsynced lit frame's audit, checked at the next sync()
+        self._pending_shadow_audit: Optional[torch.Tensor] = None
         self.scene = None
         self.width = 0
         self.height = 0
+        self.require_noncompound_pipeline = True
         self._current_camera = 0
         self._device_means: Optional[torch.Tensor] = None
+        self._raw_samples: Optional[torch.Tensor] = None
         self._camera_data: Optional[np.ndarray] = None
+        self._device_frame: Optional[torch.Tensor] = None  # (H, W, 4) uint8
+        self._frame_buffer: Optional[np.ndarray] = None  # its host copy
         self.frame_times_ms: List[float] = []
+        self._profiler = None
+        self._profile_dir: Optional[str] = None
 
     @property
     def scene(self) -> Optional[FlatScene]:
@@ -83,6 +105,10 @@ class EyeRenderer:
         if scene is not None:
             self._lights = default_lights(scene.aabb_min, scene.aabb_max)
 
+    # ------------------------------------------------------------ config
+    def set_verbosity(self, v: bool) -> None:
+        self.verbose = bool(v)
+
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(f"[PyEye] {msg}")
@@ -90,21 +116,33 @@ class EyeRenderer:
     def load_gltf_scene(self, filepath: str, root_transform=None) -> None:
         if filepath.endswith(".blend"):
             raise NotImplementedError(
-                ".blend scenes are not ported yet (ROADMAP.md queue 1, API "
-                "surface); export the scene to glTF")
+                ".blend scenes are not ported yet (ROADMAP.md queue 1); "
+                "export the scene to glTF")
         self.scene = load_scene(filepath, root_transform)
         self._current_camera = 0
         self._log(f"Loaded scene '{filepath}' "
                   f"({self.scene.num_triangles} triangles, "
                   f"{len(self.scene.cameras)} cameras).")
 
+    def stop(self) -> None:
+        """Drop the scene and every buffer, on the host and the device
+        (compound_ray_tpu/api/renderer.py:138)."""
+        self._log("Cleaning eye renderer resources.")
+        self.scene = None
+        self._frame_buffer = None
+        self._device_frame = None
+        self._camera_data = None
+        self._raw_samples = None
+        self._device_means = None
+        self._pending_shadow_audit = None
+
     def set_render_size(self, w: int, h: int) -> None:
-        if int(w) * int(h) != 0:
-            raise NotImplementedError(
-                "display projections are not ported yet (ROADMAP.md queue "
-                "1, API surface): keep the render size 0 x 0 and read "
-                "get_camera_data")
-        self.width, self.height = int(w), int(h)
+        self.width = int(w)
+        self.height = int(h)
+        self._frame_buffer = np.zeros((self.height, self.width, 4), np.uint8)
+
+    def set_require_noncompound_pipeline(self, require: bool) -> None:
+        self.require_noncompound_pipeline = bool(require)
 
     def set_lighting(self, enabled: bool) -> None:
         """Toggle GGX direct light with shadow rays (params.lighting;
@@ -128,72 +166,92 @@ class EyeRenderer:
             raise RuntimeError("no scene loaded (lights are created at load)")
         return np.array(self._lights)
 
-    # ------------------------------------------------------------ cameras
-    def get_camera_count(self) -> int:
-        return len(self.scene.cameras) if self.scene else 0
-
-    def current_camera(self) -> Camera:
-        if self.scene is None or not self.scene.cameras:
-            raise RuntimeError("no cameras (load a scene with cameras)")
-        return self.scene.cameras[self._current_camera]
-
-    def next_camera(self) -> None:
-        self._current_camera = (self._current_camera + 1) % max(
-            1, self.get_camera_count())
-
-    def goto_camera(self, index: int) -> None:
-        self._current_camera = int(index) % max(1, self.get_camera_count())
-
-    def is_compound_eye_active(self) -> bool:
-        return (self.scene is not None and bool(self.scene.cameras)
-                and isinstance(self.current_camera(), CompoundEyeCamera))
-
-    def set_current_eye_samples_per_ommatidium(self, s: int) -> None:
-        if self.is_compound_eye_active():
-            self.current_camera().set_samples_per_ommatidium(s)
-
     # ------------------------------------------------------------- render
-    def render_frame(self) -> float:
-        """Render one frame of the active compound eye; returns wall
-        milliseconds including the device sync (renderFrame,
-        libEyeRenderer.cpp:279-293)."""
+    def render_frame(self, sync: bool = True) -> float:
+        """Render one frame; returns wall milliseconds (renderFrame,
+        libEyeRenderer.cpp:279-293; compound_ray_tpu/api/renderer.py:191).
+
+        sync=False queues the frame on the device without waiting for it:
+        consecutive frames then run back to back and one sync() covers
+        them (render_frames_pipelined).  Outputs stay on the device either
+        way; get_camera_data and get_frame_pointer copy them on first read."""
         if self.scene is None:
             raise RuntimeError("renderFrame: no scene loaded")
+        if not self.scene.cameras:
+            raise RuntimeError("renderFrame: the scene has no cameras")
+        t0 = time.perf_counter()
         cam = self.current_camera()
-        if not isinstance(cam, CompoundEyeCamera):
+        display = self.require_noncompound_pipeline and (
+            self.width * self.height > 0)
+        if isinstance(cam, CompoundEyeCamera):
+            self._render_compound(cam, display)
+        elif display:
             raise NotImplementedError(
                 f"camera {cam.name!r} is not a compound eye: real cameras "
-                "are not ported yet (ROADMAP.md queue 1, API surface)")
-        if cam.projection == "raw_ommatidial_samples":
-            raise NotImplementedError(
-                "raw_ommatidial_samples is not ported yet (ROADMAP.md queue "
-                "1, API surface)")
-        t0 = time.perf_counter()
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(frame_seed(get_config().base_seed,
-                                         cam.rng_frame))
-        lit = self.lighting and self._lights is not None
-        out = render_means(
-            self.scene, self.scene.device_triangles(self.device),
-            cam.ommatidia, np.asarray(cam.position, np.float32),
-            np.asarray(cam.local_space, np.float32), generator,
-            cam.samples_per_ommatidium, miss_id(self.scene.background_shader),
-            lights=self._lights if lit else None, shadow_audit=lit)
-        audit = None
-        if lit:
-            out, audit = out
-        self._device_means = out
-        self._camera_data = None
-        cam.rng_frame += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        if audit is not None:
-            self.last_shadow_audit = audit.cpu().numpy()
-            self._check_shadow_audit(self.last_shadow_audit)
+                "are not ported yet (ROADMAP.md queue 1)")
+        if sync:
+            self.sync()
         ms = (time.perf_counter() - t0) * 1000.0
         self._note_frame_time(ms)
         self._log(f"Rendered frame in {ms}ms.")
         return ms
+
+    def _render_compound(self, cam: CompoundEyeCamera, display: bool) -> None:
+        """Queue one compound-eye frame: means or raw samples, then the
+        projection into the display buffer when `display`
+        (compound_ray_tpu/api/renderer.py:238-279)."""
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(frame_seed(get_config().base_seed,
+                                         cam.rng_frame))
+        args = (self.scene, self.scene.device_triangles(self.device),
+                cam.ommatidia, np.asarray(cam.position, np.float32),
+                np.asarray(cam.local_space, np.float32), generator,
+                cam.samples_per_ommatidium,
+                miss_id(self.scene.background_shader))
+        lit = self.lighting and self._lights is not None
+        if cam.projection == "raw_ommatidial_samples":
+            if lit:
+                raise NotImplementedError(
+                    "raw_ommatidial_samples with lighting on is not ported "
+                    "yet (the brute-force oracle, ROADMAP.md queue 1)")
+            self._raw_samples = render_samples(*args)
+            self._device_means = self._raw_samples.mean(dim=0)
+        else:
+            self._raw_samples = None
+            out = render_means(*args, lights=self._lights if lit else None,
+                               shadow_audit=lit)
+            if lit:
+                out, self._pending_shadow_audit = out
+            self._device_means = out
+        self._camera_data = None
+        cam.rng_frame += 1
+        if display:
+            _, omm_pos, omm_dir = cam.device_ommatidia(self.device)
+            self._device_frame = project_frame(
+                cam.projection, self._device_means, self._raw_samples,
+                omm_pos, omm_dir, self.width, self.height)
+            self._frame_buffer = None
+
+    def sync(self) -> None:
+        """Wait for every queued frame, then act on the last unsynced lit
+        frame's shadow audit (compound_ray_tpu/api/renderer.py:333-362)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        audit, self._pending_shadow_audit = self._pending_shadow_audit, None
+        if audit is not None:
+            self.last_shadow_audit = audit.cpu().numpy()
+            self._check_shadow_audit(self.last_shadow_audit)
+
+    def render_frames_pipelined(self, n: int) -> float:
+        """Render n frames with no sync between them and one at the end;
+        returns the total wall milliseconds
+        (compound_ray_tpu/api/renderer.py:452, its per-frame branch).  The
+        frames draw the same angles as n render_frame() calls."""
+        t0 = time.perf_counter()
+        for _ in range(n):
+            self.render_frame(sync=False)
+        self.sync()
+        return (time.perf_counter() - t0) * 1000.0
 
     def _note_frame_time(self, ms: float) -> None:
         """Append a frame's wall time to frame_times_ms; past 10,000 entries
@@ -238,6 +296,191 @@ class EyeRenderer:
                   f"shaft; their shadow rays saw only shaft-local occluders "
                   f"(partial light leak). {tail}")
 
+    # ------------------------------------------------------ observability
+    def start_profile(self, log_dir: str) -> None:
+        """Begin a torch.profiler trace of the host and, on the card, the
+        device; stop_profile writes it as a Chrome trace into log_dir."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+        self._profile_dir = log_dir
+
+    def stop_profile(self) -> str:
+        """End the trace; returns the path of the Chrome trace written."""
+        if self._profiler is None:
+            raise RuntimeError("no profile running (call start_profile)")
+        self._profiler.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        path = os.path.join(self._profile_dir, "trace.json")
+        self._profiler.export_chrome_trace(path)
+        self._log(f"Profile written to {path}")
+        self._profiler = self._profile_dir = None
+        return path
+
+    def frame_time_stats(self) -> dict:
+        """Summary of renderFrame wall times (ms) since startup."""
+        if not self.frame_times_ms:
+            return {"count": 0}
+        a = np.asarray(self.frame_times_ms)
+        return {
+            "count": int(a.size),
+            "mean_ms": float(a.mean()),
+            "median_ms": float(np.median(a)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "min_ms": float(a.min()),
+            "max_ms": float(a.max()),
+        }
+
+    # ------------------------------------------------------- frame buffer
+    def save_frame_as(self, path: str) -> None:
+        """Write the display buffer as binary PPM; buffer row 0 is the bottom
+        scanline, so rows are flipped like sutil::displayBufferFile."""
+        frame = self.get_frame_pointer()
+        h, w = frame.shape[:2]
+        with open(path, "wb") as f:
+            f.write(f"P6\n{w} {h}\n255\n".encode())
+            f.write(np.ascontiguousarray(frame[::-1, :, :3]).tobytes())
+        self._log(f"Saved render as '{path}'")
+
+    def get_frame_pointer(self) -> np.ndarray:
+        """The (H, W, 4) uint8 display buffer on the host, copied from the
+        device on first read after a frame."""
+        self._log("Retrieving frame pointer...")
+        if self._frame_buffer is None:
+            if self._device_frame is not None:
+                self._frame_buffer = self._device_frame.cpu().numpy()
+            else:
+                self._frame_buffer = np.zeros((self.height, self.width, 4),
+                                              np.uint8)
+        return self._frame_buffer
+
+    # ------------------------------------------------------------ cameras
+    def get_camera_count(self) -> int:
+        return len(self.scene.cameras) if self.scene else 0
+
+    def current_camera(self) -> Camera:
+        if self.scene is None or not self.scene.cameras:
+            raise RuntimeError("no cameras (load a scene with cameras)")
+        return self.scene.cameras[self._current_camera]
+
+    def next_camera(self) -> None:
+        self._current_camera = (self._current_camera + 1) % max(
+            1, self.get_camera_count())
+
+    def previous_camera(self) -> None:
+        self._current_camera = (self._current_camera - 1) % max(
+            1, self.get_camera_count())
+
+    def get_current_camera_index(self) -> int:
+        return self._current_camera
+
+    def get_current_camera_name(self) -> str:
+        return self.current_camera().name
+
+    def goto_camera(self, index: int) -> None:
+        self._current_camera = int(index) % max(1, self.get_camera_count())
+
+    def goto_camera_by_name(self, name: str) -> bool:
+        """Resets to camera 0 then cycles (libEyeRenderer.cpp:358-368)."""
+        self.goto_camera(0)
+        for _ in range(self.get_camera_count()):
+            if self.get_current_camera_name() == name:
+                return True
+            self.next_camera()
+        return False
+
+    def set_camera_position(self, x, y, z) -> None:
+        self.current_camera().set_position((x, y, z))
+
+    def get_camera_position(self) -> Tuple[float, float, float]:
+        return tuple(float(v) for v in self.current_camera().position)
+
+    def set_camera_local_space(self, lxx, lxy, lxz, lyx, lyy, lyz, lzx, lzy,
+                               lzz) -> None:
+        self.current_camera().set_local_space(
+            (lxx, lxy, lxz), (lyx, lyy, lyz), (lzx, lzy, lzz))
+
+    def rotate_camera_around(self, angle, x, y, z) -> None:
+        self.current_camera().rotate_around(angle, (x, y, z))
+
+    def rotate_camera_locally_around(self, angle, x, y, z) -> None:
+        self.current_camera().rotate_locally_around(angle, (x, y, z))
+
+    def translate_camera(self, x, y, z) -> None:
+        self.current_camera().move((x, y, z))
+
+    def translate_camera_locally(self, x, y, z) -> None:
+        self.current_camera().move_locally((x, y, z))
+
+    def translate_cameras_locally(self, x, y, z) -> None:
+        for _ in range(self.get_camera_count()):
+            self.current_camera().move_locally((x, y, z))
+            self.next_camera()
+
+    def rotate_cameras_around(self, angle, x, y, z) -> None:
+        for _ in range(self.get_camera_count()):
+            self.current_camera().rotate_around(angle, (x, y, z))
+            self.next_camera()
+
+    def rotate_cameras_locally_around(self, angle, x, y, z) -> None:
+        for _ in range(self.get_camera_count()):
+            self.current_camera().rotate_locally_around(angle, (x, y, z))
+            self.next_camera()
+
+    def reset_camera_pose(self) -> None:
+        self.current_camera().reset_pose()
+
+    def set_camera_pose(self, px, py, pz, rx, ry, rz) -> None:
+        self.current_camera().set_pose(px, py, pz, rx, ry, rz)
+
+    def set_camera_pose_matrix(self, m) -> None:
+        self.current_camera().set_pose_matrix(np.asarray(m, np.float64))
+
+    # --------------------------------------------------- compound controls
+    def is_compound_eye_active(self) -> bool:
+        return (self.scene is not None and bool(self.scene.cameras)
+                and isinstance(self.current_camera(), CompoundEyeCamera))
+
+    def get_eye_data_path(self) -> str:
+        if self.is_compound_eye_active():
+            return self.scene.eye_data_path
+        return ""
+
+    def get_current_eye_data_path(self) -> str:
+        if self.is_compound_eye_active():
+            return self.current_camera().eye_data_path
+        return ""
+
+    def set_current_eye_samples_per_ommatidium(self, s: int) -> None:
+        if self.is_compound_eye_active():
+            self.current_camera().set_samples_per_ommatidium(s)
+
+    def get_current_eye_samples_per_ommatidium(self) -> int:
+        if self.is_compound_eye_active():
+            return self.current_camera().samples_per_ommatidium
+        return -1
+
+    def change_current_eye_samples_per_ommatidium_by(self, s: int) -> None:
+        if self.is_compound_eye_active():
+            self.current_camera().change_samples_per_ommatidium_by(s)
+
+    def get_current_eye_ommatidial_count(self) -> int:
+        if self.is_compound_eye_active():
+            return self.current_camera().ommatidial_count
+        return 0
+
+    def set_ommatidia(self, omms) -> None:
+        if self.is_compound_eye_active():
+            self.current_camera().set_ommatidia(omms)
+
+    def set_current_eye_shader_name(self, name: str) -> None:
+        if self.is_compound_eye_active():
+            if name.startswith(_SHADER_PREFIX):
+                name = name[len(_SHADER_PREFIX):]
+            self.current_camera().set_projection(name)
+
     def get_camera_data(self) -> np.ndarray:
         """Per-ommatidium mean radiance (N, 3) float32, NaN rows zeroed
         (libEyeRenderer.cpp:457-484)."""
@@ -251,3 +494,51 @@ class EyeRenderer:
             data[np.isnan(data[:, 0])] = 0.0
             self._camera_data = data
         return self._camera_data
+
+    # ------------------------------------------------------- scene queries
+    def is_inside_hit_geometry(self, x, y, z, name: str) -> bool:
+        for hb in self._loaded_scene().hitboxes:
+            if hb.name == name:
+                return hb.contains((x, y, z))
+        self._log(f'WARNING: No hitbox with the given name "{name}" is '
+                  f'present.')
+        return False
+
+    def _loaded_scene(self) -> FlatScene:
+        if self.scene is None:
+            raise RuntimeError("no scene loaded (call loadGlTFscene first)")
+        return self.scene
+
+    @staticmethod
+    def _hitbox_world_aabb(hb) -> Tuple[np.ndarray, np.ndarray]:
+        omin, omax = hb.object_aabb_min, hb.object_aabb_max
+        corners = np.array(
+            [[x, y, z] for x in (omin[0], omax[0])
+             for y in (omin[1], omax[1]) for z in (omin[2], omax[2])])
+        wc = corners @ hb.transform[:3, :3].T + hb.transform[:3, 3]
+        return wc.min(axis=0), wc.max(axis=0)
+
+    def _geometry_bounds(self, name: str, side: int) -> np.ndarray:
+        """World AABB corner of the named hitbox, else of every mesh record
+        of that name: a multi-primitive glTF mesh stores one record per
+        primitive, and the reference reports the whole mesh's AABB
+        (MulticamScene.cpp:449-461).  side 0 is the minimum, 1 the
+        maximum; zeros when nothing has the name."""
+        scene = self._loaded_scene()
+        for hb in scene.hitboxes:
+            if hb.name == name:
+                return self._hitbox_world_aabb(hb)[side]
+        recs = [rec for rec in scene.mesh_records if rec.name == name]
+        if not recs:
+            return np.zeros(3)
+        if side:
+            return np.max(np.asarray([r.world_aabb_max for r in recs],
+                                     np.float64), axis=0)
+        return np.min(np.asarray([r.world_aabb_min for r in recs],
+                                 np.float64), axis=0)
+
+    def get_geometry_max_bounds(self, name: str) -> np.ndarray:
+        return self._geometry_bounds(name, 1)
+
+    def get_geometry_min_bounds(self, name: str) -> np.ndarray:
+        return self._geometry_bounds(name, 0)

@@ -928,11 +928,13 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         cache_shape: Tuple[int, int] = (0, 0),
                         sky_means=None, sky_scatter=None, lights=None,
                         slot_tri=None, shading_rows=None, shadow=None,
-                        shadow_audit: bool = False, shadow_tracer=None):
+                        shadow_audit: bool = False, shadow_tracer=None,
+                        want_samples: bool = False):
     """Angle-parameterised frame core: trace + shade + reduce
-    (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1545, means
-    only).  Returns (Np, 3) means in permuted order, or (means, audit)
-    for a lit frame with shadow_audit.  `tracer` defaults to
+    (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1545).  Returns
+    (Np, 3) means in permuted order, or (means, audit) for a lit frame with
+    shadow_audit; with want_samples, the (Np, S, 3) samples before the mean
+    (:1516-1517).  `tracer` defaults to
     run_packed_tracer (K1) and `shadow_tracer` to run_rows_occlusion (K3);
     the chip check passes the twins to render through them.
 
@@ -1018,6 +1020,8 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
         rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
         gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
         bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
+    if want_samples:
+        return torch.stack([rr, gg, bb], dim=-1)
     means = torch.stack([rr.mean(dim=1), gg.mean(dim=1), bb.mean(dim=1)],
                         dim=-1)
     if lights is not None and shadow_audit:
@@ -1812,3 +1816,39 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
         means_p, audit = out
         return means_p[inv_valid], audit
     return out[inv_valid]
+
+
+def render_samples(scene_flat, scene_dev: Dict[str, Any],
+                   omms_np: np.ndarray, position, local_space,
+                   generator: torch.Generator, samples: int,
+                   background: int, tracer=None) -> torch.Tensor:
+    """One unlit frame's raw samples: (S, N, 3) radiance, sample s of
+    ommatidium o at [s, o] in the original ommatidium order, the
+    reference's compound sample buffer layout
+    (compound_ray_tpu/eye/pipeline.py:2890, render_samples_pallas).  The
+    dense pack traced by K1, with neither the far-field cache nor the sky
+    split; the angles are the ones render_means draws from the same
+    generator with the far field off.  `tracer` replaces K1, as in
+    render_means."""
+    device = generator.device
+    splan = scene_plan(scene_flat, device)
+    eplan = eye_plan(omms_np, samples)
+    omms_p, inv_valid = eplan.device_arrays(omms_np, device)
+    pos_np = np.asarray(position, np.float32)
+    ls_np = np.asarray(local_space, np.float32)
+    pose_sig = (pos_np.tobytes(), ls_np.tobytes())
+    pos = torch.as_tensor(pos_np, device=device)
+    ls = torch.as_tensor(ls_np, device=device)
+    kcand, rmax = _plan_widths(splan, eplan, omms_p, pos, ls,
+                               (eplan.sig, samples, pose_sig, False, 0.0))
+    row_counts, packed_mm = _packed_plan(splan, eplan, omms_p, pos, ls,
+                                         pose_sig, samples, kcand, rmax)
+    splay, spin = sample_angles_ns(generator, omms_p[:, 6] / FWHM_SD_RATIO,
+                                   samples)
+    raw_p = _trace_shade_angles(
+        packed_mm, row_counts, splan.attr_table, scene_dev,
+        splan.quad_table, omms_p, pos, ls, splay, spin, samples=samples,
+        background=background, ng=eplan.ng, g=eplan.g, nrb=eplan.nrb,
+        rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
+        tex_only=splan.tex_only, tracer=tracer, want_samples=True)
+    return raw_p[inv_valid].transpose(0, 1)

@@ -56,6 +56,14 @@ def ommatidia_to_array(omms: Sequence[Ommatidium]) -> np.ndarray:
     return out
 
 
+def array_to_ommatidia(arr: np.ndarray) -> List[Ommatidium]:
+    """Unpack an (N, 8) array into Ommatidium records (float64)."""
+    return [
+        Ommatidium(np.array(r[0:3]), np.array(r[3:6]), float(r[6]), float(r[7]))
+        for r in np.asarray(arr, dtype=np.float64)
+    ]
+
+
 def read_eye_file(path: str) -> List[Ommatidium]:
     """Parse a .eye CSV file into Ommatidium records.
 
@@ -106,6 +114,19 @@ def read_eye_file(path: str) -> List[Ommatidium]:
     return out
 
 
+def write_eye_file(path: str, omms: Sequence[Ommatidium]) -> None:
+    """Write .eye format (same 10-dp formatting as eyeRendererHelperFunctions.py:139-151)."""
+    with open(path, "w") as f:
+        for o in omms:
+            f.write(
+                "{:0.10f} {:0.10f} {:0.10f} {:0.10f} {:0.10f} {:0.10f} {:0.10f} {:0.10f}\n".format(
+                    o.position[0], o.position[1], o.position[2],
+                    o.direction[0], o.direction[1], o.direction[2],
+                    o.acceptance_angle, o.focal_point_offset,
+                )
+            )
+
+
 def resolve_eye_path(eye_path: str, gltf_dir: str) -> Optional[str]:
     """Path resolution order from MulticamScene.cpp:320-351: absolute/cwd-relative
     first, then relative to the glTF file's directory."""
@@ -116,3 +137,29 @@ def resolve_eye_path(eye_path: str, gltf_dir: str) -> Optional[str]:
         return rel
     return None
 
+
+def icosphere_eye(acceptance_angle: Optional[float] = None) -> List[Ommatidium]:
+    """12-ommatidium icosahedral eye: the same point set the reference helper
+    produces (eyeRendererHelperFunctions.py:171-194) — poles plus two
+    5-point rings at latitude ±atan(1/2), the lower ring offset by 36°.
+
+    Default acceptance angle covers 1 steradian per ommatidium
+    (cos(a/2) = 1 - 1/(2π)).
+    """
+    if acceptance_angle is None:
+        acceptance_angle = 2.0 * math.acos(1.0 - 1.0 / (2.0 * math.pi))
+    ring_lat = math.atan(0.5)
+    lon = np.arange(5) * (2.0 * math.pi / 5.0)
+    lat = np.concatenate(
+        [[math.pi / 2.0], np.full(5, ring_lat), np.full(5, -ring_lat),
+         [-math.pi / 2.0]]
+    )
+    lons = np.concatenate([[0.0], lon, lon + math.pi / 5.0, [0.0]])
+    dirs = np.stack(
+        [np.cos(lons) * np.cos(lat), np.sin(lat), np.sin(lons) * np.cos(lat)],
+        axis=1,
+    )
+    # poles exactly axial (cos(±π/2) is not exactly 0 in floating point)
+    dirs[0] = (0.0, 1.0, 0.0)
+    dirs[-1] = (0.0, -1.0, 0.0)
+    return [Ommatidium(np.zeros(3), d, acceptance_angle, 0.0) for d in dirs]

@@ -636,3 +636,25 @@ def dot_bench_scale(ft, mm, prec: str, n_steps: int) -> torch.Tensor:
         steps_r = (n_steps - r + NROWS - 1) // NROWS
         scale += steps_r * (a @ mm[r, :, :OUT_COLS].abs().double())
     return scale
+
+
+def voronoi_agreement(got, want, refs, width: int, height: int):
+    """Two (H, W) Voronoi index maps of the same refs (N, 3): (the share of
+    pixels where they agree, the largest gap in f64 between the two
+    winners' angles where they differ).  A pixel that differs is a near-tie
+    when its gap is tiny."""
+    from compound_ray_tpu_torch.projection.project import _pixel_sphere_dirs
+
+    got, want = np.asarray(got), np.asarray(want)
+    diff = got != want
+    gap = 0.0
+    if diff.any():
+        d = _pixel_sphere_dirs(width, height, "cpu").numpy()[diff]
+        d = d.astype(np.float64)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        r = np.asarray(refs, np.float64)
+        r = r / np.linalg.norm(r, axis=1, keepdims=True)
+        a, b = (np.arccos(np.clip((d * r[m[diff]]).sum(axis=1), -1.0, 1.0))
+                for m in (got, want))
+        gap = float(np.abs(a - b).max())
+    return 1.0 - float(diff.mean()), gap

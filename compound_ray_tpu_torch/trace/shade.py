@@ -68,6 +68,17 @@ def miss_color_c(dx, dy, dz, which: int):
             torch.zeros_like(u))
 
 
+def make_color(rgb: torch.Tensor) -> torch.Tensor:
+    """Linear RGB (..., 3) -> uchar4 RGBA (..., 4) with clamp and gamma
+    1/2.2 (shaders.cu:180-189; compound_ray_tpu/trace/shade.py:465).  The
+    reference C-casts (truncates) the scaled value, as here."""
+    g = torch.pow(torch.clamp(rgb, 0.0, 1.0), 1.0 / 2.2) * 255.0
+    rgbu = torch.floor(g).to(torch.uint8)
+    alpha = torch.full(rgbu.shape[:-1] + (1,), 255, dtype=torch.uint8,
+                       device=rgbu.device)
+    return torch.cat([rgbu, alpha], dim=-1)
+
+
 def _addr_dynamic(coord, n, mode):
     """Wrap/clamp/mirror texel addressing with per-ray sizes and modes
     (continuous texel space in, clamped int32 texel index out;

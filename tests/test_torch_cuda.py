@@ -320,6 +320,62 @@ def test_cache_frame_on_card_matches_cpu(cuda_device, sky):
 
 
 @pytest.mark.cuda
+def test_raw_samples_match_twin(cuda_device):
+    """Raw samples (pipeline.render_samples: the dense pack, no far field)
+    through K1 and through its twin on the card, same generator seed; K1
+    launches once per frame."""
+    scene = testing.make_big_scene(n_boxes=60, seed=5)
+    omms = ommatidia_to_array(testing.make_sphere_eye(32, 4.0))
+
+    def frame(tracer):
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        return P.render_samples(
+            scene, scene.device_triangles(cuda_device), omms,
+            np.asarray([0.0, 2.0, 0.0], np.float32),
+            np.eye(3, dtype=np.float32), gen, 96, 0, tracer=tracer)
+
+    before = TM.launches
+    got = frame(None)
+    torch.cuda.synchronize()
+    assert TM.launches == before + 1
+    ref = frame(TM.packed_tracer_reference)
+    assert got.shape == ref.shape == (96, 32, 3)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spherical_orientationwise",
+                                  "spherical_split_orientationwise"])
+def test_voronoi_projection_on_card_matches_cpu(cuda_device, name):
+    """A Voronoi projection of the same means at 160 x 80, 300 ommatidia, on
+    the card and on the CPU: index maps equal but at near-ties (the two
+    winners' angles within 1e-6 rad), colours within 1."""
+    from compound_ray_tpu_torch.projection import project as PR
+
+    w, h = 160, 80
+    omms = ommatidia_to_array(testing.make_sphere_eye(300))
+    means = np.random.default_rng(4).uniform(size=(300, 3)).astype(
+        np.float32)
+    frames, maps = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        pos, dirs = (torch.tensor(x, device=dev)
+                     for x in (omms[:, 0:3], omms[:, 3:6]))
+        frames.append(PR.project_frame(name, torch.tensor(means, device=dev),
+                                       None, pos, dirs, w, h).cpu().numpy())
+        maps.append(PR.voronoi_index_map(
+            dirs, w, h, split="split" in name,
+            positions_x=pos[:, 0]).cpu().numpy())
+    share, gap = testing.voronoi_agreement(maps[0], maps[1], omms[:, 3:6],
+                                           w, h)
+    assert share >= 0.999 and gap < 1e-6
+    same = maps[0] == maps[1]
+    assert np.abs(frames[0][same].astype(int)
+                  - frames[1][same].astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("feats", [16, 8])
 @pytest.mark.parametrize("size", ["small", "medium"])
 def test_k3_matches_twin(cuda_device, size, feats):

@@ -1,7 +1,8 @@
 """Port vs JAX: the unlit compound-eye frame, and the port's boundaries.
 
 1. _trace_shade_angles on the same pose pack (carried across with
-   compound_ray_tpu_torch.interop) and the same numpy splay/spin angles.
+   compound_ray_tpu_torch.interop) and the same numpy splay/spin angles:
+   the means, and with want_samples the samples before the mean.
 2. EyeRenderer end to end, each package with its own RNG: an acceptance
    angle of 1e-6 rad makes every sample of an ommatidium the same ray, so
    the two draws do not matter.
@@ -69,8 +70,9 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_trace_shade_angles_matches_jax(jax_unlit, case):
+def _shared_angle_frames(case, want_samples: bool):
+    """The JAX and the port's _trace_shade_angles on one pose pack (carried
+    across) and the same numpy angles: (port result, JAX result)."""
     name, kwargs, pos, n_omm, accept, samples = case
     js = getattr(jtesting, name)(**kwargs)
     ts = getattr(ttesting, name)(**kwargs)
@@ -96,7 +98,8 @@ def test_trace_shade_angles_matches_jax(jax_unlit, case):
     bg = miss_id(js.background_shader)
     geo = dict(samples=samples, background=bg, ng=eplan.ng, g=eplan.g,
                nrb=eplan.nrb, rb_size=eplan.rb_size, rmax=rmax,
-               textured=splan.textured, tex_only=splan.tex_only)
+               textured=splan.textured, tex_only=splan.tex_only,
+               want_samples=want_samples)
     want = np.asarray(JP._trace_shade_angles(
         pmm, rc, splan.attr_table, js.device_triangles(), splan.quad_table,
         jnp.asarray(omms_p), jpos, jls, jnp.asarray(splay),
@@ -115,7 +118,23 @@ def test_trace_shade_angles_matches_jax(jax_unlit, case):
         tpm, trc, tplan.attr_table, ts.device_triangles("cpu"),
         tplan.quad_table, torch.tensor(omms_p), torch.tensor(np.asarray(jpos)),
         torch.eye(3), torch.tensor(splay), torch.tensor(spin), **geo).numpy()
-    assert got.shape == (omms_p.shape[0], 3)
+    return got, want
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_trace_shade_angles_matches_jax(jax_unlit, case):
+    got, want = _shared_angle_frames(case, want_samples=False)
+    assert got.shape == (want.shape[0], 3)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_trace_shade_angles_samples_match_jax(jax_unlit, case):
+    """want_samples: the (Np, S, 3) samples before the mean, which the raw
+    projection reads (compound_ray_tpu/eye/pipeline.py:1516-1517)."""
+    got, want = _shared_angle_frames(case, want_samples=True)
+    assert got.shape == want.shape == (want.shape[0], case[5], 3)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=ATOL)
 
@@ -171,6 +190,8 @@ def test_eye_renderer_frames_advance_the_rng(jax_unlit):
 
 
 def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
+    """Still unported: .blend scenes, a real camera at a non-zero render
+    size and raw samples with lighting on (ROADMAP.md queue 1)."""
     tr = EyeRenderer(verbose=False, device="cpu")
     with pytest.raises(RuntimeError):
         tr.render_frame()
@@ -181,19 +202,23 @@ def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
     for bad in (np.zeros((4, 6)), np.zeros(7), np.zeros((0, 7))):
         with pytest.raises(ValueError, match="lights"):
             tr.set_lights(bad)
-    tr.set_lighting(False)
-    with pytest.raises(NotImplementedError):
-        tr.set_render_size(64, 32)
-    tr.set_render_size(0, 0)
     tr.scene = ttesting.make_box_scene()
     tr.scene.cameras.append(PerspectiveCamera("pinhole"))
-    with pytest.raises(NotImplementedError):
+    tr.render_frame()  # size 0 x 0: nothing to render, as in the JAX package
+    tr.set_render_size(16, 8)
+    tr.set_require_noncompound_pipeline(False)
+    tr.render_frame()  # the display pipeline is not required
+    tr.set_require_noncompound_pipeline(True)
+    with pytest.raises(NotImplementedError, match="real cameras"):
         tr.render_frame()
     tr.scene.cameras.append(CompoundEyeCamera(
         "raw", "raw_ommatidial_samples", ttesting.make_sphere_eye(4)))
     tr.next_camera()
     assert tr.is_compound_eye_active()
-    with pytest.raises(NotImplementedError):
+    tr.render_frame()  # raw samples, unlit
+    assert tr.get_frame_pointer().shape == (8, 16, 4)
+    tr.set_lighting(True)
+    with pytest.raises(NotImplementedError, match="lighting"):
         tr.render_frame()
 
 
@@ -241,6 +266,8 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch\n"
         "import compound_ray_tpu_torch.interop, compound_ray_tpu_torch.testing\n"
         "import compound_ray_tpu_torch.trace._build\n"
+        "import compound_ray_tpu_torch.api.shim, compound_ray_tpu_torch.eye_tools\n"
+        "import compound_ray_tpu_torch.projection\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
         "       or m.startswith('jax.') or m == 'compound_ray_tpu'\n"
         "       or m.startswith('compound_ray_tpu.')]\n"
