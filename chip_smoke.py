@@ -12,7 +12,8 @@ samples), and lit (3200 samples, the four default lights: K1 and the
 shadow rays on K3); then the kernel-measurement tools' path, the probes
 (K4, K5, and K1 for real_bary) and the skinny-K dot bench (K6), at the
 tools' full sizes; then the API surface through the ctypes shim at 640 x
-480 (raw samples, the eight projections, pipelined frames).  Phases, each
+480 (raw samples, the eight projections, pipelined frames); then the real
+cameras at 640 x 480 and the brute-force oracle.  Phases, each
 failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
@@ -45,7 +46,18 @@ failing loudly:
      the K1 twin and their mean against the means frame, the eight
      projections on the card against the CPU, render_frames_pipelined
      against synced frames, the frame buffer and PPM, and the host syncs
-     one unsynced frame issues.
+     one unsynced frame issues;
+  9. real cameras and the oracle: a perspective (60 degrees of y field of
+     view), a panoramic and an orthographic camera on the bench scene at
+     640 x 480 through the shim, counted as a path (the tile-culled image,
+     one K2 launch per frame), each against the brute-force oracle's image
+     on the card; K2 against its twin on the pinhole image's own inputs,
+     bit for bit, with its pair tests; each kind on the card against the
+     CPU at 64 x 48, and the lit pinhole through the oracle; the packed lit
+     frame (K1, K3) against the oracle on the canopy scene and the bench
+     eye; lit raw samples through the oracle at 100 samples against their
+     means frame; the oracle's time at its chosen ray chunk and at 512; and
+     the host syncs of one unsynced pinhole frame.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
 card and {"ok": true, "device": ...}.
@@ -108,6 +120,19 @@ RAW_MEAN_ATOL = 1e-5
 VORONOI_AGREE = 0.999
 NEAR_TIE_RAD = 1e-6
 COLOUR_ATOL = 1
+# phase 9: the real cameras' pose (tests/test_fast_image.py:46-49), the
+# timed frames per camera, the image-vs-oracle rule of
+# tests/test_fast_image.py:36-37 (share of pixels with a channel off by more
+# than 2), the card-vs-CPU size, the packed lit frame vs the oracle (canopy
+# scene: atol; bench eye: share of ommatidia over the atol), and the lit
+# raw samples' count and mean tolerance
+CAM_POS = (0.0, 3.0, 40.0)
+CAM_TIMED = 3
+IMAGE_OFF_SHARE = 0.01
+SMALL_W, SMALL_H = 64, 48
+LIT_ORACLE_ATOL = 2e-3
+LIT_ORACLE_SHARE = 0.01
+RAW_LIT_SAMPLES = 100
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE))
@@ -1187,6 +1212,392 @@ def api_surface(r, cam, tmp):
     return res
 
 
+def _real_cameras(scene) -> list:
+    """Phase 9: a perspective camera (60 degrees of y field of view at the
+    display's aspect), a panoramic one (start radius 0) and an orthographic
+    one (scale 30 x 20), all at CAM_POS looking along -z, appended to the
+    scene; returns [(camera index, kind, camera, parameter)]."""
+    from compound_ray_tpu_torch.cameras.types import (
+        OrthographicCamera,
+        PanoramicCamera,
+        PerspectiveCamera,
+    )
+
+    persp = PerspectiveCamera("phase9-pinhole")
+    persp.set_aspect_ratio(DISPLAY_W / DISPLAY_H)
+    persp.set_y_fov(60.0)
+    pano = PanoramicCamera("phase9-panoramic")
+    pano.set_start_radius(0.0)
+    ortho = OrthographicCamera("phase9-orthographic")
+    ortho.set_xy_scale(30.0, 20.0)
+    out = []
+    for cam, kind, param in ((persp, "pinhole", persp.scale),
+                             (pano, "panoramic", [pano.start_radius]),
+                             (ortho, "orthographic", ortho.scale)):
+        cam.set_position(CAM_POS)
+        cam.set_local_space((1, 0, 0), (0, 1, 0), (0, 0, -1))
+        scene.cameras.append(cam)
+        out.append((len(scene.cameras) - 1, kind, cam,
+                    np.asarray(param, np.float32)))
+    return out
+
+
+def camera_frames(r, cams) -> dict:
+    """Phase 9's path: each real camera through the shim's camelCase calls
+    (gotoCamera, setRenderSize, renderFrame, getFramePointer) on the bench
+    scene at DISPLAY_W x DISPLAY_H, one frame to warm and CAM_TIMED timed
+    (CUDA events around renderFrame, which ends in a sync); then the host
+    syncs of one unsynced pinhole frame."""
+    from compound_ray_tpu_torch import eye_tools as eyeTools
+    from compound_ray_tpu_torch import load_eye_renderer
+
+    shim = load_eye_renderer(verbose=False)
+    R = shim.renderer
+    R.scene = r.scene  # the bench scene and its memoised plans
+    eyeTools.configureFunctions(shim)
+    eyeTools.setRenderSize(shim, DISPLAY_W, DISPLAY_H)
+    out = {}
+    for idx, kind, _, _ in cams:
+        shim.gotoCamera(idx)
+        if shim.isCompoundEyeActive():
+            raise AssertionError(f"camera {idx} is a compound eye")
+        shim.renderFrame()
+        ms = [_events_ms(shim.renderFrame)[1] for _ in range(CAM_TIMED)]
+        out[kind] = dict(ms=ms, frame=shim.getFramePointer().copy())
+    shim.gotoCamera(cams[0][0])
+    out["host_syncs"] = _host_syncs(lambda: R.render_frame(sync=False))
+    R.sync()
+    out["n_frames"] = len(cams) * (1 + CAM_TIMED) + 1
+    shim.stop()
+    return out
+
+
+def _off_share(got, want) -> float:
+    """Share of pixels with any colour channel off by more than 2."""
+    diff = np.abs(got[..., :3].astype(int) - want[..., :3].astype(int))
+    return float((diff.max(axis=-1) > 2).mean())
+
+
+def _card_vs_cpu(card, cpu, ties) -> dict:
+    """Two uint8 images: the largest channel difference, and the pixels
+    off by more than 1 that are not near-ties."""
+    diff = np.abs(card.astype(int) - cpu.astype(int)).max(axis=-1)
+    return dict(max_channel_diff=int(diff.max()),
+                pixels_over_1=int((diff > 1).sum()),
+                near_ties=int(ties.sum()),
+                pixels_over_1_not_near_tie=int(((diff > 1) & ~ties).sum()))
+
+
+def k2_at_image_shapes(scene, device, param) -> dict:
+    """Phase 9: K2 and its twin on the pinhole image's own inputs at
+    DISPLAY_W x DISPLAY_H (tiles of 256 rays, KP = kmax = 256, early exit
+    on): every row bit-equal.  The pair tests from below, as the batches
+    walk them and with no early exit, counted as phase 4 counts them; the
+    bound at 18 FMA per pair test."""
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF
+    from compound_ray_tpu_torch.trace.cluster_tracer import (
+        BATCH_RAYS,
+        _cluster_tracer_twin,
+        cluster_tracer_reference,
+        run_tracer_kernel,
+    )
+
+    c = testing.camera_trace_inputs(scene, "pinhole", CAM_POS,
+                                    np.diag([1.0, 1.0, -1.0]), param,
+                                    DISPLAY_W, DISPLAY_H, device)
+    args = (c.counts, c.ids, c.dmin, c.payload, c.rays)
+    got = run_tracer_kernel(*args, early_exit=True, **c.kw)
+    ref, walked = _cluster_tracer_twin(*args, early_exit=True, **c.kw,
+                                       count_walked=True)
+    rows_differ = int((got != ref).any(dim=1).sum().item())
+    pair = BATCH_RAYS * KERNEL_LEAF
+    res = dict(shape=dict(tiles=c.kw["ng"], kp=int(c.ids.shape[1]),
+                          kmax=c.kw["kmax"], rays=int(c.rays.shape[0])),
+               live_tiles=int((c.counts > 0).sum().item()),
+               mean_shortlist=float(c.counts.float().mean().item()),
+               hit_share=float(torch.isfinite(ref[:, 0]).float().mean()
+                               .item()),
+               rows_differ=rows_differ,
+               max_abs_err=float(torch.nan_to_num(
+                   (got - ref).abs(), nan=0.0, posinf=0.0).max().item()),
+               launches_per_image=1,
+               pair_tests_from_below=_k2_pair_tests(c, ref),
+               pair_tests_walked=int(walked.sum().item()) * pair,
+               pair_tests_no_early_exit=int(
+                   c.counts.clamp(0, c.kw["kmax"]).sum().item())
+               * walked.shape[1] * pair)
+    nbytes = _nbytes(*args, got)
+    res.update(_bound(36.0 * res["pair_tests_from_below"], nbytes))
+    res["walked_bound_ms"] = _bound(36.0 * res["pair_tests_walked"],
+                                    nbytes)["bound_ms"]
+    res["no_early_exit_bound_ms"] = _bound(
+        36.0 * res["pair_tests_no_early_exit"], nbytes)["bound_ms"]
+    res["ms"] = time_ms(lambda: run_tracer_kernel(*args, early_exit=True,
+                                                  **c.kw),
+                        reps=20, warmup=3)
+    res["ms_no_early_exit"] = time_ms(
+        lambda: run_tracer_kernel(*args, early_exit=False, **c.kw), reps=5,
+        warmup=1)
+    res["plain_ms"] = time_ms(
+        lambda: cluster_tracer_reference(*args, early_exit=True, **c.kw),
+        reps=1, warmup=0)
+    if rows_differ:
+        raise AssertionError(f"K2 differs from its twin at the image "
+                             f"shapes: {res}")
+    return res
+
+
+def oracle_checks(r, cams, shots) -> dict:
+    """Phase 9: each tile-culled frame against the oracle's image of the
+    same camera on the card (under IMAGE_OFF_SHARE of pixels off by more
+    than 2), the lit pinhole through the oracle (at least the unlit oracle
+    image on every channel), the oracle's ray chunk, and each image's
+    CUDA-event time."""
+    from compound_ray_tpu_torch.cameras.raygen import (
+        camera_rays,
+        render_camera_image,
+    )
+    from compound_ray_tpu_torch.trace.intersect import (
+        intersect_rays,
+        oracle_ray_chunk,
+    )
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    dev = r.device
+    sd = r.scene.device_triangles(dev)
+    bg = miss_id(r.scene.background_shader)
+    out = {}
+    oracle = {}
+    for _, kind, cam, param in cams:
+        pos = np.asarray(cam.position, np.float32)
+        ls = np.asarray(cam.local_space, np.float32)
+        img, ms = _events_ms(lambda: render_camera_image(
+            sd, kind, pos, ls, param, DISPLAY_W, DISPLAY_H, bg))
+        oracle[kind] = img.cpu().numpy()
+        share = _off_share(shots[kind]["frame"], oracle[kind])
+        out[kind] = dict(fast_ms=shots[kind]["ms"], oracle_ms=ms,
+                         off_share=share)
+        if not share < IMAGE_OFF_SHARE or not shots[kind]["frame"][
+                ..., :3].any():
+            raise AssertionError(f"{kind}: tile-culled image vs oracle: "
+                                 f"{out[kind]}")
+    idx, kind, cam, param = cams[0]
+    pos = np.asarray(cam.position, np.float32)
+    ls = np.asarray(cam.local_space, np.float32)
+    lights = r.get_lights()
+    lit, ms = _events_ms(lambda: render_camera_image(
+        sd, kind, pos, ls, param, DISPLAY_W, DISPLAY_H, bg, True, lights))
+    lit = lit.cpu().numpy().astype(int)
+    brighter = lit >= oracle[kind].astype(int)
+    out["lit_pinhole"] = dict(oracle_ms=ms, lights=int(lights.shape[0]),
+                              brighter_share=float(
+                                  (lit > oracle[kind]).any(-1).mean()))
+    if not brighter.all():
+        raise AssertionError(f"lit pinhole under the unlit one: "
+                             f"{out['lit_pinhole']}")
+    # the oracle's sweep alone at the chunk its callers pass and at 512
+    o, d, tmin = camera_rays(kind, torch.as_tensor(pos, device=dev),
+                             torch.as_tensor(ls, device=dev),
+                             torch.as_tensor(param, device=dev), DISPLAY_W,
+                             DISPLAY_H)
+    chunk = oracle_ray_chunk(dev)
+    out["ray_chunk"] = chunk
+    sweeps, winners = {}, {}
+    for rc in (chunk, 512):
+        hit, sweeps[rc] = _events_ms(lambda n=rc: intersect_rays(
+            o.expand(d.shape), d, sd["v0"], sd["e1"], sd["e2"], tmin, 1e16,
+            ray_chunk=n))
+        winners[rc] = hit["tri_id"]
+    if not torch.equal(winners[chunk], winners[512]):
+        raise AssertionError("the oracle's winners depend on its ray chunk")
+    out["sweep_ms"] = {f"ray_chunk {chunk}": sweeps[chunk],
+                       "ray_chunk 512": sweeps[512]}
+    out["pair_tests_per_image"] = DISPLAY_W * DISPLAY_H \
+        * r.scene.num_triangles
+    return out
+
+
+def small_cameras_card_vs_cpu(r, cams) -> dict:
+    """Phase 9: each kind at SMALL_W x SMALL_H on the card and on the CPU,
+    tile-culled (K2 against its twin) and through the oracle, unlit; the
+    lit pinhole through the oracle.  Channels within 1 but at near-ties
+    (the two closest hits within 1e-6 relative in t).  The CPU renders a
+    scene object of its own, so the card's memoised plans stay."""
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.cameras.fast_image import (
+        render_camera_image_fast,
+    )
+    from compound_ray_tpu_torch.cameras.raygen import render_camera_image
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    cpu_scene = testing.make_big_scene(n_boxes=N_BOXES, seed=0)
+    bg = miss_id(r.scene.background_shader)
+    lights = r.get_lights()
+    out = {}
+    t0 = time.perf_counter()
+    for _, kind, cam, param in cams:
+        pos = np.asarray(cam.position, np.float32)
+        ls = np.asarray(cam.local_space, np.float32)
+        args = (kind, pos, ls, param, SMALL_W, SMALL_H, bg)
+        img = {}
+        for name, scene in (("card", r.scene), ("cpu", cpu_scene)):
+            sd = scene.device_triangles(r.device if name == "card"
+                                        else "cpu")
+            img[name, "fast"] = render_camera_image_fast(scene, sd, *args)
+            img[name, "oracle"] = render_camera_image(sd, *args)
+            if kind == "pinhole":
+                img[name, "lit"] = render_camera_image(sd, *args, True,
+                                                       lights)
+        ties = testing.camera_near_ties(r.scene, kind, pos, ls, param,
+                                        SMALL_W, SMALL_H, r.device)
+        for path in ("fast", "oracle", "lit"):
+            if ("card", path) not in img:
+                continue
+            res = _card_vs_cpu(img["card", path].cpu().numpy(),
+                               img["cpu", path].cpu().numpy(), ties)
+            out[f"{kind} {path}"] = res
+            if res["pixels_over_1_not_near_tie"]:
+                raise AssertionError(f"{kind} {path} at {SMALL_W} x "
+                                     f"{SMALL_H}: card vs CPU {res}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def packed_lit_vs_oracle(r, cam) -> dict:
+    """Phase 9: the packed lit frame (render_means: K1, the shadow plan, K3)
+    against the oracle (render_compound_means: shadow rays over the whole
+    soup) with acceptance angles of 1e-6 rad, so that every sample of an
+    ommatidium is the same ray and the two draws do not matter: the canopy
+    scene's fan within LIT_ORACLE_ATOL, and the bench eye at the bench pose
+    (1000 ommatidia, 2 samples, the default lights) with at most
+    LIT_ORACLE_SHARE of its ommatidia over that."""
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.eye.pipeline import render_means
+    from compound_ray_tpu_torch.eye.render import render_compound_means
+    from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
+    from compound_ray_tpu_torch.trace.lighting import default_lights
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    tiny = float(np.degrees(1e-6))
+    canopy = testing.make_canopy_scene()
+    cases = (("canopy", canopy, ommatidia_to_array(testing.canopy_eye(tiny)),
+              np.zeros(3, np.float32), np.eye(3, dtype=np.float32),
+              default_lights(canopy.aabb_min, canopy.aabb_max)),
+             ("bench eye", r.scene, ommatidia_to_array(
+                 testing.make_sphere_eye(N_OMM, acceptance_deg=tiny)),
+              np.asarray(cam.position, np.float32),
+              np.asarray(cam.local_space, np.float32), r.get_lights()))
+    out = {}
+    for name, scene, omms, pos, ls, lights in cases:
+        sd = scene.device_triangles(r.device)
+        bg = miss_id(scene.background_shader)
+        gen = torch.Generator(device=r.device).manual_seed(3)
+        (ref, ms) = _events_ms(lambda: render_compound_means(
+            sd, omms, pos, ls, gen, 2, bg, True, lights))
+        got = render_means(scene, sd, omms, pos, ls,
+                           torch.Generator(device=r.device).manual_seed(3),
+                           2, bg, lights=lights)
+        err = (got - ref).abs().amax(dim=1).cpu().numpy()
+        res = dict(ommatidia=int(omms.shape[0]), max_abs=float(err.max()),
+                   share_over_atol=float((err > LIT_ORACLE_ATOL).mean()),
+                   oracle_ms=ms, oracle_max=float(ref.max().item()))
+        out[name] = res
+        bad = (res["max_abs"] > LIT_ORACLE_ATOL if name == "canopy"
+               else res["share_over_atol"] > LIT_ORACLE_SHARE)
+        if bad or not np.isfinite(err).all():
+            raise AssertionError(f"packed lit vs oracle, {name}: {res}")
+    return out
+
+
+def lit_raw_samples(r, cam) -> dict:
+    """Phase 9: raw samples with lighting on through the shim, which takes
+    the oracle: RAW_LIT_SAMPLES samples of the bench eye, finite, and their
+    mean against render_compound_means of the frame's generator seed within
+    RAW_MEAN_ATOL."""
+    from compound_ray_tpu_torch import load_eye_renderer
+    from compound_ray_tpu_torch.api.renderer import frame_seed
+    from compound_ray_tpu_torch.config import get_config
+    from compound_ray_tpu_torch.eye.render import render_compound_means
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    shim = load_eye_renderer(verbose=False)
+    R = shim.renderer
+    R.scene = r.scene
+    if not shim.gotoCameraByName(cam.name.encode()):
+        raise AssertionError("the bench eye is not in the scene")
+    shim.setCurrentEyeShaderName(b"raw_ommatidial_samples")
+    shim.setCurrentEyeSamplesPerOmmatidium(RAW_LIT_SAMPLES)
+    R.set_lighting(True)
+    ms = _events_ms(shim.renderFrame)[1]
+    raw = R._raw_samples
+    gen = torch.Generator(device=R.device)
+    gen.manual_seed(frame_seed(get_config().base_seed, cam.rng_frame - 1))
+    means = render_compound_means(
+        r.scene.device_triangles(R.device), cam.ommatidia, cam.position,
+        cam.local_space, gen, RAW_LIT_SAMPLES,
+        miss_id(r.scene.background_shader), True, R.get_lights())
+    res = dict(shape=list(raw.shape), frame_ms=ms,
+               pair_tests=RAW_LIT_SAMPLES * N_OMM * r.scene.num_triangles
+               * (1 + R.get_lights().shape[0]),
+               mean_vs_means_max_abs=float(
+                   (raw.mean(dim=0) - means).abs().max().item()),
+               finite=bool(torch.isfinite(raw).all().item()))
+    shim.stop()
+    if (res["shape"] != [RAW_LIT_SAMPLES, N_OMM, 3] or not res["finite"]
+            or not res["mean_vs_means_max_abs"] <= RAW_MEAN_ATOL):
+        raise AssertionError(f"lit raw samples: {res}")
+    return res
+
+
+def real_cameras_phase(r, cam, card: str, count) -> dict:
+    """Phase 9: the real cameras' path through the shim, counted by
+    `count` (main's launch tally), then its checks; returns K2's entry at
+    the image shapes."""
+    t0 = time.perf_counter()
+    cams = _real_cameras(r.scene)
+    res_n = _path(r, "real cameras", lambda: camera_frames(r, cams), phase=9)
+    shots, n = count(res_n)[0], res_n[1]
+    if not (n["k2"] == shots["n_frames"] and n["k1"] == 0
+            and n["k3"] == 0):
+        raise AssertionError(f"the real-camera path launched {n}, not K2 "
+                             f"{shots['n_frames']} times")
+    checks = oracle_checks(r, cams, shots)
+    print(f"phase 9: real cameras at {DISPLAY_W} x {DISPLAY_H} on the bench "
+          f"scene ({r.scene.num_triangles} triangles), {card}: tile-culled "
+          f"(K2) vs oracle image ms (CUDA events) and the share of pixels off "
+          f"by more than 2 (< {IMAGE_OFF_SHARE}): {json.dumps(checks)}")
+    k2i = k2_at_image_shapes(r.scene, r.device, cams[0][3])
+    print(f"phase 9: K2 vs twin on the pinhole image's inputs ({card}): "
+          f"{json.dumps(k2i)} (threshold: every row bit-equal)")
+    print(f"phase 9: K2 at the image shapes: {k2i['ms']:.4f} ms per launch "
+          f"(no early exit {k2i['ms_no_early_exit']:.4f}), "
+          f"{k2i['launches_per_image']} launch per image; pair tests from "
+          f"below {k2i['pair_tests_from_below']}, walked "
+          f"{k2i['pair_tests_walked']}, no early exit "
+          f"{k2i['pair_tests_no_early_exit']}; bound "
+          f"{k2i['bound_ms']:.4f} ms from below, "
+          f"{k2i['walked_bound_ms']:.4f} walked, "
+          f"{k2i['no_early_exit_bound_ms']:.4f} with no early exit")
+    small = small_cameras_card_vs_cpu(r, cams)
+    print(f"phase 9: cameras at {SMALL_W} x {SMALL_H}, card vs CPU "
+          f"(tile-culled, oracle; lit pinhole through the oracle): "
+          f"{json.dumps(small)} (channels within 1 but at near-ties)")
+    lit_cmp = packed_lit_vs_oracle(r, cam)
+    print(f"phase 9: packed lit frame (K1, K3) vs the oracle, acceptance "
+          f"1e-6 rad, 2 samples: {json.dumps(lit_cmp)} (canopy max abs <= "
+          f"{LIT_ORACLE_ATOL}; bench eye share over it <= "
+          f"{LIT_ORACLE_SHARE})")
+    raw_lit = lit_raw_samples(r, cam)
+    print(f"phase 9: lit raw samples through the oracle: "
+          f"{json.dumps(raw_lit)} (mean vs means frame <= {RAW_MEAN_ATOL})")
+    print(f"phase 9: host syncs of one steady-state pinhole "
+          f"render_frame(sync=False): {len(shots['host_syncs'])} "
+          f"{json.dumps(shots['host_syncs'])}")
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return k2i
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -1376,6 +1787,8 @@ def main() -> int:
     print(f"phase 8: host syncs of one steady-state render_frame(sync=False):"
           f" {len(syncs)} {json.dumps(syncs)}")
 
+    k2i = real_cameras_phase(r, cam, card, count)
+
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[key],
@@ -1403,8 +1816,9 @@ def main() -> int:
     # the bound of the products they need
     under = [(key, res["ms"], bound)
              for key, res in (("K1 dense", k1_dense), ("K1", k1), ("K2", k2),
-                              ("K3", k3), ("K4", k45["k4"]),
-                              ("K5", k45["k5"]), ("K6", k6))
+                              ("K2 image", k2i), ("K3", k3),
+                              ("K4", k45["k4"]), ("K5", k45["k5"]),
+                              ("K6", k6))
              for bound in [res.get("staged_bound_ms", res["bound_ms"])]
              if res["ms"] < bound]
     if under:

@@ -2,12 +2,15 @@
 
 The compound-eye frame (EyeRenderer.render_frame: unlit with or without the
 far-field radiance cache, or lit with GGX light and shadow rays; raw
-samples; the eight compound projections into a display buffer) runs on one
+samples; the eight compound projections into a display buffer) and the
+real cameras' images (perspective, panoramic, orthographic) run on one
 torch device, through EyeRenderer or its libEyeRenderer3-shaped ctypes shim
 (load_eye_renderer).  Its three tracers are CUDA kernels written for Hopper
 and built with nvcc at first use: K1 closest hit (csrc/packed_tracer.cu),
-K2 the cache's cluster-shortlist closest hit (csrc/cluster_tracer.cu) and
-K3 the shadow rays' any-hit occlusion (csrc/rows_occlusion.cu).  On CPU
+K2 the cluster-shortlist closest hit of the far-field cache and the camera
+image (csrc/cluster_tracer.cu) and K3 the shadow rays' any-hit occlusion
+(csrc/rows_occlusion.cu).  The brute-force oracle (trace/intersect.py,
+eye/render.py, cameras/raygen.py) is plain torch on every device.  On CPU
 tensors the same contracts run as plain torch.  The kernel-measurement
 tools (compound_ray_tpu_torch.tools) add the probes of K1's row step
 (csrc/probe_step.cu) and the skinny-K dot bench (csrc/microbench_k.cu).

@@ -24,8 +24,15 @@ config.shadow_leak_tolerance replans the leaking groups with guaranteed
 bounds.  An unsynced frame (render_frame(sync=False)) keeps its audit on
 the device until the next sync().
 
-What this slice of the port refuses, loudly: a real (non-compound) camera
-at a non-zero render size, raw samples with lighting on and .blend scenes;
+A real camera (perspective, panoramic or orthographic) at a non-zero
+render size renders its (H, W, 4) image: unlit on a scene of at least
+config.min_triangles_for_culling triangles through the tile-culled K2 image
+(cameras/fast_image.py), otherwise, and always lit, through the
+brute-force oracle (cameras/raygen.py).  config.backend = "naive" renders
+every compound frame through the oracle (eye/render.py) as well; raw
+samples with lighting on always take it.
+
+What this slice of the port refuses, loudly: .blend scenes;
 render_batch_poses and the one-dispatch burst of render_frames_pipelined
 are not ported (ROADMAP.md, queue 1).
 """
@@ -40,13 +47,25 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from compound_ray_tpu_torch.cameras.types import Camera, CompoundEyeCamera
+from compound_ray_tpu_torch.cameras.fast_image import render_camera_image_fast
+from compound_ray_tpu_torch.cameras.raygen import render_camera_image
+from compound_ray_tpu_torch.cameras.types import (
+    Camera,
+    CompoundEyeCamera,
+    OrthographicCamera,
+    PanoramicCamera,
+    PerspectiveCamera,
+)
 from compound_ray_tpu_torch.config import get_config
 from compound_ray_tpu_torch.eye.pipeline import (
     canonical_device,
     mark_shadow_unsound,
     render_means,
     render_samples,
+)
+from compound_ray_tpu_torch.eye.render import (
+    render_compound_means,
+    render_compound_samples,
 )
 from compound_ray_tpu_torch.projection.project import project_frame
 from compound_ray_tpu_torch.scene.flat import FlatScene, load_scene
@@ -186,9 +205,19 @@ class EyeRenderer:
         if isinstance(cam, CompoundEyeCamera):
             self._render_compound(cam, display)
         elif display:
-            raise NotImplementedError(
-                f"camera {cam.name!r} is not a compound eye: real cameras "
-                "are not ported yet (ROADMAP.md queue 1)")
+            # the kind and its parameter (compound_ray_tpu/api/renderer.py:
+            # 294-315); an unknown camera type renders as a pinhole
+            if isinstance(cam, PerspectiveCamera):
+                kind, param = "pinhole", cam.scale
+            elif isinstance(cam, PanoramicCamera):
+                kind, param = "panoramic", [cam.start_radius]
+            elif isinstance(cam, OrthographicCamera):
+                kind, param = "orthographic", cam.scale
+            else:
+                kind, param = "pinhole", [10.0, 10.0, 1.0]
+            self._device_frame = self._render_camera_frame(
+                kind, cam, np.asarray(param, np.float32))
+            self._frame_buffer = None
         if sync:
             self.sync()
         ms = (time.perf_counter() - t0) * 1000.0
@@ -209,20 +238,29 @@ class EyeRenderer:
                 cam.samples_per_ommatidium,
                 miss_id(self.scene.background_shader))
         lit = self.lighting and self._lights is not None
+        naive = get_config().backend == "naive"
         if cam.projection == "raw_ommatidial_samples":
-            if lit:
-                raise NotImplementedError(
-                    "raw_ommatidial_samples with lighting on is not ported "
-                    "yet (the brute-force oracle, ROADMAP.md queue 1)")
-            self._raw_samples = render_samples(*args)
+            # the packed pipeline renders unlit samples; lit ones and every
+            # frame under backend="naive" take the oracle
+            # (compound_ray_tpu/api/renderer.py:609-642)
+            if lit or naive:
+                self._raw_samples = self._oracle(
+                    render_compound_samples, args, lit)
+            else:
+                self._raw_samples = render_samples(*args)
             self._device_means = self._raw_samples.mean(dim=0)
         else:
             self._raw_samples = None
-            out = render_means(*args, lights=self._lights if lit else None,
-                               shadow_audit=lit)
-            if lit:
-                out, self._pending_shadow_audit = out
-            self._device_means = out
+            if naive:  # compound_ray_tpu/api/renderer.py:644-704
+                self._device_means = self._oracle(render_compound_means,
+                                                  args, lit)
+            else:
+                out = render_means(*args,
+                                   lights=self._lights if lit else None,
+                                   shadow_audit=lit)
+                if lit:
+                    out, self._pending_shadow_audit = out
+                self._device_means = out
         self._camera_data = None
         cam.rng_frame += 1
         if display:
@@ -231,6 +269,36 @@ class EyeRenderer:
                 cam.projection, self._device_means, self._raw_samples,
                 omm_pos, omm_dir, self.width, self.height)
             self._frame_buffer = None
+
+    def _oracle(self, fn, args, lit: bool) -> torch.Tensor:
+        """fn (render_compound_samples or render_compound_means) on the
+        arguments of a compound frame: the brute-force oracle on the
+        renderer's device, lit when `lit`."""
+        _, scene_dev, omms, pos, ls, generator, samples, background = args
+        return fn(scene_dev, omms, pos, ls, generator, samples, background,
+                  lit, self._lights if lit else None)
+
+    def _render_camera_frame(self, kind: str, cam: Camera,
+                             param: np.ndarray) -> torch.Tensor:
+        """A real camera's (H, W, 4) uint8 image
+        (compound_ray_tpu/api/renderer.py:584-607): the tile-culled K2 image
+        when the backend is "auto" (or "pallas"), lighting is off and the
+        scene has at least min_triangles_for_culling triangles; otherwise
+        the brute-force oracle, lit or unlit."""
+        cfg = get_config()
+        scene_dev = self.scene.device_triangles(self.device)
+        background = miss_id(self.scene.background_shader)
+        pos = np.asarray(cam.position, np.float32)
+        ls = np.asarray(cam.local_space, np.float32)
+        if (cfg.backend in ("auto", "pallas") and not self.lighting
+                and self.scene.num_triangles >= cfg.min_triangles_for_culling):
+            return render_camera_image_fast(
+                self.scene, scene_dev, kind, pos, ls, param, self.width,
+                self.height, background)
+        lit = self.lighting and self._lights is not None
+        return render_camera_image(
+            scene_dev, kind, pos, ls, param, self.width, self.height,
+            background, lit, self._lights if lit else None)
 
     def sync(self) -> None:
         """Wait for every queued frame, then act on the last unsynced lit

@@ -1,7 +1,6 @@
 """Runtime configuration of the port (compound_ray_tpu/config.py, reduced).
 
-Only the fields the compound-eye frame (unlit and lit) reads are carried
-over.  The
+Only the fields the port's render paths read are carried over.  The
 environment names are the JAX package's (CR_TPU_*), so one shell setting
 configures both packages.  Nothing here reads artifacts/tuning.json: those
 adoptions were measured on a TPU and are not settings of this port.
@@ -20,8 +19,21 @@ def _env_bool(s: str) -> bool:
     return s.strip().lower() not in ("", "0", "false", "off", "no")
 
 
+# backends the port renders with: "auto" (the kernels), "pallas" (its
+# synonym, so one CR_TPU_BACKEND serves both packages) and "naive" (the
+# brute-force oracle for every frame)
+BACKENDS = ("auto", "pallas", "naive")
+
+
 @dataclasses.dataclass
 class RenderConfig:
+    # backend (compound_ray_tpu/config.py:44-45): "auto" renders through the
+    # kernels, "naive" through the brute-force oracle (trace/intersect.py)
+    # for every frame, as the JAX package's last fallbacks do
+    backend: str = "auto"
+    # real-camera images of scenes below this many triangles take the
+    # oracle, not the tile-culled K2 image (compound_ray_tpu/config.py:51)
+    min_triangles_for_culling: int = 512
     # Gaussian truncation for cone culling, in standard deviations
     # (compound_ray_tpu/config.py:49).
     cull_sigmas: float = 4.0
@@ -61,6 +73,19 @@ class RenderConfig:
     shadow_pack_chunk: int = 128
 
     def __post_init__(self):
+        if self.backend == "xla":
+            raise NotImplementedError(
+                "backend='xla': the JAX package's culled XLA backend exists "
+                "to give hosts without a TPU a fast path, and the port's "
+                "kernels and their torch twins already run anywhere; use "
+                "'auto' or 'naive'")
+        if self.backend == "sharded":
+            raise NotImplementedError(
+                "backend='sharded': the multi-device path is not ported yet "
+                "(ROADMAP.md queue 1, item 8); use 'auto' or 'naive'")
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend={self.backend!r}: expected one of {BACKENDS}")
         if self.farfield not in ("auto", "off"):
             raise ValueError(
                 f"farfield={self.farfield!r}: expected 'auto' or 'off'")
@@ -83,6 +108,8 @@ class RenderConfig:
     @classmethod
     def from_env(cls) -> "RenderConfig":
         mapping = {
+            "CR_TPU_BACKEND": ("backend", str),
+            "CR_TPU_MIN_TRIS_CULL": ("min_triangles_for_culling", int),
             "CR_TPU_CULL_SIGMAS": ("cull_sigmas", float),
             "CR_TPU_SEED": ("base_seed", int),
             "CR_TPU_FARFIELD": ("farfield", str),

@@ -136,6 +136,9 @@ class ScenePlan:
     payload: torch.Tensor  # (C, 16, 128) K2 intersection constants
     sphere_center_np: np.ndarray  # (C, 3) cluster spheres: far-field split
     sphere_radius_np: np.ndarray  # (C,)
+    # their device copies: the camera image culls its tiles against them
+    sphere_center: torch.Tensor
+    sphere_radius: torch.Tensor
     kmax_cache: Dict = field(default_factory=dict)  # pose -> (kcand, rmax)
     packed_store: Dict = field(default_factory=dict)  # bounded LRU of packs
     cache_store: Dict = field(default_factory=dict)  # viewpoint -> cache
@@ -150,6 +153,8 @@ class ScenePlan:
     # for every group, or for these groups (eye-plan group indices)
     shadow_sound_all: bool = False
     shadow_unsound_groups: set = field(default_factory=set)
+    # the camera image has warned that its shortlist cap truncates
+    image_cap_warned: bool = False
 
     @property
     def num_clusters(self) -> int:
@@ -176,6 +181,8 @@ class ScenePlan:
             payload=dev(payload),
             sphere_center_np=np.array(sphere_center, np.float32),
             sphere_radius_np=np.array(sphere_radius, np.float32),
+            sphere_center=dev(sphere_center),
+            sphere_radius=dev(sphere_radius),
             slot_tri=(None if slot_tri is None else torch.tensor(
                 np.asarray(slot_tri, np.int32), device=device)),
         )
@@ -1153,6 +1160,34 @@ def _cache_trace_inputs(half_center, half_radius, center, far_mask,
     return blocked, counts, ids, dmin, rays
 
 
+def shade_cluster_hits(out, live, dirs, attr_table, scene_dev, quad_table,
+                       background: int, textured: bool,
+                       tex_only: bool) -> torch.Tensor:
+    """(R, 3) linear RGB of K2's (R, 8) rows: the winners' attributes, their
+    texture where they have one, and miss program `background` for unit
+    directions dirs (R, 3) where a ray missed or its tile is not live (a
+    tile with an empty shortlist, which the TPU kernel leaves unwritten)
+    (compound_ray_tpu/eye/pipeline.py:3156-3181,
+    compound_ray_tpu/cameras/fast_image.py:131-157)."""
+    t, cu, cv, texid, rgb = resolve_cluster_hits(out, attr_table, tex_only)
+    if tex_only:
+        rr = gg = bb = torch.zeros_like(t)
+    else:
+        rr, gg, bb = rgb
+    hit = (t < 1e30) & live
+    if textured:
+        tex_idx, tfx, tfy = texture_quad_coords_c(
+            scene_dev, torch.clamp(texid, min=0), cu, cv)
+        qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
+        sel = (texid >= 0) & hit
+        rr = torch.where(sel, qr, rr)
+        gg = torch.where(sel, qg, gg)
+        bb = torch.where(sel, qb, bb)
+    mr, mg, mb = miss_color_c(dirs[:, 0], dirs[:, 1], dirs[:, 2], background)
+    return torch.stack([torch.where(hit, rr, mr), torch.where(hit, gg, mg),
+                        torch.where(hit, bb, mb)], dim=-1)
+
+
 def _render_cache(payload, attr_table, scene_dev, quad_table, half_center,
                   half_radius, center, far_mask, width: int, background: int,
                   kmax: int, textured: bool, tex_only: bool = False,
@@ -1171,24 +1206,9 @@ def _render_cache(payload, attr_table, scene_dev, quad_table, half_center,
     trace = run_tracer_kernel if tracer is None else tracer
     out = trace(counts, ids, dmin, payload, rays, ng=counts.shape[0], nrb=1,
                 rb_size=tile, kmax=kmax, early_exit=True)
-    t, cu, cv, texid, rgb = resolve_cluster_hits(out, attr_table, tex_only)
-    if tex_only:
-        rr = gg = bb = torch.zeros_like(t)
-    else:
-        rr, gg, bb = rgb
-    hit = (t < 1e30) & torch.repeat_interleave(counts > 0, tile)
-    if textured:
-        tex_idx, tfx, tfy = texture_quad_coords_c(
-            scene_dev, torch.clamp(texid, min=0), cu, cv)
-        qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
-        sel = (texid >= 0) & hit
-        rr = torch.where(sel, qr, rr)
-        gg = torch.where(sel, qg, gg)
-        bb = torch.where(sel, qb, bb)
-    mr, mg, mb = miss_color_c(blocked[:, 0], blocked[:, 1], blocked[:, 2],
-                              background)
-    rgb = torch.stack([torch.where(hit, rr, mr), torch.where(hit, gg, mg),
-                       torch.where(hit, bb, mb)], dim=-1)
+    rgb = shade_cluster_hits(out, torch.repeat_interleave(counts > 0, tile),
+                             blocked, attr_table, scene_dev, quad_table,
+                             background, textured, tex_only)
     # un-block back to row-major (H, W)
     return (rgb.reshape(height // bs, width // bs, bs, bs, 3)
             .permute(0, 2, 1, 3, 4).reshape(height, width, 3))

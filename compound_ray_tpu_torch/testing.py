@@ -15,6 +15,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from compound_ray_tpu_torch.cameras import fast_image as FI
+from compound_ray_tpu_torch.cameras.raygen import camera_rays
 from compound_ray_tpu_torch.config import get_config
 from compound_ray_tpu_torch.eye import pipeline as P
 from compound_ray_tpu_torch.scene.eye_io import Ommatidium
@@ -488,6 +490,60 @@ def cache_trace_inputs(scene: FlatScene, omms: np.ndarray, pos, device,
         counts=counts, ids=ids, dmin=dmin, payload=splan.payload, rays=rays,
         far=far, kw=dict(ng=counts.shape[0], nrb=1, rb_size=P._CACHE_TILE,
                          kmax=kmax))
+
+
+def camera_trace_inputs(scene: FlatScene, kind: str, pos, local_space,
+                        param, width: int, height: int,
+                        device) -> SimpleNamespace:
+    """K2's inputs of the tile-culled image of camera `kind` on `device`,
+    as render_camera_image_fast traces them: counts, ids, dmin, payload,
+    rays and the shape keywords."""
+    device = torch.device(device)
+    splan = P.scene_plan(scene, device)
+    kmax = min(splan.num_clusters, FI.KMAX_CAP)
+
+    def dev(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    counts, ids, dmin, rays, _ = FI.image_trace_inputs(
+        splan.sphere_center, splan.sphere_radius, dev(pos), dev(local_space),
+        dev(param), kind, width, height, kmax)
+    return SimpleNamespace(
+        counts=counts, ids=ids, dmin=dmin, payload=splan.payload, rays=rays,
+        kw=dict(ng=counts.shape[0], nrb=1, rb_size=FI.TILE, kmax=kmax))
+
+
+def camera_near_ties(scene: FlatScene, kind: str, pos, local_space, param,
+                     width: int, height: int, device,
+                     rel: float = 1e-6) -> np.ndarray:
+    """(H, W) bool: the pixels of camera `kind` whose two closest hits over
+    the whole soup lie within `rel` of each other in t, where two exact
+    tracers may keep different winners.  Möller-Trumbore in chunks of 512
+    rays, a running two smallest t per ray."""
+    from compound_ray_tpu_torch.trace.intersect import moller_trumbore
+
+    device = torch.device(device)
+    dev_tris = scene.device_triangles(device)
+
+    def dev(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    o, d, tmin = camera_rays(kind, dev(pos), dev(local_space), dev(param),
+                             width, height)
+    o = o.expand(d.shape)
+    out = []
+    for r0 in range(0, d.shape[0], 512):
+        best = torch.full((min(512, d.shape[0] - r0), 2), torch.inf,
+                          device=device)
+        for t0 in range(0, scene.num_triangles, 2048):
+            t, _, _, ok = moller_trumbore(
+                o[r0:r0 + 512], d[r0:r0 + 512],
+                *(dev_tris[k][t0:t0 + 2048] for k in ("v0", "e1", "e2")))
+            t = torch.where(ok & (t >= tmin), t, torch.inf)
+            best = torch.topk(torch.cat([best, t], dim=1), 2, dim=1,
+                              largest=False).values
+        out.append((best[:, 1] - best[:, 0]) <= rel * best[:, 0].abs())
+    return torch.cat(out).reshape(height, width).cpu().numpy()
 
 
 def cluster_hit_agreement(ref, got, counts, rg: int):

@@ -8,8 +8,11 @@ applies the material textures where some material has them, and adds
 ggx_light_contrib_planar per light where the shadow ray (kernel K3) is
 clear.  Everything per ray is a (R,) tensor per component.
 
-Not ported here: the AoS ggx_direct / shading_basis / ggx_light_contrib of
-the JAX package's brute-force oracle (ROADMAP.md queue 1, API surface).
+The brute-force oracle's lit path works on (R, 3) rows instead:
+shade.shade_rays calls ggx_direct, which gathers the hit's attributes per
+triangle (shading_basis, triangle_dpduv, apply_material_textures) and adds
+ggx_light_contrib per light where a shadow ray, one occlusion_test over the
+whole soup, is clear.  Both forms compute the same BRDF.
 """
 
 from __future__ import annotations
@@ -20,6 +23,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from compound_ray_tpu_torch.trace.intersect import (
+    cross3,
+    dot3,
+    occlusion_test,
+    oracle_ray_chunk,
+)
 from compound_ray_tpu_torch.trace.shade import sample_texture
 
 
@@ -63,6 +72,18 @@ _BC_MR_TEX = 24
 _BC_NM_TEX = 25
 
 
+def shading_basis(scene: Dict[str, Any], tri: torch.Tensor):
+    """Per-ray shading inputs gathered by triangle id
+    (compound_ray_tpu/trace/lighting.py:39): (e1, e2, n0, n1, n2, has_n,
+    metallic, roughness), (R, 3) and (R,).  tri must already be clipped to
+    the valid range."""
+    tri = tri.long()
+    mat = torch.clamp(scene["mat_id"][tri], min=0).long()
+    return (scene["e1"][tri], scene["e2"][tri], scene["n0"][tri],
+            scene["n1"][tri], scene["n2"][tri], scene["has_normals"][tri],
+            scene["mat_metallic"][mat], scene["mat_roughness"][mat])
+
+
 def build_shading_rows(scene: Dict[str, Any]) -> torch.Tensor:
     """(T, 18 | 26) per-triangle lit-attribute table in the _BC_* layout
     (compound_ray_tpu/trace/lighting.py:82).  The eight texture columns
@@ -85,6 +106,14 @@ def build_shading_rows(scene: Dict[str, Any]) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
+def shading_basis_from_rows(rows_g: torch.Tensor):
+    """shading_basis from one gathered (R, C) slab of build_shading_rows
+    (compound_ray_tpu/trace/lighting.py:105): the same values."""
+    return (rows_g[:, _BC_E1], rows_g[:, _BC_E2], rows_g[:, _BC_N0],
+            rows_g[:, _BC_N1], rows_g[:, _BC_N2], rows_g[:, _BC_HAS_N] > 0.5,
+            rows_g[:, _BC_METALLIC], rows_g[:, _BC_ROUGHNESS])
+
+
 def unpack_shading_cols(cols: torch.Tensor):
     """Component-planar unpack of a transposed gathered slab (C, R)
     (compound_ray_tpu/trace/lighting.py:224).  Returns ((e1x, e1y, e1z),
@@ -97,6 +126,17 @@ def unpack_shading_cols(cols: torch.Tensor):
     n2 = (cols[12], cols[13], cols[14])
     return (e1, e2, n0, n1, n2, cols[_BC_HAS_N] > 0.5,
             cols[_BC_METALLIC], cols[_BC_ROUGHNESS])
+
+
+def triangle_dpduv(scene: Dict[str, Any], tri: torch.Tensor):
+    """UV-parametrisation tangents (dpdu, dpdv), each (R, 3), of triangles
+    tri (compound_ray_tpu/trace/lighting.py:118; cuda/LocalGeometry.h:
+    193-205): the reference solves [dp1 dp2] = [du1 dv1; du2 dv2] [dpdu
+    dpdv] with dp1 = P0 - P2 = -e2 and dp2 = P1 - P2 = e1 - e2.  The
+    triangles are baked to world space, so the tangents are too."""
+    tri = tri.long()
+    return _dpduv_vals(scene["e1"][tri], scene["e2"][tri], scene["uv0"][tri],
+                       scene["uv1"][tri], scene["uv2"][tri])
 
 
 def _dpduv_vals(e1, e2, uv0, uv1, uv2):
@@ -124,6 +164,22 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
     (compound_ray_tpu/trace/lighting.py:152)."""
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                            min=1e-20)
+
+
+def apply_material_textures(scene: Dict[str, Any], tri: torch.Tensor,
+                            uv: torch.Tensor, n: torch.Tensor,
+                            metallic: torch.Tensor, roughness: torch.Tensor):
+    """Metallic-roughness texture and normal-map modulation of the hits on
+    triangles tri (R,) at texture coordinates uv (R, 2) with unit normals n
+    (R, 3) (compound_ray_tpu/trace/lighting.py:156; shaders.cu:838-852).
+    Callers gate on "mat_mr_tex" in scene.  Returns (n, metallic,
+    roughness)."""
+    tri = tri.long()
+    mat = torch.clamp(scene["mat_id"][tri], min=0).long()
+    dpdu, dpdv = triangle_dpduv(scene, tri)
+    return _apply_material_textures_vals(
+        scene, scene["mat_mr_tex"][mat], scene["mat_normal_tex"][mat], uv, n,
+        metallic, roughness, dpdu, dpdv)
 
 
 def apply_material_textures_from_rows(scene: Dict[str, Any], rows_g, n,
@@ -199,6 +255,39 @@ def ggx_light_contrib_planar(n, view, l, base, metallic, roughness,
     return tuple(out), facing
 
 
+def ggx_light_contrib(n, view, l, base, metallic, roughness, lcol, lint):
+    """One light's unoccluded GGX/Schlick contribution on (R, 3) rows: unit
+    normal n, view (hit to eye) and l (hit to light), base colour; metallic
+    and roughness (R,); lcol (3,) and lint () (compound_ray_tpu/trace/
+    lighting.py:286; shaders.cu:826-881).  Returns (contrib (R, 3), facing
+    (R,)) with facing = n.l > 0 and n.v > 0."""
+    f0 = 0.04
+    diff_color = base * (1.0 - f0) * (1.0 - metallic[:, None])
+    spec_color = f0 * (1.0 - metallic[:, None]) + base * metallic[:, None]
+    alpha = roughness * roughness
+    h = l + view
+    h = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1, keepdim=True),
+                        min=1e-20)
+    n_dot_l = dot3(n, l)
+    n_dot_v = dot3(n, view)
+    n_dot_h = dot3(n, h)
+    v_dot_h = dot3(view, h)
+    facing = (n_dot_l > 0.0) & (n_dot_v > 0.0)
+    f = _schlick(spec_color, v_dot_h)
+    g_vis = _vis(n_dot_l, n_dot_v, alpha)[:, None]
+    d = _ggx_normal(n_dot_h, alpha)[:, None]
+    diff = (1.0 - f) * diff_color / math.pi
+    spec = f * g_vis * d
+    contrib = lcol[None, :] * lint * n_dot_l[:, None] * (diff + spec)
+    return contrib, facing
+
+
+def _schlick(spec_color, v_dot_h):
+    """Schlick's Fresnel (compound_ray_tpu/trace/lighting.py:322)."""
+    return spec_color + (1.0 - spec_color) * torch.pow(
+        1.0 - v_dot_h, 5.0)[..., None]
+
+
 def _vis(n_dot_l, n_dot_v, alpha):
     """Smith-GGX visibility (compound_ray_tpu/trace/lighting.py:325)."""
     alpha_sq = alpha * alpha
@@ -214,3 +303,53 @@ def _ggx_normal(n_dot_h, alpha):
     alpha_sq = alpha * alpha
     x = n_dot_h * n_dot_h * (alpha_sq - 1.0) + 1.0
     return alpha_sq / (math.pi * x * x)
+
+
+def ggx_direct(scene: Dict[str, Any], origins: torch.Tensor,
+               dirs: torch.Tensor, hit: Dict[str, torch.Tensor],
+               base_color: torch.Tensor, lighting: Dict[str, Any]
+               ) -> torch.Tensor:
+    """The hits' base colours (R, 3) plus GGX direct light from each of
+    lighting["lights"] (L, 7) rows [colour, intensity, position], where the
+    light faces the hit and its shadow ray is clear: one occlusion_test over
+    the whole soup in [0.001, |to light| - 0.001]
+    (compound_ray_tpu/trace/lighting.py:338; the light loop of
+    __closesthit__radiance, shaders.cu:826-881), with the material-texture
+    modulation where a material has such textures."""
+    tri = torch.clamp(hit["tri_id"], min=0).long()
+    u = hit["u"][:, None]
+    v = hit["v"][:, None]
+    w = 1.0 - u - v
+    e1, e2 = scene["e1"][tri], scene["e2"][tri]
+    # hit position P = v0 + u e1 + v e2 (world space already)
+    p = scene["v0"][tri] + u * e1 + v * e2
+    # shading normal: interpolated vertex normals, else the geometric one
+    n_sm = w * scene["n0"][tri] + u * scene["n1"][tri] + v * scene["n2"][tri]
+    n = torch.where(scene["has_normals"][tri][:, None], n_sm,
+                    cross3(e1, e2))
+    n = _unit(n)
+    mat = torch.clamp(scene["mat_id"][tri], min=0).long()
+    metallic = scene["mat_metallic"][mat]
+    roughness = scene["mat_roughness"][mat]
+    if "mat_mr_tex" in scene:
+        uv = (w * scene["uv0"][tri] + u * scene["uv1"][tri]
+              + v * scene["uv2"][tri])
+        n, metallic, roughness = apply_material_textures(
+            scene, tri, uv, n, metallic, roughness)
+    view = -_unit(dirs)
+    result = base_color
+    lights = torch.as_tensor(lighting["lights"], dtype=torch.float32,
+                             device=p.device)
+    chunk = oracle_ray_chunk(p.device)
+    for li in range(lights.shape[0]):
+        to_l = lights[li, 4:7][None, :] - p
+        l_dist = torch.linalg.vector_norm(to_l, dim=-1)
+        l = to_l / torch.clamp(l_dist[:, None], min=1e-20)
+        occluded = occlusion_test(p, l, scene["v0"], scene["e1"], scene["e2"],
+                                  0.001, l_dist - 0.001, ray_chunk=chunk)
+        contrib, facing = ggx_light_contrib(
+            n, view, l, base_color, metallic, roughness, lights[li, 0:3],
+            lights[li, 3])
+        lit = facing & ~occluded & hit["hit"]
+        result = result + torch.where(lit[:, None], contrib, 0.0)
+    return result

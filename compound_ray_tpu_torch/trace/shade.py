@@ -6,8 +6,9 @@ Colour priority of __closesthit__radiance (shaders.cu:797-824):
   2. material base-colour texture -> bilinear sample at interpolated UV
   3. material baseColorFactor
 Rays that hit nothing take one of the four miss programs
-(shaders.cu:745-764).  Everything per ray is component-planar: (R,)
-tensors per channel.
+(shaders.cu:745-764).  The frame pipeline works component-planar, with
+(R,) tensors per channel; the brute-force oracle's shade_rays and
+miss_color work on (R, 3) rows over the intersect_rays result.
 
 Only the general texture path is ported: every textured scene samples
 through the (P, 16) quad table with per-ray sampler constants, and the
@@ -66,6 +67,56 @@ def miss_color_c(dx, dy, dz, which: int):
                | (torch.abs(dz) < border))
     return (torch.where(on_axis, 0.0, u), torch.where(on_axis, 0.0, v),
             torch.zeros_like(u))
+
+
+def miss_color(dirs: torch.Tensor, which: int) -> torch.Tensor:
+    """Miss program `which` for (R, 3) ray directions of any length ->
+    (R, 3) linear RGB (compound_ray_tpu/trace/shade.py:38)."""
+    d = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    return torch.stack(miss_color_c(d[:, 0], d[:, 1], d[:, 2], which),
+                       dim=-1)
+
+
+def shade_rays(scene: Dict[str, Any], dirs: torch.Tensor,
+               hit: Dict[str, torch.Tensor], background: int,
+               lighting: Dict[str, Any] = None,
+               origins: torch.Tensor = None) -> torch.Tensor:
+    """(R, 3) linear radiance of traced rays
+    (compound_ray_tpu/trace/shade.py:409): `hit` is intersect_rays' dict,
+    `background` a miss id.  With lighting ({"lights": (L, 7) rows
+    [colour, intensity, position]}) the base colour gets GGX direct light
+    with brute-force shadow rays (lighting.ggx_direct, which needs the
+    origins); otherwise it is the unlit base colour, the reference's
+    default."""
+    tri = torch.clamp(hit["tri_id"], min=0).long()
+    u = hit["u"][:, None]
+    v = hit["v"][:, None]
+    w = 1.0 - u - v
+    # vertex colour path: interpolate, then linearise (pow 2.2)
+    c_interp = w * scene["c0"][tri] + u * scene["c1"][tri] \
+        + v * scene["c2"][tri]
+    vc_rgb = torch.pow(torch.clamp(c_interp[:, :3], min=0.0), 2.2)
+    mat_id = scene["mat_id"][tri]
+    mat = torch.clamp(mat_id, min=0).long()
+    mat_rgb = scene["mat_base_color"][mat][:, :3]
+    tex_id = scene["mat_tex"][mat]
+    has_tex = (tex_id >= 0) & (mat_id >= 0)
+    if scene["tex_offset"].shape[0] > 0:
+        uv = w * scene["uv0"][tri] + u * scene["uv1"][tri] \
+            + v * scene["uv2"][tri]
+        tex_rgb = sample_texture(scene, tex_id, uv)[:, :3]
+    else:
+        tex_rgb = mat_rgb
+    # priority: vertex colour > texture > material factor (a triangle with
+    # mat_id -1 and no vertex colours takes material slot 0)
+    base = torch.where(scene["has_color"][tri][:, None], vc_rgb,
+                       torch.where(has_tex[:, None], tex_rgb, mat_rgb))
+    if lighting is not None:
+        from compound_ray_tpu_torch.trace.lighting import ggx_direct
+
+        base = ggx_direct(scene, origins, dirs, hit, base, lighting)
+    return torch.where(hit["hit"][:, None], base,
+                       miss_color(dirs, background))
 
 
 def make_color(rgb: torch.Tensor) -> torch.Tensor:

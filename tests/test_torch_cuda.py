@@ -9,8 +9,11 @@ tests/test_torch_k1.py: slot ids (K1) equal on >= 99.9 % of live rays, t
 within rtol 1e-5 where they agree (the kernel fuses products into FMAs, the
 twin does not); frame means within 2e-4.  K2 and K3 sum their products in
 the twins' order without FMAs, so K2's rows and K3's decisions must equal
-the twins' on every ray, bit for bit.  The probes (K4, K5): copy_only and dma_only
-bit-equal, the dot modes equal on >= 99.9 % of live rays within rtol 1e-5.
+the twins' on every ray, bit for bit (K2 also at the camera image's
+shapes).  The real-camera images and the oracle on the card against the
+CPU: channels within 1 but at near-ties (the two closest hits within 1e-6
+relative in t), oracle radiance within 2e-4.  The probes (K4, K5):
+copy_only and dma_only bit-equal, the dot modes equal on >= 99.9 % of live rays within rtol 1e-5.
 The dot bench (K6): within 1e-5 of the sum of |terms| in both precisions.
 """
 
@@ -535,6 +538,101 @@ def test_lit_frame_on_card_matches_cpu(cuda_device, name):
         out.append(testing.lit_frame_means(
             scene, f, default_lights(scene.aabb_min, scene.aabb_max)))
     assert out[0].max() > 0.7
+    np.testing.assert_allclose(out[0], out[1], atol=ATOL)
+
+
+# the real cameras' pose and parameters (tests/test_fast_image.py): 60
+# degrees of y field of view for the pinhole at its aspect
+CAM_POS = (0.0, 3.0, 40.0)
+CAM_LS = np.diag([1.0, 1.0, -1.0])
+CAM_KINDS = {"pinhole": None, "panoramic": [0.0],
+             "orthographic": [30.0, 20.0]}
+
+
+def _cam_param(kind, width, height):
+    if kind == "pinhole":
+        y = float(np.tan(np.radians(30.0)))
+        return [y * width / height, y, 1.0]
+    return CAM_KINDS[kind]
+
+
+def _hold_images(card, cpu, ties):
+    """Card and CPU images: equal within 1 per channel but at near-ties."""
+    diff = np.abs(card.astype(int) - cpu.astype(int)).max(axis=-1)
+    assert card.shape == cpu.shape
+    assert not ((diff > 1) & ~ties).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(40, 24), (256, 256)],
+                         ids=["40x24", "256x256"])
+def test_k2_matches_twin_at_image_shapes(cuda_device, size):
+    """K2 on the pinhole image's own inputs on the bench scene (256
+    clusters, so KP = kmax = 256, tiles of 256 rays, early exit on): every
+    row equals the twin's bit for bit."""
+    scene = testing.make_big_scene(2000, seed=0)
+    w, h = size
+    c = testing.camera_trace_inputs(scene, "pinhole", CAM_POS, CAM_LS,
+                                    _cam_param("pinhole", w, h), w, h,
+                                    cuda_device)
+    assert c.kw["kmax"] == c.ids.shape[1] == 256
+    args = (c.counts, c.ids, c.dmin, c.payload, c.rays)
+    before = CT.launches
+    got = CT.run_tracer_kernel(*args, early_exit=True, **c.kw)
+    torch.cuda.synchronize()
+    assert CT.launches == before + 1
+    ref = CT.cluster_tracer_reference(*args, early_exit=True, **c.kw)
+    assert torch.isfinite(ref[:, 0]).float().mean() > 0.3
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(CAM_KINDS))
+def test_camera_image_on_card_matches_cpu(cuda_device, kind):
+    """The tile-culled image (K2 on the card, its twin on the CPU) and the
+    oracle image of the 80-box scene at 64 x 48, on both devices."""
+    from compound_ray_tpu_torch.cameras.fast_image import (
+        render_camera_image_fast,
+    )
+    from compound_ray_tpu_torch.cameras.raygen import render_camera_image
+
+    w, h = 64, 48
+    param = _cam_param(kind, w, h)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = testing.make_big_scene(80, seed=9)
+        sd = scene.device_triangles(dev)
+        args = (kind, np.asarray(CAM_POS, np.float32),
+                np.asarray(CAM_LS, np.float32), np.asarray(param, np.float32),
+                w, h, 3)
+        out.append((render_camera_image_fast(scene, sd, *args).cpu().numpy(),
+                    render_camera_image(sd, *args).cpu().numpy()))
+    ties = testing.camera_near_ties(testing.make_big_scene(80, seed=9), kind,
+                                    CAM_POS, CAM_LS, param, w, h, "cpu")
+    for a, b in zip(*out):
+        _hold_images(a, b, ties)
+
+
+@pytest.mark.cuda
+def test_oracle_on_card_matches_cpu(cuda_device):
+    """The oracle's lit frame (render_compound_samples, shadow rays over the
+    whole soup) on the card and on the CPU from the same angles."""
+    from compound_ray_tpu_torch.eye.render import render_compound_samples
+
+    scene = testing.make_mr_normal_scene()
+    omms = ommatidia_to_array(testing.make_sphere_eye(24, 5.0))
+    rng = np.random.default_rng(2)
+    splay = (rng.standard_normal((16, 24)) * 0.03).astype(np.float32)
+    spin = (rng.uniform(size=(16, 24)) * np.pi).astype(np.float32)
+    lights = default_lights(scene.aabb_min, scene.aabb_max)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        out.append(render_compound_samples(
+            scene.device_triangles(dev), omms, (0.0, 5.0, 0.0), np.eye(3),
+            None, 16, 2, True, lights,
+            angles=(torch.tensor(splay, device=dev),
+                    torch.tensor(spin, device=dev))).cpu().numpy())
+    assert out[0].max() > 0.1
     np.testing.assert_allclose(out[0], out[1], atol=ATOL)
 
 

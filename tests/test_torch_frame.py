@@ -190,8 +190,9 @@ def test_eye_renderer_frames_advance_the_rng(jax_unlit):
 
 
 def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
-    """Still unported: .blend scenes, a real camera at a non-zero render
-    size and raw samples with lighting on (ROADMAP.md queue 1)."""
+    """Still unported: .blend scenes (ROADMAP.md queue 1).  A real camera
+    at a non-zero render size and raw samples with lighting on render (the
+    brute-force oracle on this 36-triangle scene)."""
     tr = EyeRenderer(verbose=False, device="cpu")
     with pytest.raises(RuntimeError):
         tr.render_frame()
@@ -209,17 +210,22 @@ def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
     tr.set_require_noncompound_pipeline(False)
     tr.render_frame()  # the display pipeline is not required
     tr.set_require_noncompound_pipeline(True)
-    with pytest.raises(NotImplementedError, match="real cameras"):
-        tr.render_frame()
+    tr.render_frame()
+    frame = tr.get_frame_pointer()
+    assert frame.shape == (8, 16, 4) and (frame[..., 3] == 255).all()
     tr.scene.cameras.append(CompoundEyeCamera(
         "raw", "raw_ommatidial_samples", ttesting.make_sphere_eye(4)))
     tr.next_camera()
     assert tr.is_compound_eye_active()
     tr.render_frame()  # raw samples, unlit
     assert tr.get_frame_pointer().shape == (8, 16, 4)
+    unlit = tr.get_camera_data().copy()
     tr.set_lighting(True)
-    with pytest.raises(NotImplementedError, match="lighting"):
-        tr.render_frame()
+    tr.scene.cameras[-1].rng_frame = 0  # the unlit frame's angles
+    tr.render_frame()  # raw samples, lit: the oracle
+    assert tuple(tr._raw_samples.shape) == (1, 4, 3)
+    assert (tr.get_camera_data() >= unlit - 1e-6).all()
+    assert tr.get_frame_pointer().shape == (8, 16, 4)
 
 
 def test_config_refuses_the_far_field(monkeypatch):
@@ -259,6 +265,30 @@ def test_config_refuses_the_far_field(monkeypatch):
         tcfg.RenderConfig.from_env()
 
 
+def test_config_backend(monkeypatch):
+    """backend takes "auto" (the default), "naive" and "pallas" (a synonym
+    of "auto", so one CR_TPU_BACKEND serves both packages); the JAX
+    package's "xla" and "sharded" are refused, and so is anything else."""
+    monkeypatch.delenv("CR_TPU_BACKEND", raising=False)
+    monkeypatch.delenv("CR_TPU_MIN_TRIS_CULL", raising=False)
+    cfg = tcfg.RenderConfig.from_env()
+    assert (cfg.backend, cfg.min_triangles_for_culling) == ("auto", 512)
+    for mode in ("auto", "naive", "pallas"):
+        assert tcfg.RenderConfig(backend=mode).backend == mode
+    for mode, why in (("xla", "culled"), ("sharded", "multi-device")):
+        with pytest.raises(NotImplementedError, match=why):
+            tcfg.RenderConfig(backend=mode)
+    with pytest.raises(ValueError, match="backend"):
+        tcfg.RenderConfig(backend="fast")
+    monkeypatch.setenv("CR_TPU_BACKEND", "naive")
+    monkeypatch.setenv("CR_TPU_MIN_TRIS_CULL", "64")
+    cfg = tcfg.RenderConfig.from_env()
+    assert (cfg.backend, cfg.min_triangles_for_culling) == ("naive", 64)
+    monkeypatch.setenv("CR_TPU_BACKEND", "xla")
+    with pytest.raises(NotImplementedError):
+        tcfg.RenderConfig.from_env()
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys\n"
@@ -268,6 +298,10 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch.trace._build\n"
         "import compound_ray_tpu_torch.api.shim, compound_ray_tpu_torch.eye_tools\n"
         "import compound_ray_tpu_torch.projection\n"
+        "import compound_ray_tpu_torch.trace.intersect\n"
+        "import compound_ray_tpu_torch.eye.render\n"
+        "import compound_ray_tpu_torch.cameras.raygen\n"
+        "import compound_ray_tpu_torch.cameras.fast_image\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
         "       or m.startswith('jax.') or m == 'compound_ray_tpu'\n"
         "       or m.startswith('compound_ray_tpu.')]\n"

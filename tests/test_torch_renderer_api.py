@@ -163,8 +163,9 @@ def test_full_reference_scene(test_scene_path):
     r.set_render_size(24, 18)
     while r.is_compound_eye_active():
         r.next_camera()
-    with pytest.raises(NotImplementedError, match="real cameras"):
-        r.render_frame()  # a real camera's image is not ported yet
+    r.render_frame()  # a real camera's image
+    frame = r.get_frame_pointer()
+    assert frame.shape == (18, 24, 4) and frame[..., :3].any()
     assert r.goto_camera_by_name("insect-cam-2")
     assert r.is_compound_eye_active()
     r.set_current_eye_samples_per_ommatidium(2)
