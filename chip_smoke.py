@@ -13,7 +13,8 @@ shadow rays on K3); then the kernel-measurement tools' path, the probes
 (K4, K5, and K1 for real_bary) and the skinny-K dot bench (K6), at the
 tools' full sizes; then the API surface through the ctypes shim at 640 x
 480 (raw samples, the eight projections, pipelined frames); then the real
-cameras at 640 x 480 and the brute-force oracle.  Phases, each
+cameras at 640 x 480 and the brute-force oracle; then bursts, pose
+batches, the eye tools and the viewer.  Phases, each
 failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
@@ -57,7 +58,22 @@ failing loudly:
      frame (K1, K3) against the oracle on the canopy scene and the bench
      eye; lit raw samples through the oracle at 100 samples against their
      means frame; the oracle's time at its chosen ray chunk and at 512; and
-     the host syncs of one unsynced pinhole frame.
+     the host syncs of one unsynced pinhole frame;
+ 10. bursts, pose batches, the eye tools and the viewer, counted as a path:
+     render_frames_pipelined at 1 x 256, 100 x 10 and lit 100 x 10 samples
+     x frames (stacked: one K1 launch, K3 once when lit) and 3200 x 10
+     (scanned), each against as many render_frame() calls (bit-equal or
+     within BURST_ATOL), timed against the synced frames and the per-frame
+     loop, with its launches and host syncs (the path's launches must be
+     exactly those of its sections), and, after the path, a stacked
+     burst's K1 on its own inputs against the twin and against the
+     single-frame layout;
+     render_batch_poses over 20 poses at 100 samples against synced
+     set-pose frames and the unsynced pose stream, the batch of a 1e-5
+     degree copy of the eye against its frames, and the device memory
+     after 50 more batches; relax_gradient on the card against the CPU,
+     the variance mapper and the sample-rate finder on the card, and five
+     viewer ticks with keys held.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
 card and {"ok": true, "device": ...}.
@@ -133,6 +149,25 @@ SMALL_W, SMALL_H = 64, 48
 LIT_ORACLE_ATOL = 2e-3
 LIT_ORACLE_SHARE = 0.01
 RAW_LIT_SAMPLES = 100
+# phase 10: the bursts as (samples, frames, lit) (bench.py:449-464 for 1 x
+# 256; 3200 x 10 goes scanned, the others stacked), the pose batch of
+# bench.py:130-180 (N_POSES poses uniform +-0.5 around the bench pose at
+# POSE_SAMPLES samples), the batches of the memory check, and the checks: a
+# burst's last means against as many render_frame() calls, bit-equal or
+# within BURST_ATOL with K1's per-ray results bit-equal at the burst's and
+# the frames' layouts; the pose batch on a 1e-5 degree copy of the eye
+# against sequential frames (MEANS_ATOL); relax_gradient on the card
+# against the CPU over RELAX_STEPS steps from RELAX_POINTS well-spaced
+# points (a relaxation is chaotic where points crowd, so only a short run
+# can agree); the viewer's ticks
+BURSTS = ((1, 256, False), (100, 10, False), (100, 10, True),
+          (3200, 10, False))
+BURST_ATOL = 1e-6
+N_POSES = 20
+POSE_SAMPLES = 100
+MEMORY_BATCHES = 50
+RELAX_POINTS, RELAX_STEPS, RELAX_ATOL = 1000, 10, 1e-5
+VIEWER_TICKS = 5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE))
@@ -1598,6 +1633,402 @@ def real_cameras_phase(r, cam, card: str, count) -> dict:
     return k2i
 
 
+def _burst_layout_k1(calls, got_means, want_means, samples, n, g):
+    """The burst's K1 launch (the last of `calls`, recorded as the burst
+    made it) against its twin, and its per-ray results against K1 at the
+    single-frame layout: frames 0 and n - 1 cut out of the stacked rays,
+    padded as a frame pads its group's block, and traced alone must give
+    the same t, u, v and slot on every live ray, bit for bit."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.testing import hit_agreement
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        packed_tracer_reference,
+        run_packed_tracer,
+    )
+
+    rc, pmm, rays, kw, got = calls[-1]
+    ng, rb2 = kw["ng"], kw["rb_size"]
+    if kw["nrb"] != 1 or rb2 != P._ceil_to(g * n * samples, 256):
+        raise AssertionError(f"the burst's K1 layout {kw} is not one block "
+                             f"of {g} x {n} x {samples} rays per group")
+    ref = packed_tracer_reference(rc, pmm, rays, **kw)
+    agree, max_abs, max_rel = hit_agreement(ref, got, rc, rb2)
+    rb = P._ceil_to(g * samples, 256)
+    live = (rc > 0)[:, None, None]
+
+    def frame_cols(x, f):  # (C, ng * rb2) -> frame f's (C, ng, g * S)
+        c = x.shape[0]
+        return (x.reshape(c, ng, rb2)[:, :, :g * n * samples]
+                .reshape(c, ng, g, n, samples)[:, :, :, f]
+                .reshape(c, ng, g * samples))
+
+    layout_differ = 0
+    for f in (0, n - 1):
+        one = frame_cols(rays, f)
+        one = torch.nn.functional.pad(one, (0, rb - g * samples),
+                                      mode="replicate").reshape(16, ng * rb)
+        out1 = run_packed_tracer(rc, pmm, one.contiguous(), ng=ng, nrb=1,
+                                 rb_size=rb, rmax=kw["rmax"])
+        a = frame_cols(got, f)[:4]
+        b = out1.reshape(8, ng, rb)[:4, :, :g * samples]
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        layout_differ += int((~same.all(dim=0) & live[:, :, 0]).sum().item())
+    diff = float(np.abs(got_means - want_means).max())
+    res = dict(k1_shape=dict(ng=ng, rb_size=rb2, rmax=kw["rmax"],
+                             rays=int(rays.shape[1])),
+               k1_slot_agree=agree, k1_max_abs_err=max_abs,
+               k1_max_rel_err=max_rel, k1_rays_differ_from_frame_layout=(
+                   layout_differ),
+               k1_ms=time_ms(lambda: run_packed_tracer(rc, pmm, rays, **kw),
+                             reps=10, warmup=2),
+               k1_frame_layout_ms=time_ms(
+                   lambda: run_packed_tracer(rc, pmm, one.contiguous(),
+                                             ng=ng, nrb=1, rb_size=rb,
+                                             rmax=kw["rmax"]),
+                   reps=10, warmup=2))
+    if not (agree >= SLOT_AGREE and max_rel <= T_RTOL):
+        raise AssertionError(f"K1 at the burst layout disagrees with its "
+                             f"twin: {res}")
+    if layout_differ or not (diff == 0.0 or diff <= BURST_ATOL):
+        raise AssertionError(f"the burst differs from its frames: max abs "
+                             f"{diff}, {res}")
+    return res
+
+
+def _settle_lit(r, n):
+    """Lit: render passes of n synced frames until one leaves the shadow
+    plan's corrective mode as it found it (at most 4), so a reference pass
+    after it meets no replan."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    splan = P.scene_plan(r.scene, r.device)
+    cam = r.current_camera()
+    for _ in range(4):
+        state = (splan.shadow_sound_all, len(splan.shadow_unsound_groups))
+        cam.rng_frame = 0
+        for _ in range(n):
+            r.render_frame()
+        if state == (splan.shadow_sound_all,
+                     len(splan.shadow_unsound_groups)) and splan.shadow_store:
+            return state
+    raise AssertionError("the lit frames kept replanning their shadows")
+
+
+def _tally() -> dict:
+    """The K1, K2 and K3 launch counts now."""
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
+            if k in ("k1", "k2", "k3")}
+
+
+def _counted(sections: dict, name: str, fn):
+    """fn()'s result; its K1, K2 and K3 launches go to sections[name]."""
+    before = _tally()
+    out = fn()
+    sections[name] = {k: v - before[k] for k, v in _tally().items()}
+    return out
+
+
+def _sum_launches(parts) -> dict:
+    return {k: sum(p[k] for p in parts) for k in ("k1", "k2", "k3")}
+
+
+def burst_case(r, cam, samples: int, n: int, lit: bool):
+    """Phase 10: one burst at the bench pose.  n synced render_frame()
+    calls from rng_frame 0 are the reference (after a warm-up frame, or
+    settled passes when lit); then n render_frame(sync=False) calls and
+    one sync (the per-frame loop), and render_frames_pipelined(n), each
+    from rng_frame 0 and timed with CUDA events; the burst's host syncs
+    and the timed burst's peak device memory.  Every launch of the case
+    falls in one of its sections (res["launches"]), each burst's exactly
+    one K1 stacked (K3 too when lit) or n scanned.  Returns (res, what
+    _burst_layout_k1 takes for a stacked burst, else None): that check
+    launches K1 itself, so it runs after the path."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    r.set_lighting(lit)
+    r.set_current_eye_samples_per_ommatidium(samples)
+    splan = P.scene_plan(r.scene, r.device)
+    start, sections = _tally(), {}
+    # the warm-up frame (lit: the settled passes) plans the pose at these
+    # samples
+    state = _counted(sections, "warm-up", lambda: _settle_lit(r, n) if lit
+                     else r.render_frame())
+
+    def from_zero(fn):
+        cam.rng_frame = 0
+        return _events_ms(fn)[1]
+
+    def loop(sync):
+        for _ in range(n):
+            r.render_frame(sync=sync)
+        r.sync()
+
+    res = dict(samples=samples, frames=n, lit=lit,
+               stacked=1 < n * samples <= P.STACK_BURST_MAX_SAMPLES)
+    res["synced_ms_per_frame"] = _counted(
+        sections, "synced frames", lambda: from_zero(lambda: loop(True))) / n
+    want = r.get_camera_data().copy()
+    if lit and state != (splan.shadow_sound_all,
+                         len(splan.shadow_unsound_groups)):
+        raise AssertionError("a lit reference frame replanned its shadows")
+    res["loop_ms_per_frame"] = _counted(
+        sections, "per-frame loop",
+        lambda: from_zero(lambda: loop(False))) / n
+    calls = []
+    real = P.run_packed_tracer
+
+    def record(row_counts, packed_mm, rays, **kw):
+        out = real(row_counts, packed_mm, rays, **kw)
+        calls.append((row_counts, packed_mm, rays, kw, out))
+        return out
+
+    P.run_packed_tracer = record
+    try:
+        res["first_burst_ms_per_frame"] = _counted(
+            sections, "burst", lambda: from_zero(
+                lambda: r.render_frames_pipelined(n))) / n
+    finally:
+        P.run_packed_tracer = real
+    torch.cuda.reset_peak_memory_stats()
+    res["burst_ms_per_frame"] = _counted(
+        sections, "timed burst", lambda: from_zero(
+            lambda: r.render_frames_pipelined(n))) / n
+    res["burst_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    got = r.get_camera_data().copy()
+    _check_means(got, f"burst {samples} x {n}", lit=lit)
+    if cam.rng_frame != n:
+        raise AssertionError(f"the burst left rng_frame {cam.rng_frame}")
+    diff = float(np.abs(got - want).max())
+    res.update(bit_equal=bool(np.array_equal(got, want)), max_abs_diff=diff)
+    cam.rng_frame = 0
+    res["host_syncs_per_burst"] = _counted(
+        sections, "host-sync burst",
+        lambda: _host_syncs(lambda: r.render_frames_pipelined(n)))
+    r.set_lighting(False)
+    res["launches"] = sections
+    total = {k: v - start[k] for k, v in _tally().items()}
+    want_k1 = 1 if res["stacked"] else n
+    burst = dict(k1=want_k1, k2=0, k3=want_k1 if lit else 0)
+    if (total != _sum_launches(sections.values())
+            or sections["synced frames"] != sections["per-frame loop"]
+            or any(sections[b] != burst for b in (
+                "burst", "timed burst", "host-sync burst"))):
+        raise AssertionError(f"the burst case launched {total}: {res}")
+    if res["stacked"]:
+        return res, (calls, got, want, samples, n,
+                     P.eye_plan(cam.ommatidia, samples).g)
+    if not diff <= BURST_ATOL:
+        raise AssertionError(f"the scanned burst differs from its frames: "
+                             f"{res}")
+    return res, None
+
+
+def pose_batch(r, cam) -> dict:
+    """Phase 10: bench.py's pose sweep (N_POSES poses uniform +-0.5 around
+    the bench pose, identity rotation, POSE_SAMPLES samples, warmed with 3
+    other poses): render_batch_poses, the synced set-pose frames and the
+    unsynced pose stream, each timed with CUDA events; the batch on a
+    1e-5 degree copy of the bench eye against its sequential frames; and
+    the device memory after MEMORY_BATCHES more batches of new poses."""
+    from compound_ray_tpu_torch.cameras.types import CompoundEyeCamera
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.testing import make_sphere_eye
+    from compound_ray_tpu_torch.trace import mm_tracer
+
+    rng = np.random.default_rng(0)
+    base = np.asarray(cam.position, np.float64)
+    poses = base[None, :] + rng.uniform(-0.5, 0.5, (N_POSES, 3))
+    poses2 = base[None, :] + rng.uniform(-0.5, 0.5, (N_POSES, 3))
+    r.set_current_eye_samples_per_ommatidium(POSE_SAMPLES)
+    for p in base[None, :] + np.random.default_rng(1).uniform(
+            -0.5, 0.5, (3, 3)):
+        cam.set_position(tuple(p))
+        r.render_frame()
+    batch = [(tuple(p), np.eye(3)) for p in poses]
+    r.render_batch_poses(batch)  # the folded eye's plans
+    k1 = mm_tracer.launches
+    out, ms = _events_ms(lambda: r.render_batch_poses(batch))
+    res = dict(poses=N_POSES, samples=POSE_SAMPLES,
+               batch_launches_k1=mm_tracer.launches - k1,
+               batch_ms_per_pose=ms / N_POSES)
+    if out.shape != (N_POSES, N_OMM, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"render_batch_poses gave {out.shape}")
+
+    def sweep(ps, sync):
+        for p in ps:
+            cam.set_position(tuple(p))
+            r.render_frame(sync=sync)
+        r.sync()
+
+    res["synced_ms_per_pose"] = _events_ms(lambda: sweep(poses, True))[1] \
+        / N_POSES
+    res["stream_ms_per_pose"] = _events_ms(lambda: sweep(poses2, False))[1] \
+        / N_POSES
+    cam.set_position(tuple(base))
+
+    still = CompoundEyeCamera("bench-eye-1e-5", "single_dimension_fast",
+                              make_sphere_eye(N_OMM, acceptance_deg=1e-5))
+    r.scene.cameras.append(still)
+    r.goto_camera(len(r.scene.cameras) - 1)
+    still.set_samples_per_ommatidium(POSE_SAMPLES)
+    got = r.render_batch_poses(batch)
+    seq = []
+    for p in poses:
+        still.set_position(tuple(p))
+        r.render_frame()
+        seq.append(r.get_camera_data().copy())
+    res["still_eye_batch_vs_sequential_max_abs"] = float(
+        np.abs(got - np.stack(seq)).max())
+    r.scene.cameras.pop()
+    r.goto_camera(r.scene.cameras.index(cam))
+    if not res["still_eye_batch_vs_sequential_max_abs"] <= MEANS_ATOL:
+        raise AssertionError(f"the pose batch vs its frames: {res}")
+
+    splan = P.scene_plan(r.scene, r.device)
+
+    def held_mb():
+        """(allocated, the pack LRU's tensors, the eye plans' device
+        copies) in MB."""
+        torch.cuda.synchronize()
+        packs = sum(_nbytes(*v) for v in splan.packed_store.values())
+        eyes = sum(_nbytes(*t) for e in P._eye_plans.values()
+                   for t in e._dev.values())
+        return [round(x / 2**20, 1) for x in (
+            torch.cuda.memory_allocated(), packs, eyes)]
+
+    plans0, mem = len(P._eye_plans), {0: held_mb()}
+    t0 = time.perf_counter()
+    for i in range(1, MEMORY_BATCHES + 1):
+        r.render_batch_poses([(tuple(p), np.eye(3)) for p in base[None, :]
+                              + rng.uniform(-0.5, 0.5, (N_POSES, 3))])
+        if i in (1, 4, 10, 25, MEMORY_BATCHES):
+            mem[i] = held_mb()
+    res.update(memory_batches=MEMORY_BATCHES,
+               memory_batches_s=time.perf_counter() - t0,
+               mb_allocated_packs_eye_plans_after_batches=mem,
+               device_mb_growth=mem[MEMORY_BATCHES][0] - mem[0][0],
+               eye_plans_added=len(P._eye_plans) - plans0,
+               packs_held=len(splan.packed_store))
+    return res
+
+
+def tools_and_viewer() -> dict:
+    """Phase 10: relax_gradient on the card against the CPU, the tool's
+    default run on the card, the variance mapper's and the sample-rate
+    finder's library calls on the card (the box scene and the 12-ommatidium
+    icosphere eye, as tests/test_torch_tools.py), and VIEWER_TICKS viewer
+    ticks with keys held, each with its frame."""
+    from compound_ray_tpu_torch import EyeRenderer
+    from compound_ray_tpu_torch.cameras.types import CompoundEyeCamera
+    from compound_ray_tpu_torch.gui.viewer import Viewer
+    from compound_ray_tpu_torch.scene.eye_io import icosphere_eye
+    from compound_ray_tpu_torch.testing import make_box_scene, make_sphere_eye
+    from compound_ray_tpu_torch.tools import (
+        eye_generator,
+        minimum_sample_rate_finder,
+        variance_mapper,
+    )
+
+    spread = np.stack([o.direction for o in make_sphere_eye(RELAX_POINTS)])
+    spread /= np.linalg.norm(spread, axis=1, keepdims=True)
+    card = eye_generator.relax_gradient(spread, iterations=RELAX_STEPS,
+                                        device="cuda")
+    cpu = eye_generator.relax_gradient(spread, iterations=RELAX_STEPS,
+                                       device="cpu")
+    res = dict(relax_card_vs_cpu_max_abs=float(np.abs(card - cpu).max()))
+    start = eye_generator._sphere_random(RELAX_POINTS,
+                                         np.random.default_rng(42))
+    pts, res["relax_default_ms"] = _events_ms(
+        lambda: eye_generator.relax_gradient(start, device="cuda"))
+    res["relax_default_norm_err"] = float(np.abs(
+        np.linalg.norm(pts, axis=1) - 1.0).max())
+    if not (res["relax_card_vs_cpu_max_abs"] <= RELAX_ATOL
+            and res["relax_default_norm_err"] <= 1e-5):
+        raise AssertionError(f"relax_gradient: {res}")
+
+    r = EyeRenderer(verbose=False, device="cuda")
+    r.scene = make_box_scene(background="default_background")
+    r.scene.cameras.append(CompoundEyeCamera(
+        "eye", "single_dimension_fast", icosphere_eye()))
+    r.set_render_size(12, 1)
+    sd = variance_mapper.per_ommatidium_sd(r, samples=2, repeat=4)
+    vmap = variance_mapper.map_variance_over_grid(
+        r, [(0.0, 0.0, 0.0), (0.1, 0.0, 0.0)], samples=2, repeat=3)
+    var = minimum_sample_rate_finder.variance_of_repeated_renders(r, 2, 4)
+    min_s, sds = minimum_sample_rate_finder.find_minimum_samples(
+        r, cutoff_percent=0.5, repeat=3, max_samples=8)
+    res.update(variance_sd_max=float(sd.max()),
+               variance_map_shape=list(vmap.shape), min_samples=min_s,
+               sample_sds=sds)
+    if not (sd.shape == (12,) and sd.max() > 0 and vmap.shape == (2, 12)
+            and np.isfinite(vmap).all() and var.shape == (12,)
+            and min_s >= 1 and sds):
+        raise AssertionError(f"the variance tools: {res}")
+
+    r = EyeRenderer(verbose=False, device="cuda")
+    r.scene = make_box_scene(background="white")
+    r.scene.cameras.append(CompoundEyeCamera(
+        "eye", "spherical_orientationwise", make_sphere_eye(24)))
+    v = Viewer(r, width=64, height=48)
+    p0 = np.array(r.current_camera().position)
+    for key in ("w", "a", "left", "up", "q"):
+        v.handle_key(key)
+    frames = []
+    for _ in range(VIEWER_TICKS):
+        v.tick()
+        frames.append(v.frame())
+    res["viewer_moved"] = float(np.linalg.norm(
+        np.array(r.current_camera().position) - p0))
+    if not (res["viewer_moved"] > 0 and all(
+            f.shape == (48, 64, 3) and f.dtype == np.uint8 for f in frames)):
+        raise AssertionError(f"the viewer: {res}")
+    return res
+
+
+def bursts_phase(r, cam, card: str, count) -> None:
+    """Phase 10: the bursts, the pose batch, the tools and the viewer, as
+    one path counted by `count` (main's launch tally), whose launches must
+    be exactly those of its sections; then each stacked burst's K1 check,
+    outside the path; prints each result with the card."""
+    t0 = time.perf_counter()
+    cam.set_projection("single_dimension_fast")  # phase 9 left raw samples
+    r.set_lighting(False)
+    sections = {}
+
+    def run():
+        cases = [burst_case(r, cam, *b) for b in BURSTS]
+        for (res, _), b in zip(cases, BURSTS):
+            sections["burst %d x %d%s" % (b[0], b[1], " lit" * b[2])] = (
+                _sum_launches(res["launches"].values()))
+        return (cases, _counted(sections, "pose batch",
+                                lambda: pose_batch(r, cam)),
+                _counted(sections, "tools and viewer", tools_and_viewer))
+
+    res_n = _path(r, "bursts, pose batches, tools and viewer", run, phase=10)
+    cases, batch, tools = count(res_n)[0]
+    n = res_n[1]
+    if not (n["k1"] > 0 and n["k3"] > 0 and n["k4"] == n["k5"] == n["k6"]
+            == 0 and {k: n[k] for k in ("k1", "k2", "k3")}
+            == _sum_launches(sections.values())):
+        raise AssertionError(f"phase 10 launched {n}, its sections "
+                             f"{sections}")
+    print(f"phase 10: launches by section: {json.dumps(sections)}")
+    for (b, check) in cases:
+        if check is not None:
+            b.update(_burst_layout_k1(*check))
+        print(f"phase 10: burst {b['samples']} samples x {b['frames']} "
+              f"frames{' lit' if b['lit'] else ''} "
+              f"({'stacked' if b['stacked'] else 'scanned'}), {card}: "
+              f"{json.dumps(b)} (last means vs as many render_frame() calls "
+              f"bit-equal or within {BURST_ATOL}; K1 winners >= "
+              f"{SLOT_AGREE}, t rtol {T_RTOL})")
+    print(f"phase 10: pose batch, {card}: {json.dumps(batch)} (1e-5 degree "
+          f"eye: batch vs frames <= {MEANS_ATOL})")
+    print(f"phase 10: tools and viewer, {card}: {json.dumps(tools)} "
+          f"(relax_gradient card vs CPU <= {RELAX_ATOL})")
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -1788,6 +2219,7 @@ def main() -> int:
           f" {len(syncs)} {json.dumps(syncs)}")
 
     k2i = real_cameras_phase(r, cam, card, count)
+    bursts_phase(r, cam, card, count)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,

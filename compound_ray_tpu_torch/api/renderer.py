@@ -32,9 +32,14 @@ brute-force oracle (cameras/raygen.py).  config.backend = "naive" renders
 every compound frame through the oracle (eye/render.py) as well; raw
 samples with lighting on always take it.
 
-What this slice of the port refuses, loudly: .blend scenes;
-render_batch_poses and the one-dispatch burst of render_frames_pipelined
-are not ported (ROADMAP.md, queue 1).
+render_frames_pipelined(n) on a compound eye (not raw samples, backend
+"auto" or "pallas") renders a burst: one plan, n frames stacked into one
+K1 launch or one frame core each (eye/pipeline.py render_means_frames),
+one sync.  render_batch_poses folds B poses into the ommatidium axis and
+renders them as one frame.
+
+What this slice of the port refuses, loudly: .blend scenes (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from compound_ray_tpu_torch.eye.pipeline import (
     canonical_device,
     mark_shadow_unsound,
     render_means,
+    render_means_frames,
     render_samples,
 )
 from compound_ray_tpu_torch.eye.render import (
@@ -200,11 +206,9 @@ class EyeRenderer:
             raise RuntimeError("renderFrame: the scene has no cameras")
         t0 = time.perf_counter()
         cam = self.current_camera()
-        display = self.require_noncompound_pipeline and (
-            self.width * self.height > 0)
         if isinstance(cam, CompoundEyeCamera):
-            self._render_compound(cam, display)
-        elif display:
+            self._render_compound(cam)
+        elif self._display():
             # the kind and its parameter (compound_ray_tpu/api/renderer.py:
             # 294-315); an unknown camera type renders as a pinhole
             if isinstance(cam, PerspectiveCamera):
@@ -225,50 +229,76 @@ class EyeRenderer:
         self._log(f"Rendered frame in {ms}ms.")
         return ms
 
-    def _render_compound(self, cam: CompoundEyeCamera, display: bool) -> None:
-        """Queue one compound-eye frame: means or raw samples, then the
-        projection into the display buffer when `display`
-        (compound_ray_tpu/api/renderer.py:238-279)."""
+    def _generator(self, frame: int) -> torch.Generator:
+        """The generator of an eye's frame `frame` on the device."""
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(frame_seed(get_config().base_seed,
-                                         cam.rng_frame))
-        args = (self.scene, self.scene.device_triangles(self.device),
-                cam.ommatidia, np.asarray(cam.position, np.float32),
-                np.asarray(cam.local_space, np.float32), generator,
-                cam.samples_per_ommatidium,
-                miss_id(self.scene.background_shader))
-        lit = self.lighting and self._lights is not None
-        naive = get_config().backend == "naive"
+        generator.manual_seed(frame_seed(get_config().base_seed, frame))
+        return generator
+
+    def _frame_args(self, omms: np.ndarray, pos, ls, generator,
+                    samples: int) -> tuple:
+        """render_means' positional arguments for an eye on the scene
+        (render_means_frames' with a list of generators)."""
+        return (self.scene, self.scene.device_triangles(self.device), omms,
+                np.asarray(pos, np.float32), np.asarray(ls, np.float32),
+                generator, samples, miss_id(self.scene.background_shader))
+
+    def _lit(self) -> bool:
+        return self.lighting and self._lights is not None
+
+    def _render_means(self, args) -> torch.Tensor:
+        """(N, 3) means of one frame on the device
+        (compound_ray_tpu/api/renderer.py:644-704): the oracle under
+        backend="naive", else the packed frame; a lit one keeps its shadow
+        audit for the next sync()."""
+        lit = self._lit()
+        if get_config().backend == "naive":
+            return self._oracle(render_compound_means, args, lit)
+        out = render_means(*args, lights=self._lights if lit else None,
+                           shadow_audit=lit)
+        if lit:
+            out, self._pending_shadow_audit = out
+        return out
+
+    def _display(self) -> bool:
+        """True when a frame is drawn into the display buffer."""
+        return self.require_noncompound_pipeline and (
+            self.width * self.height > 0)
+
+    def _render_compound(self, cam: CompoundEyeCamera) -> None:
+        """Queue one compound-eye frame: means or raw samples, then the
+        projection into the display buffer
+        (compound_ray_tpu/api/renderer.py:238-279)."""
+        args = self._frame_args(cam.ommatidia, cam.position, cam.local_space,
+                                self._generator(cam.rng_frame),
+                                cam.samples_per_ommatidium)
         if cam.projection == "raw_ommatidial_samples":
             # the packed pipeline renders unlit samples; lit ones and every
             # frame under backend="naive" take the oracle
             # (compound_ray_tpu/api/renderer.py:609-642)
-            if lit or naive:
-                self._raw_samples = self._oracle(
-                    render_compound_samples, args, lit)
+            lit = self._lit()
+            if lit or get_config().backend == "naive":
+                raw = self._oracle(render_compound_samples, args, lit)
             else:
-                self._raw_samples = render_samples(*args)
-            self._device_means = self._raw_samples.mean(dim=0)
+                raw = render_samples(*args)
+            self._end_frames(cam, raw.mean(dim=0), raw, 1)
         else:
-            self._raw_samples = None
-            if naive:  # compound_ray_tpu/api/renderer.py:644-704
-                self._device_means = self._oracle(render_compound_means,
-                                                  args, lit)
-            else:
-                out = render_means(*args,
-                                   lights=self._lights if lit else None,
-                                   shadow_audit=lit)
-                if lit:
-                    out, self._pending_shadow_audit = out
-                self._device_means = out
+            self._end_frames(cam, self._render_means(args), None, 1)
+
+    def _end_frames(self, cam: CompoundEyeCamera, means, raw, n: int) -> None:
+        """Keep the last of n queued frames' means (and raw samples),
+        advance the eye's frame count by n and, when displayed, project
+        the frame into the display buffer on the device."""
+        self._device_means, self._raw_samples = means, raw
         self._camera_data = None
-        cam.rng_frame += 1
-        if display:
-            _, omm_pos, omm_dir = cam.device_ommatidia(self.device)
-            self._device_frame = project_frame(
-                cam.projection, self._device_means, self._raw_samples,
-                omm_pos, omm_dir, self.width, self.height)
-            self._frame_buffer = None
+        cam.rng_frame += n
+        if not self._display():
+            return
+        _, omm_pos, omm_dir = cam.device_ommatidia(self.device)
+        self._device_frame = project_frame(
+            cam.projection, self._device_means, self._raw_samples, omm_pos,
+            omm_dir, self.width, self.height)
+        self._frame_buffer = None
 
     def _oracle(self, fn, args, lit: bool) -> torch.Tensor:
         """fn (render_compound_samples or render_compound_means) on the
@@ -313,13 +343,51 @@ class EyeRenderer:
     def render_frames_pipelined(self, n: int) -> float:
         """Render n frames with no sync between them and one at the end;
         returns the total wall milliseconds
-        (compound_ray_tpu/api/renderer.py:452, its per-frame branch).  The
-        frames draw the same angles as n render_frame() calls."""
+        (compound_ray_tpu/api/renderer.py:452).  The frames draw the same
+        angles as n render_frame() calls and leave the same camera data and
+        display buffer.
+
+        On the burst route (_burst_route) the n frames are one burst: one
+        plan at the pose, the frames stacked into one frame core (one K1
+        launch) or one frame core each (render_means_frames); only the last
+        frame's means are kept and projected.  As in the JAX package, a
+        burst records no per-frame time in frame_times_ms and does not
+        audit its lit frames against their shadow shafts.  Elsewhere (raw
+        samples, backend="naive", a real camera) it renders n unsynced
+        frames."""
         t0 = time.perf_counter()
-        for _ in range(n):
-            self.render_frame(sync=False)
+        if n > 0 and self._burst_route() is not None:
+            cam = self.current_camera()
+            gens = [self._generator(cam.rng_frame + f) for f in range(n)]
+            args = self._frame_args(cam.ommatidia, cam.position,
+                                    cam.local_space, gens,
+                                    cam.samples_per_ommatidium)
+            means = render_means_frames(
+                *args, lights=self._lights if self._lit() else None)
+            self._end_frames(cam, means[-1], None, n)
+        else:
+            for _ in range(n):
+                self.render_frame(sync=False)
         self.sync()
         return (time.perf_counter() - t0) * 1000.0
+
+    def _scan_frames_ok(self) -> bool:
+        """True when render_frames_pipelined renders a burst."""
+        return self._burst_route() is not None
+
+    def _burst_route(self) -> Optional[str]:
+        """The burst render_frames_pipelined takes
+        (compound_ray_tpu/api/renderer.py:537): "pallas" for a compound
+        eye that is not raw_ommatidial_samples under backend "auto" or
+        "pallas", else None (frame by frame).  There is no "sharded"
+        burst: the port renders on one device."""
+        if self.scene is None or not self.scene.cameras:
+            return None
+        cam = self.current_camera()
+        if (not isinstance(cam, CompoundEyeCamera)
+                or cam.projection == "raw_ommatidial_samples"):
+            return None
+        return "pallas" if get_config().backend in ("auto", "pallas") else None
 
     def _note_frame_time(self, ms: float) -> None:
         """Append a frame's wall time to frame_times_ms; past 10,000 entries
@@ -548,6 +616,45 @@ class EyeRenderer:
             if name.startswith(_SHADER_PREFIX):
                 name = name[len(_SHADER_PREFIX):]
             self.current_camera().set_projection(name)
+
+    def render_batch_poses(self, poses) -> np.ndarray:
+        """(B, N, 3) means of the current compound eye at B poses in one
+        frame (compound_ray_tpu/api/renderer.py:864).  `poses` holds
+        (position (3,), rotation (3,)) pairs with set_camera_pose's
+        rotation semantics, or (position, local space (3, 3)) pairs.  Each
+        pose's ommatidia go to world space and the B eyes fold into the
+        ommatidium axis of one eye, rendered at the identity pose with the
+        generator of the eye's next frame (rng_frame advances by 1).  NaN
+        rows are zeroed, as get_camera_data zeroes them."""
+        if not self.is_compound_eye_active():
+            raise RuntimeError("render_batch_poses needs a compound eye")
+        cam = self.current_camera()
+        base = cam.ommatidia  # (N, 8)
+        n = base.shape[0]
+        b = len(poses)
+        pos_all = np.empty((b, 3), np.float64)
+        ls_all = np.empty((b, 3, 3), np.float64)
+        for i, (pos, rot) in enumerate(poses):
+            probe = PerspectiveCamera("pose-probe")
+            if np.asarray(rot).shape == (3, 3):
+                probe.set_position(pos)
+                probe.local_space = np.asarray(rot, np.float64)
+            else:
+                probe.set_pose(*pos, *rot)
+            pos_all[i] = probe.position
+            ls_all[i] = probe.local_space
+        all_omms = np.broadcast_to(base[None], (b, n, base.shape[1])).copy()
+        all_omms[:, :, 0:3] = (np.einsum("nc,bcd->bnd", base[:, 0:3], ls_all)
+                               + pos_all[:, None, :])
+        all_omms[:, :, 3:6] = np.einsum("nc,bcd->bnd", base[:, 3:6], ls_all)
+        all_omms = all_omms.reshape(b * n, base.shape[1]).astype(np.float32)
+        means = self._render_means(self._frame_args(
+            all_omms, np.zeros(3), np.eye(3), self._generator(cam.rng_frame),
+            cam.samples_per_ommatidium))
+        cam.rng_frame += 1
+        out = means.cpu().numpy().astype(np.float32)
+        out[np.isnan(out[:, 0])] = 0.0
+        return out.reshape(b, n, 3)
 
     def get_camera_data(self) -> np.ndarray:
         """Per-ommatidium mean radiance (N, 3) float32, NaN rows zeroed

@@ -18,6 +18,10 @@ Per frame:
      attributes -> texture -> GGX direct light with shadow rays on K3 when
      lit -> miss shading or the far-field cache -> per-ommatidium mean,
      returned in the original ommatidium order.
+A burst (render_means_frames) plans once and renders F frames at the
+pose, stacked on the sample axis into one frame core or one frame core
+each; raw samples (render_samples) are the frame core's samples before
+the mean.
 
 Ommatidia are permuted by view direction so that groups of G neighbours
 share coherent shortlists (G shrinks to 1 once an ommatidium's samples fill
@@ -29,7 +33,7 @@ modes, direct1, the uv/uvs/flat/loc emit variants (the lit path's one-hot
 local resolve is a plain indexed gather here), affine primary rays, the
 shadow table's rows-per-block and shard layouts, speculative widths, the
 polynomial equirect addressing (FAST_EQUIRECT), bf16 texture-and-cache
-tables, bursts, raw samples and the sharded path.
+tables and the sharded path.
 """
 
 from __future__ import annotations
@@ -936,12 +940,15 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         sky_means=None, sky_scatter=None, lights=None,
                         slot_tri=None, shading_rows=None, shadow=None,
                         shadow_audit: bool = False, shadow_tracer=None,
-                        want_samples: bool = False):
+                        want_samples: bool = False, frames: int = 1):
     """Angle-parameterised frame core: trace + shade + reduce
     (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1545).  Returns
     (Np, 3) means in permuted order, or (means, audit) for a lit frame with
     shadow_audit; with want_samples, the (Np, S, 3) samples before the mean
-    (:1516-1517).  `tracer` defaults to
+    (:1516-1517).  frames = F > 1 is a stacked burst (:1518-1536):
+    `samples` is then F * S, column f * S + s of splay and spin is frame
+    f's sample s, and the means are (Np, F, 3), each frame's the same
+    contiguous S-column reduction a single frame makes.  `tracer` defaults to
     run_packed_tracer (K1) and `shadow_tracer` to run_rows_occlusion (K3);
     the chip check passes the twins to render through them.
 
@@ -1029,18 +1036,22 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
         bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
     if want_samples:
         return torch.stack([rr, gg, bb], dim=-1)
-    means = torch.stack([rr.mean(dim=1), gg.mean(dim=1), bb.mean(dim=1)],
-                        dim=-1)
+    means = torch.stack([c.reshape(n_pad, frames, samples // frames)
+                         .mean(dim=2) for c in (rr, gg, bb)],
+                        dim=-1)  # (Np, F, 3)
+    if sky_means is not None:
+        # scatter the live means over the (frame-invariant) sky means;
+        # padding rows land on a dump row past the end, which is cut off
+        n0 = sky_means.shape[0]
+        full = torch.cat([sky_means[:, None, :].expand(n0, frames, 3),
+                          sky_means.new_zeros((1, frames, 3))])
+        full.index_copy_(0, torch.clamp(sky_scatter, max=n0), means)
+        means = full[:n0]
+    if frames == 1:
+        means = means[:, 0]
     if lights is not None and shadow_audit:
         return means, audit
-    if sky_means is None:
-        return means
-    # scatter the live means over the sky means; padding rows land on a
-    # dump row past the end, which is cut off
-    n0 = sky_means.shape[0]
-    full = torch.cat([sky_means, sky_means.new_zeros((1, 3))])
-    full.index_copy_(0, torch.clamp(sky_scatter, max=n0), means)
-    return full[:n0]
+    return means
 
 
 # --------------------------------------------------------------- far field
@@ -1747,26 +1758,20 @@ def _shading_rows(splan, scene_dev):
     return splan.shading_rows
 
 
-def render_means(scene_flat, scene_dev: Dict[str, Any],
-                 omms_np: np.ndarray, position, local_space,
-                 generator: torch.Generator, samples: int, background: int,
-                 lights=None, shadow_audit: bool = False, tracer=None,
-                 cache_tracer=None, shadow_tracer=None):
-    """One frame: (N, 3) mean radiance per ommatidium in the original
-    ommatidium order (compound_ray_tpu/eye/pipeline.py:2676,
-    render_means_pallas, planned as _plan_frame :2516-2673 without the
-    speculative widths).  The frame runs on the generator's device;
-    scene_dev must live there too.  position (3,) and local_space (3, 3)
-    are host arrays: the pose keys the memoised plans.
-
-    lights (L, 7) host rows [colour, intensity, position] light the frame:
-    the far-field cache and the sky split are off, the dense pack is traced
-    by K1 and the shadow rays by K3 over the memoised shadow plan, whose
-    first build at a pose probes this frame's own rays (one more K1
-    launch).  With shadow_audit a lit frame returns (means, audit), audit
-    = [out-of-shaft hits, hits, per-group out-of-shaft hits] (int64 on the
-    device).  `tracer`, `cache_tracer` and `shadow_tracer` replace K1, K2
-    and K3 (the chip check renders through the twins with them)."""
+def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
+                position, local_space, generator: torch.Generator,
+                samples: int, background: int, lights=None, tracer=None,
+                cache_tracer=None, shadow_tracer=None):
+    """Shared frame planning (compound_ray_tpu/eye/pipeline.py:2516-2673,
+    without the speculative widths): the far-field split and its cache,
+    the sky plan, the widths and the pose's pack, then frame 0's (Np, S)
+    angles from `generator` and, for a lit frame, the memoised shadow plan,
+    whose first build at a pose probes those angles.  Returns (kw,
+    inv_valid): kw holds every _trace_shade_angles argument (frame 0's
+    splay and spin among them) but shadow_audit, and inv_valid (N,) puts
+    the permuted rows back in ommatidium order.  render_means and the
+    bursts both plan here, at S samples, so a burst makes the decisions
+    of its frame 0 (the far-field gate, the sky key, the shadow plan)."""
     device = generator.device
     splan = scene_plan(scene_flat, device)
     eplan = eye_plan(omms_np, samples)
@@ -1813,29 +1818,122 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
          rmax) = sky
     splay, spin = sample_angles_ns(generator, omms_f[:, 6] / FWHM_SD_RATIO,
                                    samples)
-    lit_kw = {}
+    kw = dict(
+        packed_mm=packed_mm, row_counts=row_counts,
+        attr_table=splan.attr_table, scene_dev=scene_dev,
+        quad_table=splan.quad_table, omms_p=omms_f, position=pos,
+        local_space=ls, splay=splay, spin=spin, samples=samples,
+        background=background, ng=ng, g=eplan.g, nrb=eplan.nrb,
+        rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
+        tex_only=splan.tex_only, tracer=tracer, cache=cache,
+        cache_shape=cache_shape, sky_means=sky_means,
+        sky_scatter=sky_scatter)
     if lit:
         lights_np = np.ascontiguousarray(np.asarray(lights, np.float32))
-        lit_kw = dict(
+        kw.update(
             lights=torch.as_tensor(lights_np, device=device),
             slot_tri=splan.slot_tri,
             shading_rows=_shading_rows(splan, scene_dev),
             shadow=_shadow_plan(splan, eplan, omms_p, pos, ls, pose_sig,
                                 lights_np, samples, splay, spin, packed_mm,
                                 row_counts, rmax, tracer=tracer),
-            shadow_audit=shadow_audit, shadow_tracer=shadow_tracer)
-    out = _trace_shade_angles(
-        packed_mm, row_counts, splan.attr_table, scene_dev,
-        splan.quad_table, omms_f, pos, ls, splay, spin, samples=samples,
-        background=background, ng=ng, g=eplan.g, nrb=eplan.nrb,
-        rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
-        tex_only=splan.tex_only, tracer=tracer, cache=cache,
-        cache_shape=cache_shape, sky_means=sky_means,
-        sky_scatter=sky_scatter, **lit_kw)
-    if lit and shadow_audit:
+            shadow_tracer=shadow_tracer)
+    return kw, inv_valid
+
+
+def render_means(scene_flat, scene_dev: Dict[str, Any],
+                 omms_np: np.ndarray, position, local_space,
+                 generator: torch.Generator, samples: int, background: int,
+                 lights=None, shadow_audit: bool = False, tracer=None,
+                 cache_tracer=None, shadow_tracer=None):
+    """One frame: (N, 3) mean radiance per ommatidium in the original
+    ommatidium order (compound_ray_tpu/eye/pipeline.py:2676,
+    render_means_pallas, planned by _plan_frame).  The frame runs on the
+    generator's device; scene_dev must live there too.  position (3,) and
+    local_space (3, 3) are host arrays: the pose keys the memoised plans.
+
+    lights (L, 7) host rows [colour, intensity, position] light the frame:
+    the far-field cache and the sky split are off, the dense pack is traced
+    by K1 and the shadow rays by K3 over the memoised shadow plan, whose
+    first build at a pose probes this frame's own rays (one more K1
+    launch).  With shadow_audit a lit frame returns (means, audit), audit
+    = [out-of-shaft hits, hits, per-group out-of-shaft hits] (int64 on the
+    device).  `tracer`, `cache_tracer` and `shadow_tracer` replace K1, K2
+    and K3 (the chip check renders through the twins with them)."""
+    kw, inv_valid = _plan_frame(
+        scene_flat, scene_dev, omms_np, position, local_space, generator,
+        samples, background, lights=lights, tracer=tracer,
+        cache_tracer=cache_tracer, shadow_tracer=shadow_tracer)
+    audit_on = lights is not None and shadow_audit
+    out = _trace_shade_angles(shadow_audit=audit_on, **kw)
+    if audit_on:
         means_p, audit = out
         return means_p[inv_valid], audit
     return out[inv_valid]
+
+
+# ------------------------------------------------------------------ bursts
+# F frames at one pose on one plan, each frame drawing its angles from its
+# own generator, so every frame is the render_means frame of that generator
+# (compound_ray_tpu/eye/pipeline.py:2744-2887).  Small bursts stack the
+# frames on the sample axis and trace them with one K1 launch; past
+# STACK_BURST_MAX_SAMPLES rays per ommatidium the kernel is no longer
+# launch-bound and the (Np, F * S) temporaries grow, so the frames run one
+# frame core each, with no host sync between them.
+
+STACK_BURST_MAX_SAMPLES = 4096
+
+
+def _frame_angles(kw, generators, samples: int):
+    """Each frame's (splay, spin), (Np, S) each: frame 0's from the plan,
+    frame f's drawn from generators[f] as _plan_frame draws frame 0's."""
+    yield kw["splay"], kw["spin"]
+    sd = kw["omms_p"][:, 6] / FWHM_SD_RATIO
+    for gen in generators[1:]:
+        yield sample_angles_ns(gen, sd, samples)
+
+
+def _render_frames_scanned(kw, angles) -> torch.Tensor:
+    """(F, Np, 3): one frame core per frame on the one plan
+    (compound_ray_tpu/eye/pipeline.py:2744, a lax.scan there)."""
+    return torch.stack([_trace_shade_angles(**dict(kw, splay=sp, spin=sn))
+                        for sp, sn in angles])
+
+
+def _render_frames_stacked(kw, angles) -> torch.Tensor:
+    """(F, Np, 3) from one frame core over the frames stacked on the sample
+    axis (compound_ray_tpu/eye/pipeline.py:2801): column f * S + s is frame
+    f's sample s, so K1 traces the burst in one launch over ray blocks F
+    times longer.  The blocks keep eye_plan's rule, one per group padded to
+    the ray batch; a ray's result does not depend on its block."""
+    splay, spin = (torch.stack(x, dim=1) for x in zip(*angles))  # (Np, F, S)
+    n_pad, f, s = splay.shape
+    out = _trace_shade_angles(**dict(
+        kw, splay=splay.reshape(n_pad, f * s), spin=spin.reshape(n_pad, f * s),
+        samples=f * s, nrb=1, rb_size=_ceil_to(kw["g"] * f * s,
+                                                MM_BATCH_RAYS), frames=f))
+    return out.reshape(out.shape[0], f, 3).transpose(0, 1)
+
+
+def render_means_frames(scene_flat, scene_dev: Dict[str, Any],
+                        omms_np: np.ndarray, position, local_space,
+                        generators, samples: int, background: int,
+                        lights=None, tracer=None, cache_tracer=None,
+                        shadow_tracer=None) -> torch.Tensor:
+    """(F, N, 3) means of F consecutive frames at one pose, frame f drawn
+    from generators[f] (compound_ray_tpu/eye/pipeline.py:2854,
+    render_means_pallas_frames): planned once by _plan_frame from frame 0,
+    then stacked when 1 < F * S <= STACK_BURST_MAX_SAMPLES (one K1 launch;
+    lit, one K3 launch), else scanned (F of each).  Frame f equals
+    render_means(generators[f]) on the same plan.  No frame is audited
+    against its shadow shafts.  The tracers are render_means'."""
+    kw, inv_valid = _plan_frame(
+        scene_flat, scene_dev, omms_np, position, local_space, generators[0],
+        samples, background, lights=lights, tracer=tracer,
+        cache_tracer=cache_tracer, shadow_tracer=shadow_tracer)
+    stacked = 1 < len(generators) * samples <= STACK_BURST_MAX_SAMPLES
+    burst = _render_frames_stacked if stacked else _render_frames_scanned
+    return burst(kw, _frame_angles(kw, generators, samples))[:, inv_valid]
 
 
 def render_samples(scene_flat, scene_dev: Dict[str, Any],

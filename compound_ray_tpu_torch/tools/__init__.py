@@ -1,5 +1,7 @@
-"""The port's kernel-measurement tools (tools/probe_step.py and
-tools/microbench_k.py of the repository, on PyTorch and CUDA):
+"""The port's tools.
+
+The kernel-measurement tools (tools/probe_step.py and tools/microbench_k.py
+of the repository, on PyTorch and CUDA):
 
     python -m compound_ray_tpu_torch.tools.probe_step    # K4, K5 and K1
     python -m compound_ray_tpu_torch.tools.microbench_k  # K6
@@ -8,6 +10,24 @@ Both run on the card by default and write their JSON record under
 build/compound_ray_tpu_torch/ (or to --out).  With --device cpu they run
 the kernels' torch twins at the sizes given, timed on the host clock; such
 a record says so and holds no device time.
+
+The eye tools (compound_ray_tpu/tools/*, each with its main(argv)):
+
+    python -m compound_ray_tpu_torch.tools.eye_generator out.eye -n 1000
+    python -m compound_ray_tpu_torch.tools.eye_transforms rescale in.eye 0.1
+    python -m compound_ray_tpu_torch.tools.eye_visualiser -f in.eye
+    python -m compound_ray_tpu_torch.tools.obj_centerer mesh.obj
+    python -m compound_ray_tpu_torch.tools.minimum_sample_rate_finder -f scene.gltf
+    python -m compound_ray_tpu_torch.tools.variance_mapper -f scene.gltf
+
+eye_generator (its gradient mode), minimum_sample_rate_finder and
+variance_mapper run on the card unless given --device cpu; the others are
+numpy.
+
+    python -m compound_ray_tpu_torch.tools.frame_time --samples 100
+
+times render_frame on the bench configuration on the card (device and
+wall ms per frame, torch operations per frame).
 """
 
 from __future__ import annotations

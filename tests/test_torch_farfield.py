@@ -183,13 +183,19 @@ def _angles(n, samples, seed=11):
 
 
 def _frames(p, jpack, tpack, jcache, tcache, rmax, ng, omms_f, splay, spin,
-            sky=(None, None, None, None)):
-    """Means of both packages' _trace_shade_angles on the same angles."""
+            sky=(None, None, None, None), frames=1):
+    """Means of both packages' _trace_shade_angles on the same angles;
+    frames > 1 stacks that many frames of p.samples each on the sample axis
+    in one ray block per group, padded to 256 rays."""
     jsky_means, jscatter, tsky_means, tscatter = sky
     jo, to = omms_f
     geo = dict(samples=p.samples, background=BG, ng=ng, g=p.je.g,
                nrb=p.je.nrb, rb_size=p.je.rb_size, rmax=rmax,
                textured=p.jsp.textured, tex_only=p.jsp.tex_only)
+    if frames > 1:
+        rg = p.je.g * frames * p.samples
+        geo.update(samples=frames * p.samples, nrb=1,
+                   rb_size=-(-rg // 256) * 256, frames=frames)
     want = np.asarray(JP._trace_shade_angles(
         jpack[1], jpack[0], p.jsp.attr_table, p.jdev, p.jsp.quad_table, jo,
         p.jpos, p.jls, jnp.asarray(splay), jnp.asarray(spin),

@@ -302,6 +302,17 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch.eye.render\n"
         "import compound_ray_tpu_torch.cameras.raygen\n"
         "import compound_ray_tpu_torch.cameras.fast_image\n"
+        "import compound_ray_tpu_torch.gui, compound_ray_tpu_torch.gui.viewer\n"
+        "import compound_ray_tpu_torch.tools.eye_generator\n"
+        "import compound_ray_tpu_torch.tools.eye_transforms\n"
+        "import compound_ray_tpu_torch.tools.eye_visualiser\n"
+        "import compound_ray_tpu_torch.tools.obj_centerer\n"
+        "import compound_ray_tpu_torch.tools.minimum_sample_rate_finder\n"
+        "import compound_ray_tpu_torch.tools.variance_mapper\n"
+        "import compound_ray_tpu_torch.tools.probe_step\n"
+        "import compound_ray_tpu_torch.tools.microbench_k\n"
+        "import compound_ray_tpu_torch.tools.frame_time\n"
+        "assert 'matplotlib' not in sys.modules, 'the viewer imports it lazily'\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
         "       or m.startswith('jax.') or m == 'compound_ray_tpu'\n"
         "       or m.startswith('compound_ray_tpu.')]\n"
