@@ -14,8 +14,8 @@ shadow rays on K3); then the kernel-measurement tools' path, the probes
 tools' full sizes; then the API surface through the ctypes shim at 640 x
 480 (raw samples, the eight projections, pipelined frames); then the real
 cameras at 640 x 480 and the brute-force oracle; then bursts, pose
-batches, the eye tools and the viewer.  Phases, each
-failing loudly:
+batches, the eye tools and the viewer; then the bench scene written as a
+.blend and the eight examples on it.  Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
@@ -70,10 +70,24 @@ failing loudly:
      single-frame layout;
      render_batch_poses over 20 poses at 100 samples against synced
      set-pose frames and the unsynced pose stream, the batch of a 1e-5
-     degree copy of the eye against its frames, and the device memory
-     after 50 more batches; relax_gradient on the card against the CPU,
-     the variance mapper and the sample-rate finder on the card, and five
-     viewer ticks with keys held.
+     degree copy of the eye against its frames, the device memory after
+     50 more batches (held to the pack store's byte bound and the eye
+     plans' copies), one 100-pose batch with its pack's bytes and peak
+     memory, and steady frames at the bench pose served from the store;
+     relax_gradient on the card against the CPU, the variance mapper and
+     the sample-rate finder on the card, and five viewer ticks with keys
+     held;
+ 11. the bench scene written as a .blend (one object per box under its
+     own object matrix, a node material each; the bench eye by a relative
+     .eye path, a panoramic, a perspective and an orthographic camera) and
+     gzipped, counted as a path: loaded through the shim's loadGlTFscene,
+     its compound eye's frames at 100 and 3200 samples with the far field
+     off and "auto", lit, its three cameras at 640 x 480, the gzipped
+     file's frame, and each of the eight examples' main on it (their
+     defaults but for EXAMPLE_ARGS); after the path, its triangles against
+     make_big_scene's, each frame against its twin-rendered frame, the lit
+     frame against the unlit one, each camera against the oracle, and K3
+     against its twin on the .blend's first lit frame.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
 card and {"ok": true, "device": ...}.
@@ -166,8 +180,28 @@ BURST_ATOL = 1e-6
 N_POSES = 20
 POSE_SAMPLES = 100
 MEMORY_BATCHES = 50
+GA_POSES = 100  # one GA-size batch (compound_ray_tpu/api/renderer.py:881)
+STEADY_FRAMES = 3
 RELAX_POINTS, RELAX_STEPS, RELAX_ATOL = 1000, 10, 1e-5
 VIEWER_TICKS = 5
+# phase 11: the bench scene as a .blend (one object per box), its frames
+# timed per setting, the coordinates' f32 rounding (4 ulps at |x| <= 52),
+# and the examples' arguments where their defaults do not fit the phase
+# (speed_test's warm-up, the repeated renders of alias_quantified and the
+# sample settings of alias_viewpoint)
+BLEND_TIMED = 3
+BLEND_VERTEX_ATOL = 2.5e-5
+SPEED_SAMPLES = (1, 10, 100, 1000, 3200)  # speed_test's default sweep
+EXAMPLE_ARGS = {
+    "primary_example": [],
+    "speed_test": ["-s", *map(str, SPEED_SAMPLES), "-w", "1"],
+    "plot_speed_test": None,  # its parser (the card has no matplotlib)
+    "alias_quantified_experiment": ["-n", "50"],
+    "alias_viewpoint_experiment": ["-s", "70"],
+    "heterogeneous_demonstration": [],
+    "overview_images": [],
+    "position_estimation": [],
+}
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE))
@@ -1828,13 +1862,24 @@ def pose_batch(r, cam) -> dict:
     the bench pose, identity rotation, POSE_SAMPLES samples, warmed with 3
     other poses): render_batch_poses, the synced set-pose frames and the
     unsynced pose stream, each timed with CUDA events; the batch on a
-    1e-5 degree copy of the bench eye against its sequential frames; and
-    the device memory after MEMORY_BATCHES more batches of new poses."""
+    1e-5 degree copy of the bench eye against its sequential frames; the
+    device memory after MEMORY_BATCHES more batches of new poses, which
+    must stay within the pack store's byte bound and the eye plans'
+    copies; one GA_POSES-pose batch with the bytes of its pack and its
+    peak; and STEADY_FRAMES frames at the bench pose after it, which must
+    pack nothing and launch K1 once each."""
     from compound_ray_tpu_torch.cameras.types import CompoundEyeCamera
+    from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.testing import make_sphere_eye
     from compound_ray_tpu_torch.trace import mm_tracer
 
+    splan = P.scene_plan(r.scene, r.device)
+    # the packs the bench eye's steady frames left in the store (phases
+    # 5-10 at 1, 100 and 3200 samples): (samples, cache, shape, MB)
+    res = dict(bench_packs=[
+        [k[1], bool(k[5]), list(v[1].shape), round(_nbytes(*v) / 2**20, 1)]
+        for k, v in splan.packed_store.items()])
     rng = np.random.default_rng(0)
     base = np.asarray(cam.position, np.float64)
     poses = base[None, :] + rng.uniform(-0.5, 0.5, (N_POSES, 3))
@@ -1848,7 +1893,7 @@ def pose_batch(r, cam) -> dict:
     r.render_batch_poses(batch)  # the folded eye's plans
     k1 = mm_tracer.launches
     out, ms = _events_ms(lambda: r.render_batch_poses(batch))
-    res = dict(poses=N_POSES, samples=POSE_SAMPLES,
+    res.update(poses=N_POSES, samples=POSE_SAMPLES,
                batch_launches_k1=mm_tracer.launches - k1,
                batch_ms_per_pose=ms / N_POSES)
     if out.shape != (N_POSES, N_OMM, 3) or not np.isfinite(out).all():
@@ -1884,8 +1929,6 @@ def pose_batch(r, cam) -> dict:
     if not res["still_eye_batch_vs_sequential_max_abs"] <= MEANS_ATOL:
         raise AssertionError(f"the pose batch vs its frames: {res}")
 
-    splan = P.scene_plan(r.scene, r.device)
-
     def held_mb():
         """(allocated, the pack LRU's tensors, the eye plans' device
         copies) in MB."""
@@ -1897,18 +1940,70 @@ def pose_batch(r, cam) -> dict:
             torch.cuda.memory_allocated(), packs, eyes)]
 
     plans0, mem = len(P._eye_plans), {0: held_mb()}
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(1, MEMORY_BATCHES + 1):
         r.render_batch_poses([(tuple(p), np.eye(3)) for p in base[None, :]
                               + rng.uniform(-0.5, 0.5, (N_POSES, 3))])
         if i in (1, 4, 10, 25, MEMORY_BATCHES):
             mem[i] = held_mb()
+    grown = mem[MEMORY_BATCHES][0] - mem[0][0]
+    bound_mb = get_config().packed_store_bytes / 2**20
+    if grown > bound_mb + mem[MEMORY_BATCHES][2]:
+        raise AssertionError(f"{MEMORY_BATCHES} pose batches hold {grown} "
+                             f"MB more, over the pack store's bound "
+                             f"{bound_mb} MB and the eye plans' "
+                             f"{mem[MEMORY_BATCHES][2]} MB")
     res.update(memory_batches=MEMORY_BATCHES,
                memory_batches_s=time.perf_counter() - t0,
+               packed_store_bound_mb=bound_mb,
                mb_allocated_packs_eye_plans_after_batches=mem,
+               memory_batches_peak_mb=round(
+                   torch.cuda.max_memory_allocated() / 2**20, 1),
                device_mb_growth=mem[MEMORY_BATCHES][0] - mem[0][0],
                eye_plans_added=len(P._eye_plans) - plans0,
+               eye_plans_held=len(P._eye_plans),
                packs_held=len(splan.packed_store))
+
+    # one GA-size batch, with the bytes of the pack it builds
+    built = []
+    real = P._pack_fused
+
+    def record(*a, **k):
+        out = real(*a, **k)
+        built.append(_nbytes(*out))
+        return out
+
+    ga = [(tuple(p), np.eye(3)) for p in base[None, :]
+          + rng.uniform(-0.5, 0.5, (GA_POSES, 3))]
+    P._pack_fused = record
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out, ms = _events_ms(lambda: r.render_batch_poses(ga))
+        res["ga_peak_mb"] = round(torch.cuda.max_memory_allocated() / 2**20,
+                                  1)
+        res["ga_packs_mb"] = [round(b / 2**20, 1) for b in built]
+        res.update(ga_poses=GA_POSES, ga_ms=ms, ga_ms_per_pose=ms / GA_POSES,
+                   ga_held_mb=held_mb())
+        if out.shape != (GA_POSES, N_OMM, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"the {GA_POSES}-pose batch gave "
+                                 f"{out.shape}")
+        # steady frames at the bench pose: one pack at most, then every
+        # frame served from the store with one K1 launch
+        cam.set_position(tuple(base))
+        del built[:]
+        r.render_frame()
+        first = len(built)
+        k1 = mm_tracer.launches
+        for _ in range(STEADY_FRAMES):
+            r.render_frame()
+        res.update(steady_first_packs=first, steady_packs=len(built) - first,
+                   steady_k1=mm_tracer.launches - k1)
+    finally:
+        P._pack_fused = real
+    if not (res["steady_packs"] == 0 and res["steady_k1"] == STEADY_FRAMES
+            and first <= 1):
+        raise AssertionError(f"steady frames after the batches: {res}")
     return res
 
 
@@ -2027,6 +2122,339 @@ def bursts_phase(r, cam, card: str, count) -> None:
     print(f"phase 10: tools and viewer, {card}: {json.dumps(tools)} "
           f"(relax_gradient card vs CPU <= {RELAX_ATOL})")
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
+def _camera_kind(cam):
+    """(kind, parameter) of a real camera, as EyeRenderer.render_frame
+    takes them."""
+    from compound_ray_tpu_torch.cameras.types import (
+        OrthographicCamera,
+        PanoramicCamera,
+    )
+
+    if isinstance(cam, PanoramicCamera):
+        return "panoramic", np.asarray([cam.start_radius], np.float32)
+    if isinstance(cam, OrthographicCamera):
+        return "orthographic", np.asarray(cam.scale, np.float32)
+    return "pinhole", np.asarray(cam.scale, np.float32)
+
+
+def blend_frames(r, sections) -> dict:
+    """Phase 11's frames of the loaded .blend's compound eye at its pose:
+    unlit at each of SAMPLES with the far field off and "auto", then lit
+    (the first frame builds the shadow plan), a warm frame and
+    BLEND_TIMED timed ones each (CUDA events); then each real camera
+    through the shim's calls at DISPLAY_W x DISPLAY_H.  Records each
+    setting's seed and last means for the checks after the path."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    cam = r.current_camera()
+    splan = P.scene_plan(r.scene, r.device)
+    out = {}
+
+    def frames(key):
+        first = _counted(sections, f"{key}, first",
+                         lambda: _events_ms(r.render_frame)[1])
+        return first, _counted(sections, key, lambda: [
+            _events_ms(r.render_frame)[1] for _ in range(BLEND_TIMED)])
+
+    for farfield in ("off", "auto"):
+        _set_config(farfield=farfield)
+        for s in SAMPLES:
+            r.set_current_eye_samples_per_ommatidium(s)
+            first, ms = frames(f"{s} samples, farfield {farfield}")
+            means = r.get_camera_data().copy()
+            _check_means(means, f".blend frame {s} {farfield}")
+            out[f"{s} {farfield}"] = dict(
+                first_ms=first, frame_ms=ms, seed=cam.rng_frame - 1,
+                cache=bool(farfield == "auto" and splan.cache_store),
+                means=means)
+    _set_config()
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    r.set_lighting(True)
+    first, ms = frames(f"{SAMPLES[-1]} samples, lit")
+    means = r.get_camera_data().copy()
+    _check_means(means, ".blend lit frame", lit=True)
+    out["lit"] = dict(first_ms=first, frame_ms=ms, seed=cam.rng_frame - 1,
+                      means=means,
+                      replan_pending=not splan.shadow_store)
+    r.set_lighting(False)
+    return out
+
+
+def blend_cameras(shim) -> dict:
+    """Phase 11: each real camera of the loaded .blend through the shim at
+    DISPLAY_W x DISPLAY_H, a warm frame and BLEND_TIMED timed ones."""
+    from compound_ray_tpu_torch import eye_tools as eyeTools
+
+    eyeTools.configureFunctions(shim)
+    eyeTools.setRenderSize(shim, DISPLAY_W, DISPLAY_H)
+    out = {}
+    for idx in range(shim.getCameraCount()):
+        shim.gotoCamera(idx)
+        if shim.isCompoundEyeActive():
+            continue
+        shim.renderFrame()
+        ms = [_events_ms(shim.renderFrame)[1] for _ in range(BLEND_TIMED)]
+        out[idx] = dict(ms=ms, frame=shim.getFramePointer().copy())
+    eyeTools.setRenderSize(shim, 0, 0)
+    return out
+
+
+def run_examples(path: str, sections) -> dict:
+    """Phase 11: each example's main on the .blend, in a scratch working
+    directory, on its default device (the card), with EXAMPLE_ARGS; each
+    example's wall time, launches and outputs."""
+    import importlib
+    import os
+    import tempfile
+
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        os.environ["CR_SCENE"] = path
+        try:
+            for name, args in EXAMPLE_ARGS.items():
+                mod = importlib.import_module(
+                    f"compound_ray_tpu_torch.examples.{name}")
+                t0 = time.perf_counter()
+                if args is None:
+                    files = sorted(f for f in os.listdir(".") if
+                                   "-frame-rendertime-averages-" in f)
+                    ret = mod.read_results(files, ommatidia=N_OMM,
+                                           samples=list(SPEED_SAMPLES))
+                else:
+                    file_args = [] if name in ("primary_example",
+                                               "position_estimation") else [
+                        "-f", path]
+                    ret = _counted(sections, name,
+                                   lambda: mod.main(file_args + args))
+                res = dict(wall_s=time.perf_counter() - t0,
+                           launches=sections.get(name))
+                res.update(_example_outputs(name, ret))
+                out[name] = res
+        finally:
+            os.chdir(cwd)
+            del os.environ["CR_SCENE"]
+    return out
+
+
+def _example_outputs(name: str, ret) -> dict:
+    """What an example wrote (in the working directory) and returned,
+    checked: files present, PPM headers, finite numbers."""
+    import glob
+
+    def ppms(pattern):
+        files = sorted(glob.glob(pattern))
+        for f in files:
+            if not open(f, "rb").read(2) == b"P6":
+                raise AssertionError(f"{name}: {f} is not a PPM")
+        return files
+
+    res = {}
+    if name == "primary_example":
+        res["files"] = ppms("test-images/*.ppm")
+    elif name == "speed_test":
+        res["ms_per_frame"] = ret
+        res["files"] = sorted(glob.glob("*-frame-rendertime-*.txt"))
+    elif name == "plot_speed_test":
+        (label, xs, times, rays), = ret
+        res.update(label=label, rays_per_s=[float(x) for x in rays])
+    elif name == "alias_quantified_experiment":
+        res["avg_sd"] = [float(x) for x in ret]
+        res["files"] = len(glob.glob("output/vector-data/*.txt"))
+    elif name == "alias_viewpoint_experiment":
+        res["files"] = ppms("artifacts/*.ppm")
+        res["image_max"] = int(ret.max())
+    elif name == "heterogeneous_demonstration":
+        res["files"] = len(ppms("*omms*.ppm"))
+    elif name == "overview_images":
+        res["files"] = [f.split("/")[-1] for f in ppms("overview-images/*")]
+    elif name == "position_estimation":
+        train, test = ret
+        res.update(final_train_l1=train[-1], final_test_l1=test[-1],
+                   npz=sorted(np.load("position-estimation-results.npz")))
+    numbers = [float(x) for k, v in res.items()
+               if k not in ("files", "label", "npz") for x in np.ravel(v)]
+    if not (res.get("files", 1) and np.isfinite(numbers).all()):
+        raise AssertionError(f"{name}: {res}")
+    return res
+
+
+def blend_checks(r, cam, frames, shots) -> dict:
+    """Phase 11's checks, after its path: each frame against the same
+    frame (same seed) through the twins (K1's, and K2's for the cache),
+    the lit frame against the unlit one and the frame through the K1 and
+    K3 twins, and each camera image against the oracle's."""
+    from compound_ray_tpu_torch.cameras.raygen import render_camera_image
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.cluster_tracer import (
+        cluster_tracer_reference,
+    )
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        packed_tracer_reference,
+        rows_occlusion_reference,
+    )
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    splan = P.scene_plan(r.scene, r.device)
+    out = {}
+    lit = frames["lit"]
+    for key, f in frames.items():
+        if key == "lit":
+            continue
+        s, farfield = key.split()
+        _set_config(farfield=farfield)
+        r.set_current_eye_samples_per_ommatidium(int(s))
+        splan.cache_store.clear()
+        twin = _render(r, cam, f["seed"], tracer=packed_tracer_reference,
+                       cache_tracer=cluster_tracer_reference)
+        if f["cache"] != bool(splan.cache_store):
+            raise AssertionError(f"{key}: the twin frame's cache differs")
+        splan.cache_store.clear()
+        out[key] = float(np.abs(twin - f["means"]).max())
+    _set_config()
+    # the lit frame again from its seed (a corrective replan after it would
+    # change it), then through the K1 and K3 twins, and unlit
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    again = _render(r, cam, lit["seed"], lights=r.get_lights())
+    if not lit["replan_pending"] and not np.array_equal(again, lit["means"]):
+        raise AssertionError("the .blend's lit frame is not reproduced")
+    twin = _render(r, cam, lit["seed"], lights=r.get_lights(),
+                   tracer=packed_tracer_reference,
+                   shadow_tracer=rows_occlusion_reference)
+    _set_config(farfield="off")
+    unlit = _render(r, cam, lit["seed"])
+    _set_config()
+    out["lit"] = float(np.abs(twin - again).max())
+    out["lit_minus_unlit_min"] = float((again - unlit).min())
+    bad = {k: v for k, v in out.items() if k != "lit_minus_unlit_min"
+           and not v <= MEANS_ATOL}
+    if bad or out["lit_minus_unlit_min"] < -1e-6:
+        raise AssertionError(f".blend frames vs twins: {out}")
+    sd = r.scene.device_triangles(r.device)
+    bg = miss_id(r.scene.background_shader)
+    out["cameras"] = {}
+    for idx, shot in shots.items():
+        c = r.scene.cameras[idx]
+        kind, param = _camera_kind(c)
+        img, ms = _events_ms(lambda: render_camera_image(
+            sd, kind, np.asarray(c.position, np.float32),
+            np.asarray(c.local_space, np.float32), param, DISPLAY_W,
+            DISPLAY_H, bg))
+        share = _off_share(shot["frame"], img.cpu().numpy())
+        out["cameras"][c.name] = dict(kind=kind, ms=shot["ms"],
+                                      oracle_ms=ms, off_share=share)
+        if not share < IMAGE_OFF_SHARE or not shot["frame"][..., :3].any():
+            raise AssertionError(f"{c.name}: image vs oracle: {out}")
+    return out
+
+
+def blend_phase(card: str, count) -> None:
+    """Phase 11: the bench scene written as a .blend (and gzipped) with its
+    eye and cameras, loaded through the shim, its frames, lit frame and
+    cameras, the gzipped file's frame and the eight examples, as one path
+    counted by `count`, whose launches must be exactly those of its
+    sections; then the checks and K3 against its twin on the .blend's own
+    lit frame."""
+    import tempfile
+    from ctypes import c_char_p
+
+    from compound_ray_tpu_torch import EyeRenderer, load_eye_renderer
+    from compound_ray_tpu_torch.testing import (
+        make_big_scene,
+        write_big_scene_blend,
+    )
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    path, gz = (write_big_scene_blend(
+        tmp.name, N_BOXES, 0, N_OMM, ACCEPT_DEG, CAM_POS, gzip=z)
+        for z in (False, True))
+    write_s = time.perf_counter() - t0
+    sections = {}
+    state = {}
+
+    def run():
+        shim = load_eye_renderer(verbose=False)
+        t = time.perf_counter()
+        shim.loadGlTFscene(c_char_p(path.encode()))
+        state["load_s"] = time.perf_counter() - t
+        r = shim.renderer
+        r.goto_camera_by_name("insect-eye-spherical-projector")
+        state["frames"] = blend_frames(r, sections)
+        state["shots"] = _counted(sections, "cameras",
+                                  lambda: blend_cameras(shim))
+        shim.gotoCamera(0)
+        r.set_current_eye_samples_per_ommatidium(SAMPLES[0])
+        _counted(sections, "gzip reference frame", r.render_frame)
+        plain = r.get_camera_data().copy()
+        rz = EyeRenderer(verbose=False)
+        t = time.perf_counter()
+        rz.load_gltf_scene(gz)
+        state["gz_load_s"] = time.perf_counter() - t
+        rz.goto_camera_by_name("insect-eye-spherical-projector")
+        rz.set_current_eye_samples_per_ommatidium(SAMPLES[0])
+        _counted(sections, "gzipped", rz.render_frame)
+        state["gz_max_abs"] = float(np.abs(rz.get_camera_data()
+                                           - plain).max())
+        state["examples"] = run_examples(path, sections)
+        return r
+
+    res_n = _path(None, "the .blend scene and the examples", run, phase=11)
+    r, n = count(res_n)[0], res_n[1]
+    if {k: n[k] for k in ("k1", "k2", "k3")} != _sum_launches(
+            sections.values()) or not (
+            n["k1"] > 0 and n["k2"] > 0 and n["k3"] > 0
+            and n["k4"] == n["k5"] == n["k6"] == 0):
+        raise AssertionError(f"phase 11 launched {n}, its sections "
+                             f"{sections}")
+    ref = make_big_scene(N_BOXES, seed=0)
+    vert_err = max(float(np.abs(getattr(r.scene, k) - getattr(ref, k)).max())
+                   for k in ("v0", "e1", "e2"))
+    if not (r.scene.num_triangles == ref.num_triangles
+            and vert_err <= BLEND_VERTEX_ATOL
+            and state["gz_max_abs"] <= BURST_ATOL):
+        raise AssertionError(f"the .blend scene: {r.scene.num_triangles} "
+                             f"triangles, vertices off by {vert_err}, "
+                             f"gzipped frame off by {state['gz_max_abs']}")
+    print(f"phase 11: wrote {N_BOXES + 1} mesh objects and 4 cameras as "
+          f".blend ({write_s:.2f} s for both files); loaded through the "
+          f"shim in {state['load_s']:.3f} s, gzipped in "
+          f"{state['gz_load_s']:.3f} s (wall); {r.scene.num_triangles} "
+          f"triangles, vertices vs make_big_scene max abs {vert_err:.3e} "
+          f"(<= {BLEND_VERTEX_ATOL}); the gzipped file's frame vs the "
+          f"plain file's max abs {state['gz_max_abs']:.3e} (<= "
+          f"{BURST_ATOL})")
+    print(f"phase 11: launches by section: {json.dumps(sections)}")
+    r.goto_camera_by_name("insect-eye-spherical-projector")
+    cam = r.current_camera()
+    frames, shots = state["frames"], state["shots"]
+    checks = blend_checks(r, cam, frames, shots)
+    for key, f in frames.items():
+        print(f"phase 11: .blend frame {key} ({card}): first frame "
+              f"{f['first_ms']:.3f} ms, frame ms (CUDA events) "
+              f"{f['frame_ms']}; vs twins max abs {checks[key]:.3e} (<= "
+              f"{MEANS_ATOL})" + (" (cache on)" if f.get("cache") else ""))
+    print(f"phase 11: lit - unlit min {checks['lit_minus_unlit_min']:.3e}; "
+          f"cameras at {DISPLAY_W} x {DISPLAY_H} vs oracle ({card}): "
+          f"{json.dumps(checks['cameras'])} (< {IMAGE_OFF_SHARE} of pixels "
+          f"off by more than 2)")
+    k3 = lit_k3_vs_twin(r, cam, SAMPLES[-1])
+    print(f"phase 11: K3 vs twin on the .blend's first lit frame "
+          f"({card}): decisions differ {k3['decisions_differ']} of "
+          f"{k3['live_rays']}, ms {k3['ms']:.3f}, twin ms "
+          f"{k3['plain_ms']:.1f} (threshold: >= {K3_AGREE} equal)")
+    for name, res in state["examples"].items():
+        print(f"phase 11: example {name} ({card}): {json.dumps(res)}")
+    st = state["examples"]["speed_test"]["ms_per_frame"]
+    for s, ms in zip(SPEED_SAMPLES, st):
+        print(f"phase 11: speed_test {s} samples: {ms:.3f} ms per frame, "
+              f"{N_OMM * s / (ms / 1000.0):.4e} ommatidial rays/s on the "
+              f".blend bench scene ({card})")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -2220,6 +2648,7 @@ def main() -> int:
 
     k2i = real_cameras_phase(r, cam, card, count)
     bursts_phase(r, cam, card, count)
+    blend_phase(card, count)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,

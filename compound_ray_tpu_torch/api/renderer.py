@@ -38,8 +38,8 @@ K1 launch or one frame core each (eye/pipeline.py render_means_frames),
 one sync.  render_batch_poses folds B poses into the ommatidium axis and
 renders them as one frame.
 
-What this slice of the port refuses, loudly: .blend scenes (ROADMAP.md,
-queue 1).
+load_gltf_scene reads glTF (scene/flat.py) and, by its extension, a
+.blend file (scene/blend.py) with its cameras and compound-eye markup.
 """
 
 from __future__ import annotations
@@ -140,10 +140,14 @@ class EyeRenderer:
 
     def load_gltf_scene(self, filepath: str, root_transform=None) -> None:
         if filepath.endswith(".blend"):
-            raise NotImplementedError(
-                ".blend scenes are not ported yet (ROADMAP.md queue 1); "
-                "export the scene to glTF")
-        self.scene = load_scene(filepath, root_transform)
+            # direct Blender-file extraction (compound_ray_tpu_torch.scene
+            # .blend): geometry, materials, and the cameras with the
+            # compound-eye markup the glTF exporter would carry as extras
+            from compound_ray_tpu_torch.scene.blend import load_blend_scene
+
+            self.scene = load_blend_scene(filepath)
+        else:
+            self.scene = load_scene(filepath, root_transform)
         self._current_camera = 0
         self._log(f"Loaded scene '{filepath}' "
                   f"({self.scene.num_triangles} triangles, "

@@ -50,6 +50,9 @@ class RenderConfig:
     # bounded pose-keyed stores of packed payloads and sky plans
     # (ScenePlan.packed_store, ScenePlan.sky_store)
     packed_store_size: int = 4
+    # the packed payloads' device bytes: a pack grows with the ommatidia,
+    # so a pose batch (B poses folded into one eye) packs B eyes at once
+    packed_store_bytes: int = 8 << 30
     # bounded (pose, lights, samples)-keyed store of lit-frame shadow plans
     # (ScenePlan.shadow_store, compound_ray_tpu/config.py:77)
     shadow_store_size: int = 4
@@ -95,6 +98,8 @@ class RenderConfig:
                 "cone-vs-triangle refine only")
         if self.packed_store_size < 1:
             raise ValueError("packed_store_size must be >= 1")
+        if self.packed_store_bytes < 1:
+            raise ValueError("packed_store_bytes must be >= 1")
         if self.shadow_store_size < 1:
             raise ValueError("shadow_store_size must be >= 1")
         if self.shadow_pack_chunk < 1:

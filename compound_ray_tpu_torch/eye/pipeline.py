@@ -284,18 +284,25 @@ class EyePlan:
         return hit
 
 
+# an LRU of eye plans, oldest first: each plan keeps device copies of its
+# eye, and every render_batch_poses call folds its poses into a new eye
+EYE_PLAN_STORE_SIZE = 16
 _eye_plans: Dict[Tuple, EyePlan] = {}
 
 
 def eye_plan(ommatidia: np.ndarray, samples: int) -> EyePlan:
     """Static layout for an (eye, samples) pair
     (compound_ray_tpu/eye/pipeline.py:354).  Padding replicates the last
-    ommatidium in the scan order; padded outputs are dropped by inv_valid."""
+    ommatidium in the scan order; padded outputs are dropped by inv_valid.
+    Memoised in an LRU of EYE_PLAN_STORE_SIZE plans (the JAX memo has no
+    bound); a plan built again has the same signature, so the width and
+    pack memos keyed by it still serve it."""
     h = hashlib.blake2b(np.ascontiguousarray(ommatidia).tobytes(),
                         digest_size=12).hexdigest()
     key = (h, samples, 1)
-    plan = _eye_plans.get(key)
+    plan = _eye_plans.pop(key, None)
     if plan is not None:
+        _eye_plans[key] = plan  # LRU refresh
         return plan
 
     n = ommatidia.shape[0]
@@ -323,6 +330,8 @@ def eye_plan(ommatidia: np.ndarray, samples: int) -> EyePlan:
         rg_pad=nrb * rb_size, rb_size=rb_size, nrb=nrb,
         sig=repr(key).encode() + np.int64(n_pad).tobytes(),
     )
+    while len(_eye_plans) >= EYE_PLAN_STORE_SIZE:
+        _eye_plans.pop(next(iter(_eye_plans)))
     _eye_plans[key] = plan
     return plan
 
@@ -662,12 +671,20 @@ def _packed_key(eplan, samples, pose_sig, kcand, rmax, use_cache: bool,
             cfg.cull_sigmas)
 
 
+def _pack_nbytes(pack) -> int:
+    """Device bytes of a (row_counts, packed_mm) pack."""
+    return sum(t.numel() * t.element_size() for t in pack)
+
+
 def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
                  samples, kcand, rmax, near_mask=None, d_thresh=0.0):
     """Memoised _pack_fused with a bounded LRU
     (compound_ray_tpu/eye/pipeline.py:1594): a fixed-pose sequence of
     frames pays the refine and pack once.  near_mask and d_thresh describe
-    the far-field split (None and 0.0 with the cache off)."""
+    the far-field split (None and 0.0 with the cache off).  The store keeps
+    at most config.packed_store_size packs and config.packed_store_bytes
+    bytes: the oldest go until a new pack fits, and a pack larger than the
+    byte bound serves its frame without being kept."""
     cfg = get_config()
     pk = _packed_key(eplan, samples, pose_sig, kcand, rmax,
                      near_mask is not None, d_thresh, cfg)
@@ -680,9 +697,15 @@ def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
         splan.half_center, splan.half_radius, omms_p, position, local_space,
         g=eplan.g, kcand=kcand, rmax=rmax, cull_sigmas=cfg.cull_sigmas,
         tri_cl=splan.slot_tri_cl, near_mask=near_mask)
-    while len(splan.packed_store) >= cfg.packed_store_size:
-        splan.packed_store.pop(next(iter(splan.packed_store)))
-    splan.packed_store[pk] = out
+    size = _pack_nbytes(out)
+    if size > cfg.packed_store_bytes:
+        return out
+    store = splan.packed_store
+    while store and (len(store) >= cfg.packed_store_size
+                     or sum(map(_pack_nbytes, store.values())) + size
+                     > cfg.packed_store_bytes):
+        store.pop(next(iter(store)))
+    store[pk] = out
     return out
 
 

@@ -661,3 +661,66 @@ def build_scene_from_arrays(
         source_path=f"<{name}>",
     )
 
+
+def subdivide_large_triangles(scene: FlatScene, max_diag: float,
+                              max_rounds: int = 4) -> FlatScene:
+    """Split triangles whose AABB diagonal exceeds `max_diag` into 4 children
+    (edge midpoints), repeatedly.
+
+    Rendering semantics are EXACTLY preserved: positions and all per-corner
+    attributes (normals, uvs, colours) interpolate linearly, so barycentric
+    shading of the children reproduces the parent.  Used by the accel layer:
+    fan-triangulated n-gons (e.g. cylinder caps) otherwise produce triangles
+    as large as the whole scene, which no spatial clustering can bound.
+    """
+    import dataclasses
+
+    arrays = {k: np.asarray(getattr(scene, k)) for k in (
+        "v0", "e1", "e2", "n0", "n1", "n2", "has_normals",
+        "uv0", "uv1", "uv2", "has_uv", "c0", "c1", "c2", "has_color",
+        "mat_id",
+    )}
+
+    for _ in range(max_rounds):
+        v0, e1, e2 = arrays["v0"], arrays["e1"], arrays["e2"]
+        p0, p1, p2 = v0, v0 + e1, v0 + e2
+        mins = np.minimum(np.minimum(p0, p1), p2)
+        maxs = np.maximum(np.maximum(p0, p1), p2)
+        big = np.linalg.norm(maxs - mins, axis=1) > max_diag
+        if not big.any():
+            break
+        keep = {k: v[~big] for k, v in arrays.items()}
+
+        def corners(base):  # (a, b, c) per-corner attribute triples
+            return (arrays[base + "0"][big], arrays[base + "1"][big],
+                    arrays[base + "2"][big])
+
+        a, b, c = p0[big], p1[big], p2[big]
+        mab, mac, mbc = (a + b) / 2, (a + c) / 2, (b + c) / 2
+        new_tris = [
+            (a, mab, mac), (mab, b, mbc), (mac, mbc, c), (mab, mbc, mac),
+        ]
+        out = {k: [v] for k, v in keep.items()}
+        for (ta, tb, tc) in new_tris:
+            out["v0"].append(ta.astype(np.float32))
+            out["e1"].append((tb - ta).astype(np.float32))
+            out["e2"].append((tc - ta).astype(np.float32))
+        for base in ("n", "uv", "c"):
+            ca, cb, cc = corners(base)
+            m_ab, m_ac, m_bc = (ca + cb) / 2, (ca + cc) / 2, (cb + cc) / 2
+            for (qa, qb, qc) in [(ca, m_ab, m_ac), (m_ab, cb, m_bc),
+                                 (m_ac, m_bc, cc), (m_ab, m_bc, m_ac)]:
+                out[base + "0"].append(qa)
+                out[base + "1"].append(qb)
+                out[base + "2"].append(qc)
+        for flag in ("has_normals", "has_uv", "has_color", "mat_id"):
+            for _i in range(4):
+                out[flag].append(arrays[flag][big])
+        arrays = {k: np.concatenate(v) for k, v in out.items()}
+
+    new_scene = dataclasses.replace(
+        scene, **{k: arrays[k] for k in arrays},
+    )
+    new_scene._device_cache = None
+    new_scene._accel_cache = None
+    return new_scene

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import struct
 from types import SimpleNamespace
 from typing import List, Tuple
 
@@ -101,28 +102,31 @@ def make_sphere_eye(
     return out
 
 
-def make_big_scene(n_boxes: int = 500, seed: int = 0,
-                   background: str = "simple_sky") -> FlatScene:
-    """A larger procedural field of boxes for accel/perf testing
-    (~12*n_boxes triangles)."""
+def _big_scene_boxes(n_boxes: int, seed: int):
+    """make_big_scene's (centre, size, colour) per box, the ground plane
+    last."""
     rng = np.random.default_rng(seed)
-    all_v, all_f, all_c = [], [], []
-    offset = 0
     centers = rng.uniform(-50, 50, size=(n_boxes, 3))
     centers[:, 1] = rng.uniform(0.0, 5.0, size=n_boxes)
     sizes = rng.uniform(0.5, 3.0, size=(n_boxes, 3))
     colors = rng.uniform(0.1, 1.0, size=(n_boxes, 3))
-    for i in range(n_boxes):
-        v, f = box_mesh(centers[i], sizes[i])
+    return list(zip(centers, sizes, colors)) + [
+        (np.array([0.0, -1.0, 0.0]), np.array([200.0, 0.5, 200.0]),
+         np.array([0.3, 0.5, 0.2]))]
+
+
+def make_big_scene(n_boxes: int = 500, seed: int = 0,
+                   background: str = "simple_sky") -> FlatScene:
+    """A larger procedural field of boxes for accel/perf testing
+    (~12*n_boxes triangles)."""
+    all_v, all_f, all_c = [], [], []
+    offset = 0
+    for center, size, color in _big_scene_boxes(n_boxes, seed):
+        v, f = box_mesh(center, size)
         all_v.append(v)
         all_f.append(f + offset)
-        all_c.append(np.tile(np.append(colors[i], 1.0).astype(np.float32), (len(v), 1)))
+        all_c.append(np.tile(np.append(color, 1.0).astype(np.float32), (len(v), 1)))
         offset += len(v)
-    # ground plane
-    v, f = box_mesh((0, -1.0, 0), (200, 0.5, 200))
-    all_v.append(v)
-    all_f.append(f + offset)
-    all_c.append(np.tile(np.array([0.3, 0.5, 0.2, 1.0], np.float32), (len(v), 1)))
     return build_scene_from_arrays(
         np.concatenate(all_v),
         np.concatenate(all_f),
@@ -714,3 +718,381 @@ def voronoi_agreement(got, want, refs, width: int, height: int):
                 for m in (got, want))
         gap = float(np.abs(a - b).max())
     return 1.0 - float(diff.mean()), gap
+
+
+# -- .blend files: the tests and the chip check write their own, since the
+# -- repo holds none; nothing on the render path writes one
+
+# the SDNA of write_blend: only the structs and fields scene/blend.py reads
+# (ListBase.last, IDPropertyData.val2 and the bNodeSocketValueRGBA value
+# complete what it reads through them: a ListBase, a double, a colour)
+_SDNA_BASE = (("char", 1), ("short", 2), ("int", 4), ("float", 4),
+              ("double", 8))
+_SDNA_STRUCTS = (
+    ("ListBase", (("void", "*first"), ("void", "*last"))),
+    ("ID", (("char", "name[66]"), ("IDProperty", "*properties"))),
+    ("IDPropertyData", (("void", "*pointer"), ("ListBase", "group"),
+                        ("int", "val"), ("int", "val2"))),
+    ("IDProperty", (("IDProperty", "*next"), ("char", "type"),
+                    ("char", "name[64]"), ("IDPropertyData", "data"),
+                    ("int", "len"))),
+    ("Object", (("ID", "id"), ("void", "*data"), ("short", "type"),
+                ("float", "obmat[4][4]"))),
+    ("Mesh", (("ID", "id"), ("Material", "**mat"), ("MVert", "*mvert"),
+              ("MPoly", "*mpoly"), ("MLoop", "*mloop"),
+              ("MLoopUV", "*mloopuv"), ("int", "totvert"),
+              ("int", "totpoly"), ("int", "totloop"))),
+    ("MVert", (("float", "co[3]"),)),
+    ("MPoly", (("int", "loopstart"), ("int", "totloop"))),
+    ("MLoop", (("int", "v"),)),
+    ("MLoopUV", (("float", "uv[2]"),)),
+    ("Material", (("ID", "id"), ("float", "r"), ("float", "g"),
+                  ("float", "b"), ("bNodeTree", "*nodetree"),
+                  ("char", "use_nodes"))),
+    ("bNodeTree", (("ListBase", "nodes"),)),
+    ("bNode", (("bNode", "*next"), ("ListBase", "inputs"),
+               ("char", "idname[64]"), ("ID", "*id"))),
+    ("bNodeSocket", (("bNodeSocket", "*next"), ("char", "name[64]"),
+                     ("void", "*default_value"))),
+    ("bNodeSocketValueRGBA", (("float", "value[4]"),)),
+    ("Image", (("ID", "id"),)),
+    ("Camera", (("ID", "id"), ("char", "type"), ("char", "sensor_fit"),
+                ("float", "lens"), ("float", "ortho_scale"),
+                ("float", "sensor_x"), ("float", "sensor_y"))),
+    ("RenderData", (("int", "xsch"), ("int", "ysch"), ("float", "xasp"),
+                    ("float", "yasp"))),
+    ("Scene", (("ID", "id"), ("RenderData", "r"))),
+)
+_IDP_CODES = {str: 0, int: 1, float: 8}  # IDP_STRING, IDP_INT, IDP_DOUBLE
+_IDP_GROUP = 6
+_OB_MESH, _OB_CAMERA = 1, 11
+
+
+def _sdna_tables():
+    """(layouts, SDNA bytes): layouts[struct] = ({field:
+    (offset, type, size, is_pointer)}, struct size), laid out as the
+    loader does."""
+    types = ([t for t, _ in _SDNA_BASE] + ["void"]
+             + [sname for sname, _ in _SDNA_STRUCTS])
+    tlen = dict(_SDNA_BASE, void=0)
+    layouts, names = {}, []
+    for sname, fields in _SDNA_STRUCTS:
+        lay, off = {}, 0
+        for ftype, fname in fields:
+            ptr = fname.startswith("*")
+            size = 8 if ptr else tlen[ftype]
+            for dim in fname.split("[")[1:]:
+                size *= int(dim.rstrip("]"))
+            lay[fname.lstrip("*").split("[")[0]] = (off, ftype, size, ptr)
+            off += size
+            if fname not in names:
+                names.append(fname)
+        layouts[sname] = (lay, off)
+        tlen[sname] = off
+
+    def strings(tag, items):
+        body = tag + struct.pack("<I", len(items)) + b"".join(
+            s.encode() + b"\0" for s in items)
+        return body + b"\0" * (-len(body) % 4)
+
+    dna = b"SDNA" + strings(b"NAME", names) + strings(b"TYPE", types)
+    dna += b"TLEN" + struct.pack(f"<{len(types)}H",
+                                 *(tlen[t] for t in types))
+    dna += b"\0" * (-len(dna) % 4)
+    dna += b"STRC" + struct.pack("<I", len(_SDNA_STRUCTS))
+    for sname, fields in _SDNA_STRUCTS:
+        dna += struct.pack("<HH", types.index(sname), len(fields))
+        for ftype, fname in fields:
+            dna += struct.pack("<HH", types.index(ftype), names.index(fname))
+    return layouts, dna
+
+
+class _BlendWriter:
+    """File blocks with unique old pointers, packed by the SDNA layouts."""
+
+    _FMT = {"char": "B", "short": "h", "int": "i", "float": "f",
+            "double": "d"}
+
+    def __init__(self):
+        self.layouts, self.dna = _sdna_tables()
+        self.struct_index = {s: i for i, (s, _) in enumerate(_SDNA_STRUCTS)}
+        self.blocks = []
+        self._ptr = 0x10000
+
+    def pack(self, sname: str, **vals) -> bytearray:
+        """One struct's bytes: each value is a pointer (an int, for a
+        pointer field), bytes, a nested struct's bytes or numbers."""
+        lay, size = self.layouts[sname]
+        buf = bytearray(size)
+        for key, v in vals.items():
+            off, ftype, n, ptr = lay[key]
+            if ptr:
+                struct.pack_into("<Q", buf, off, int(v))
+            elif isinstance(v, (bytes, bytearray)):
+                if len(v) > n:
+                    raise ValueError(f"{sname}.{key}: {len(v)} > {n} bytes")
+                buf[off:off + len(v)] = v
+            else:
+                a = np.atleast_1d(np.asarray(v)).ravel()
+                struct.pack_into(f"<{a.size}{self._FMT[ftype]}", buf, off,
+                                 *a.tolist())
+        return buf
+
+    def add(self, code: str, data: bytes, sname: str = None,
+            count: int = 1) -> int:
+        """Append a block; returns its old pointer."""
+        self._ptr += 0x100
+        sdna = self.struct_index[sname] if sname else 0
+        self.blocks.append((code, sdna, count, bytes(data), self._ptr))
+        return self._ptr
+
+    def rows(self, sname: str, count: int, **cols) -> bytes:
+        """count structs in one block: each column an array of count rows
+        (with the field's element count per row)."""
+        lay, size = self.layouts[sname]
+        buf = np.zeros((count, size), np.uint8)
+        for key, v in cols.items():
+            off, ftype, n, _ = lay[key]
+            dt = np.dtype("<" + self._FMT[ftype])
+            a = np.ascontiguousarray(np.asarray(v, dt).reshape(count, -1))
+            buf[:, off:off + n] = a.view(np.uint8).reshape(count, -1)
+        return buf.tobytes()
+
+    def id_name(self, prefix: str, name: str) -> bytes:
+        return (prefix + name).encode()[:65]
+
+    def tobytes(self) -> bytes:
+        out = [b"BLENDER-v293"]
+        blocks = self.blocks + [("DNA1", 0, 1, self.dna, 0),
+                                ("ENDB", 0, 0, b"", 0)]
+        for code, sdna, count, data, ptr in blocks:
+            out.append(code.encode().ljust(4, b"\0")
+                       + struct.pack("<IQII", len(data), ptr, sdna, count)
+                       + data)
+        return b"".join(out)
+
+
+def _blend_material(w: _BlendWriter, name: str, colour, image_name,
+                    images: dict) -> int:
+    """A node material: a Principled BSDF whose Base Color is `colour`
+    and, with image_name, an Image Texture node naming that Image."""
+    rgba = w.add("DATA", w.pack("bNodeSocketValueRGBA",
+                                value=[*np.asarray(colour, np.float32)[:3],
+                                       1.0]), "bNodeSocketValueRGBA")
+    sock = w.add("DATA", w.pack("bNodeSocket", name=b"Base Color",
+                                default_value=rgba), "bNodeSocket")
+    tex_node = 0
+    if image_name is not None:
+        if image_name not in images:
+            images[image_name] = w.add(
+                "IM", w.pack("Image", id=w.pack(
+                    "ID", name=w.id_name("IM", image_name))), "Image")
+        tex_node = w.add("DATA", w.pack(
+            "bNode", idname=b"ShaderNodeTexImage", id=images[image_name]),
+            "bNode")
+    bsdf = w.add("DATA", w.pack(
+        "bNode", next=tex_node, idname=b"ShaderNodeBsdfPrincipled",
+        inputs=w.pack("ListBase", first=sock, last=sock)), "bNode")
+    tree = w.add("DATA", w.pack("bNodeTree", nodes=w.pack(
+        "ListBase", first=bsdf, last=tex_node or bsdf)), "bNodeTree")
+    r, g, b = np.asarray(colour, np.float32)[:3]
+    return w.add("MA", w.pack("Material", id=w.pack(
+        "ID", name=w.id_name("MA", name)), r=r, g=g, b=b, nodetree=tree,
+        use_nodes=1), "Material")
+
+
+def _blend_id_properties(w: _BlendWriter, extras: dict) -> int:
+    """The root IDP_GROUP of `extras` (str, int and float values), or 0."""
+    if not extras:
+        return 0
+    nxt = 0
+    for key, v in reversed(list(extras.items())):
+        kind = _IDP_CODES[type(v)]
+        data, length = w.pack("IDPropertyData"), 0
+        if kind == 0:
+            s = str(v).encode() + b"\0"
+            data = w.pack("IDPropertyData", pointer=w.add("DATA", s))
+            length = len(s)
+        elif kind == 1:
+            data = w.pack("IDPropertyData", val=v)
+        else:
+            off = w.layouts["IDPropertyData"][0]["val"][0]
+            struct.pack_into("<d", data, off, v)
+        nxt = w.add("DATA", w.pack("IDProperty", next=nxt, type=kind,
+                                   name=key.encode(), data=data,
+                                   len=length), "IDProperty")
+    group = w.pack("IDPropertyData", group=w.pack("ListBase", first=nxt))
+    return w.add("DATA", w.pack("IDProperty", type=_IDP_GROUP, data=group),
+                 "IDProperty")
+
+
+def write_blend(path: str, meshes, cameras=(), render_size=(1920, 1080),
+                gzip: bool = False) -> str:
+    """Write a 64-bit little-endian .blend that scene/blend.py reads back:
+    the inverse of load_blend_meshes and load_blend_cameras.  Scaffolding
+    for the tests and the chip check, as make_big_scene is: the repo holds
+    no .blend file, and nothing on the render path calls this.
+
+    meshes: (name, world_matrix (4, 4), verts (V, 3), faces, colour (3,)
+    or None, uvs or None, image_name or None) per mesh object, as
+    load_blend_meshes returns them, except that faces may be polygons (an
+    (F, k) array with k >= 3, or a list of index sequences), and uvs (the
+    loader's top-left origin) are per polygon corner: (F, k, 2) or a list
+    of (k_i, 2).  A colour of None writes no material (the loader reads
+    white); otherwise a node material with that Base Color, and an Image
+    Texture node naming image_name when it is given.
+    cameras: dicts as load_blend_cameras returns them (name, obmat,
+    extras, lens, sensor_x, sensor_y, ortho_scale, type, sensor_fit); the
+    aspect comes from render_size.  Extras of str, int and float values
+    become string, int and double ID properties of the Camera datablock.
+    gzip compresses the file as Blender's "compress" option does.  Returns
+    path."""
+    import gzip as gz
+
+    w = _BlendWriter()
+    images: dict = {}
+    objects = []  # (name, object matrix, data block, object type)
+    for name, obmat, verts, faces, colour, uvs, image_name in meshes:
+        polys = [np.asarray(p, np.int64) for p in faces]
+        loops = np.concatenate(polys) if polys else np.zeros(0, np.int64)
+        tot = np.array([len(p) for p in polys], np.int64)
+        start = np.concatenate([[0], np.cumsum(tot)[:-1]])
+        verts = np.asarray(verts, np.float32)
+        mvert = w.add("DATA", w.rows("MVert", len(verts), co=verts),
+                      "MVert", len(verts))
+        mpoly = w.add("DATA", w.rows("MPoly", len(polys), loopstart=start,
+                                     totloop=tot), "MPoly", len(polys))
+        mloop = w.add("DATA", w.rows("MLoop", len(loops), v=loops),
+                      "MLoop", len(loops))
+        mloopuv = 0
+        if uvs is not None:
+            luv = np.concatenate([np.asarray(u, np.float64).reshape(-1, 2)
+                                  for u in uvs])
+            luv = np.stack([luv[:, 0], 1.0 - luv[:, 1]], axis=1)
+            mloopuv = w.add("DATA", w.rows("MLoopUV", len(loops), uv=luv),
+                            "MLoopUV", len(loops))
+        matarr = 0
+        if colour is not None:
+            mat = _blend_material(w, name, colour, image_name, images)
+            matarr = w.add("DATA", np.array([mat], "<u8").tobytes())
+        me = w.add("ME", w.pack(
+            "Mesh", id=w.pack("ID", name=w.id_name("ME", name)), mat=matarr,
+            mvert=mvert, mpoly=mpoly, mloop=mloop, mloopuv=mloopuv,
+            totvert=len(verts), totpoly=len(polys), totloop=len(loops)),
+            "Mesh")
+        objects.append((name, obmat, me, _OB_MESH))
+    for cd in cameras:
+        ca = w.add("CA", w.pack(
+            "Camera", id=w.pack("ID", name=w.id_name("CA", cd["name"]),
+                                properties=_blend_id_properties(
+                                    w, cd.get("extras", {}))),
+            type=cd.get("type", 0), sensor_fit=cd.get("sensor_fit", 0),
+            lens=cd.get("lens", 50.0), ortho_scale=cd.get("ortho_scale", 6.0),
+            sensor_x=cd.get("sensor_x", 36.0),
+            sensor_y=cd.get("sensor_y", 24.0)), "Camera")
+        objects.append((cd["name"], cd["obmat"], ca, _OB_CAMERA))
+    for name, obmat, data, kind in objects:
+        w.add("OB", w.pack(
+            "Object", id=w.pack("ID", name=w.id_name("OB", name)), data=data,
+            type=kind, obmat=np.asarray(obmat, np.float32).T), "Object")
+    w.add("SC", w.pack("Scene", id=w.pack("ID", name=b"SCScene"),
+                       r=w.pack("RenderData", xsch=render_size[0],
+                                ysch=render_size[1], xasp=1.0, yasp=1.0)),
+          "Scene")
+    raw = w.tobytes()
+    with open(path, "wb") as f:
+        f.write(gz.compress(raw, mtime=0) if gzip else raw)
+    return path
+
+
+# Blender is Z-up; the loader's Y-up swap (x, y, z) -> (x, z, -y) undoes this
+def _z_up(v) -> np.ndarray:
+    v = np.asarray(v, np.float64)
+    return np.stack([v[..., 0], -v[..., 2], v[..., 1]], axis=-1)
+
+
+# a quarter turn about Blender's z axis: every object matrix of
+# big_scene_blend_meshes holds it, with exact 0 and 1 entries
+_QUARTER_TURN = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+_BOX_QUADS = ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+              (0, 2, 6, 4), (1, 5, 7, 3))  # box_mesh's quads
+
+
+def big_scene_blend_meshes(n_boxes: int = 500, seed: int = 0) -> list:
+    """make_big_scene(n_boxes, seed) as write_blend mesh objects: one per
+    box and the ground plane last, Z-up, each a quad mesh about its origin
+    under an object matrix that turns it a quarter about z and moves it to
+    its centre, with its colour as a node material.  load_blend_scene
+    gives back make_big_scene's triangles, in its order, to f32
+    rounding."""
+    out = []
+    for i, (center, size, color) in enumerate(_big_scene_boxes(n_boxes,
+                                                               seed)):
+        local, _ = box_mesh((0.0, 0.0, 0.0), size)
+        obmat = np.eye(4)
+        obmat[:3, :3] = _QUARTER_TURN
+        obmat[:3, 3] = _z_up(center)
+        name = "ground" if i == n_boxes else f"box{i:05d}"
+        out.append((name, obmat, _z_up(local) @ _QUARTER_TURN,
+                    np.array(_BOX_QUADS), color, None, None))
+    return out
+
+
+def blend_camera(name: str, position, extras=None,
+                 forward=(0.0, 0.0, -1.0), **lens) -> dict:
+    """A write_blend camera at a Y-up `position` looking along `forward`
+    (-z, a camera node's own axis, by default) with +x right and +y up: it
+    loads with the local space rows (x, y, forward).  `lens` sets the
+    Camera fields (lens, sensor_x, sensor_y, ortho_scale, type,
+    sensor_fit)."""
+    obmat = np.eye(4)
+    # columns: right, up, back and the position, in Blender's Z-up frame
+    obmat[:3, 0] = _z_up([1.0, 0.0, 0.0])
+    obmat[:3, 1] = _z_up([0.0, 1.0, 0.0])
+    obmat[:3, 2] = _z_up(-np.asarray(forward, np.float64))
+    obmat[:3, 3] = _z_up(position)
+    cd = dict(name=name, obmat=obmat, extras=dict(extras or {}), lens=50.0,
+              sensor_x=36.0, sensor_y=24.0, ortho_scale=6.0, type=0,
+              sensor_fit=0)
+    cd.update(lens)
+    return cd
+
+
+def write_big_scene_blend(directory: str, n_boxes: int, seed: int,
+                          n_omm: int, accept_deg: float, camera_pos,
+                          gzip: bool = False) -> str:
+    """make_big_scene(n_boxes, seed) as a .blend in `directory`, with a
+    make_sphere_eye(n_omm, accept_deg) .eye file in its eyes/ directory and
+    three cameras carrying the reference's markup: the compound eye
+    "insect-eye-spherical-projector" (spherical_orientationwise, the .eye
+    by a relative path) at the bench pose (the scene's AABB centre + 1 in
+    y, the identity local space), and "regular-panoramic", a 60-degree
+    "perspective" and a 30-unit "orthographic" camera at camera_pos
+    looking along -z.  Returns the .blend's path."""
+    import os
+
+    from compound_ray_tpu_torch.scene.eye_io import write_eye_file
+
+    os.makedirs(os.path.join(directory, "eyes"), exist_ok=True)
+    eye_rel = f"eyes/sphere-{n_omm}.eye"
+    write_eye_file(os.path.join(directory, eye_rel),
+                   make_sphere_eye(n_omm, acceptance_deg=accept_deg))
+    meshes = big_scene_blend_meshes(n_boxes, seed)
+    boxes = _big_scene_boxes(n_boxes, seed)
+    lo = np.min([c - s / 2 for c, s, _ in boxes], axis=0)
+    hi = np.max([c + s / 2 for c, s, _ in boxes], axis=0)
+    bench = (lo + hi) / 2 + np.array([0.0, 1.0, 0.0])
+    # vertical sensor fit: yfov = 2 atan(sensor_y / (2 lens)) = 60 degrees
+    lens60 = 12.0 / math.tan(math.radians(30.0))
+    cameras = [
+        blend_camera("insect-eye-spherical-projector", bench, {
+            "compound-eye": "true",
+            "compound-projection": "spherical_orientationwise",
+            "compound-structure": eye_rel}, forward=(0.0, 0.0, 1.0)),
+        blend_camera("regular-panoramic", camera_pos, {"panoramic": "true"}),
+        blend_camera("perspective", camera_pos, lens=lens60, sensor_fit=2),
+        blend_camera("orthographic", camera_pos, type=1, ortho_scale=30.0),
+    ]
+    name = f"big-scene-{n_boxes}{'-gz' if gzip else ''}.blend"
+    return write_blend(os.path.join(directory, name), meshes, cameras,
+                       render_size=(640, 480), gzip=gzip)

@@ -764,3 +764,29 @@ def test_k6_default_other_shapes(cuda_device, k, n):
     ref = MB.dot_bench_reference(ft, mm, "default", 9)
     scale = testing.dot_bench_scale(ft, mm, "default", 9)
     assert ((got.double() - ref.double()).abs() / scale).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_blend_scene_frame_card_vs_cpu(cuda_device, tmp_path):
+    """A written .blend loaded by EyeRenderer on the card and on the CPU:
+    the same scene, and its compound eye's frame at the eye's pose, from
+    the same numpy angles, through K1 on the card and its twin on the CPU
+    within ATOL."""
+    from compound_ray_tpu_torch import EyeRenderer
+
+    path = testing.write_big_scene_blend(
+        str(tmp_path), n_boxes=60, seed=5, n_omm=64, accept_deg=4.0,
+        camera_pos=(0.0, 3.0, 40.0))
+    means, scenes = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        r = EyeRenderer(verbose=False, device=dev)
+        r.load_gltf_scene(path)
+        r.goto_camera_by_name("insect-eye-spherical-projector")
+        cam = r.current_camera()
+        f = testing.frame_pack(r.scene, cam.ommatidia, 64, cam.position, dev)
+        assert (f.row_counts > 0).any()
+        means.append(testing.frame_means(r.scene, f))
+        scenes.append(r.scene)
+    np.testing.assert_array_equal(scenes[0].v0, scenes[1].v0)
+    assert np.isfinite(means[0]).all()
+    np.testing.assert_allclose(means[0], means[1], atol=ATOL)

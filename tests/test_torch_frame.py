@@ -190,14 +190,22 @@ def test_eye_renderer_frames_advance_the_rng(jax_unlit):
 
 
 def test_eye_renderer_refuses_what_is_not_ported(tmp_path):
-    """Still unported: .blend scenes (ROADMAP.md queue 1).  A real camera
-    at a non-zero render size and raw samples with lighting on render (the
-    brute-force oracle on this 36-triangle scene)."""
+    """A .blend scene loads (scene/blend.py) and a file that is not one
+    raises ValueError.  A real camera at a non-zero render size and raw
+    samples with lighting on render (the brute-force oracle on this
+    36-triangle scene)."""
     tr = EyeRenderer(verbose=False, device="cpu")
     with pytest.raises(RuntimeError):
         tr.render_frame()
-    with pytest.raises(NotImplementedError):
-        tr.load_gltf_scene(str(tmp_path / "scene.blend"))
+    path = ttesting.write_blend(
+        str(tmp_path / "scene.blend"),
+        ttesting.big_scene_blend_meshes(n_boxes=2, seed=0))
+    tr.load_gltf_scene(path)
+    assert tr.scene.num_triangles == 36 and tr.get_lights().shape == (4, 7)
+    (tmp_path / "junk.blend").write_bytes(b"not a blender file" * 4)
+    with pytest.raises(ValueError, match="not a .blend"):
+        tr.load_gltf_scene(str(tmp_path / "junk.blend"))
+    tr = EyeRenderer(verbose=False, device="cpu")
     with pytest.raises(RuntimeError, match="lights"):
         tr.get_lights()  # lights come with a scene
     for bad in (np.zeros((4, 6)), np.zeros(7), np.zeros((0, 7))):
@@ -312,7 +320,14 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch.tools.probe_step\n"
         "import compound_ray_tpu_torch.tools.microbench_k\n"
         "import compound_ray_tpu_torch.tools.frame_time\n"
+        "import compound_ray_tpu_torch.scene.blend\n"
+        "from compound_ray_tpu_torch.examples import (\n"
+        "    primary_example, speed_test, plot_speed_test,\n"
+        "    alias_quantified_experiment, alias_viewpoint_experiment,\n"
+        "    heterogeneous_demonstration, overview_images,\n"
+        "    position_estimation)\n"
         "assert 'matplotlib' not in sys.modules, 'the viewer imports it lazily'\n"
+        "assert 'PIL' not in sys.modules, 'a textured .blend load imports it'\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
         "       or m.startswith('jax.') or m == 'compound_ray_tpu'\n"
         "       or m.startswith('compound_ray_tpu.')]\n"

@@ -149,6 +149,82 @@ def test_packed_store_is_a_bounded_lru(pinned, monkeypatch):
     assert again is packs[-1]
 
 
+def _pack_at(splan, eplan, to, y):
+    pos = torch.tensor([0.0, y, 0.0])
+    sig = (pos.numpy().tobytes(), LS.tobytes())
+    kc, rm = TP._plan_widths(splan, eplan, to, pos, torch.as_tensor(LS),
+                             (eplan.sig, SAMPLES, sig))
+    return TP._packed_plan(splan, eplan, to, pos, torch.as_tensor(LS), sig,
+                           SAMPLES, kc, rm)
+
+
+def test_packed_store_evicts_by_bytes(pinned, monkeypatch):
+    """With the byte bound at about two packs the store keeps the newest
+    packs that fit, oldest out first, whatever its count bound."""
+    ts = ttesting.make_big_scene(n_boxes=60, seed=5)
+    omms = ommatidia_to_array(ttesting.make_sphere_eye(16, 4.0))
+    splan = TP.scene_plan(ts, "cpu")
+    eplan = TP.eye_plan(omms, SAMPLES)
+    to, _ = eplan.device_arrays(omms, "cpu")
+    first = _pack_at(splan, eplan, to, 1.0)
+    size = TP._pack_nbytes(first)
+    assert size == sum(t.numel() * t.element_size() for t in first) > 0
+    splan.packed_store.clear()
+    monkeypatch.setattr(tcfg, "_global_config", tcfg.RenderConfig(
+        packed_store_size=8, packed_store_bytes=int(2.5 * size)))
+    packs = [_pack_at(splan, eplan, to, y) for y in (1.0, 1.0001, 1.0002)]
+    sizes = [TP._pack_nbytes(p) for p in packs]
+    assert max(sizes) <= 1.2 * size  # neighbouring poses, like packs
+    held = list(splan.packed_store.values())
+    assert sum(map(TP._pack_nbytes, held)) <= int(2.5 * size)
+    assert len(held) == 2 and held[-1] is packs[-1] and held[0] is packs[1]
+    # the newest is served from the store, not re-packed
+    assert _pack_at(splan, eplan, to, 1.0002) is packs[-1]
+
+
+def test_packed_store_serves_but_keeps_no_pack_over_its_bound(pinned,
+                                                              monkeypatch):
+    """A pack larger than the whole byte bound is returned for its frame
+    and not kept; the store keeps what it held."""
+    ts = ttesting.make_big_scene(n_boxes=60, seed=5)
+    omms = ommatidia_to_array(ttesting.make_sphere_eye(16, 4.0))
+    splan = TP.scene_plan(ts, "cpu")
+    eplan = TP.eye_plan(omms, SAMPLES)
+    to, _ = eplan.device_arrays(omms, "cpu")
+    kept = _pack_at(splan, eplan, to, 1.0)
+    size = TP._pack_nbytes(kept)
+    monkeypatch.setattr(tcfg, "_global_config", tcfg.RenderConfig(
+        packed_store_bytes=size))
+    big = TP.eye_plan(np.concatenate([omms, omms]), SAMPLES)  # 2x the bytes
+    bo, _ = big.device_arrays(np.concatenate([omms, omms]), "cpu")
+    out = _pack_at(splan, big, bo, 1.0)
+    assert TP._pack_nbytes(out) > size and out[0].shape[0] == 2 * len(omms)
+    assert list(splan.packed_store.values()) == [kept]
+    assert _pack_at(splan, big, bo, 1.0) is not out  # packed again
+
+
+def test_eye_plan_store_is_a_bounded_lru(monkeypatch):
+    """Many distinct eyes never hold more than EYE_PLAN_STORE_SIZE plans;
+    a used plan is refreshed, and a plan built again has the signature the
+    width and pack memos are keyed by."""
+    monkeypatch.setattr(TP, "_eye_plans", {})
+    monkeypatch.setattr(TP, "EYE_PLAN_STORE_SIZE", 3)
+    base = ommatidia_to_array(ttesting.make_sphere_eye(8, 4.0))
+    eyes = [base + np.float32(0.01 * i) for i in range(7)]
+    first = TP.eye_plan(eyes[0], SAMPLES)
+    for i, e in enumerate(eyes[1:], 1):
+        TP.eye_plan(e, SAMPLES)
+        assert len(TP._eye_plans) == min(i + 1, 3)
+        if i == 1:
+            assert TP.eye_plan(eyes[0], SAMPLES) is first  # refreshed
+    assert len(TP._eye_plans) == 3
+    last = TP.eye_plan(eyes[-1], SAMPLES)
+    assert any(p is last for p in TP._eye_plans.values())
+    again = TP.eye_plan(eyes[0], SAMPLES)
+    assert again is not first and again.sig == first.sig
+    np.testing.assert_array_equal(again.perm, first.perm)
+
+
 def test_refine_chunks_cover_every_group(monkeypatch):
     monkeypatch.setattr(TP, "_REFINE_CHUNK_ELEMS", 3 * 2 * 128)
     chunks = TP._refine_chunks(ng=10, g=2, kcand=1)
