@@ -15,7 +15,8 @@ tools' full sizes; then the API surface through the ctypes shim at 640 x
 480 (raw samples, the eight projections, pipelined frames); then the real
 cameras at 640 x 480 and the brute-force oracle; then bursts, pose
 batches, the eye tools and the viewer; then the bench scene written as a
-.blend and the eight examples on it.  Phases, each failing loudly:
+.blend and the eight examples on it; then the sharded path over ranks.
+Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
@@ -87,7 +88,20 @@ batches, the eye tools and the viewer; then the bench scene written as a
      defaults but for EXAMPLE_ARGS); after the path, its triangles against
      make_big_scene's, each frame against its twin-rendered frame, the lit
      frame against the unlit one, each camera against the oracle, and K3
-     against its twin on the .blend's first lit frame.
+     against its twin on the .blend's first lit frame;
+ 12. the sharded path (parallel/sharding.py): A, a world of one NCCL rank
+     in this process, whose (1, 1) mesh frame at 3200 samples must equal
+     render_means bit for bit, counted as a path; B, four gloo ranks of
+     this script (--shard-rank; NCCL rejects two ranks on one card)
+     sharing the card on a (2, 2) mesh, each an EyeRenderer at backend
+     "auto" that must take the "sharded" route: frames at 3200 samples
+     with the far field off, on (K2) and lit (K3 on the shard-major shadow
+     table), raw samples at 100 and 100 x 10 bursts, their launches added
+     to the kernel table; every rank's results bit-equal, rank 0's against
+     the dense frames of this process on the same seeds (2e-6 unlit, 2e-5
+     lit and raw samples), each burst frame against its sequential sharded
+     frame, K3 against its twin on each shard's block of the table, the
+     frames' and the collectives' times.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
 card and {"ok": true, "device": ...}.
@@ -96,6 +110,7 @@ card and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -202,6 +217,19 @@ EXAMPLE_ARGS = {
     "overview_images": [],
     "position_estimation": [],
 }
+# phase 12: the sharded path.  Four gloo ranks share the one card (NCCL
+# rejects two ranks on one device) on the (2, 2) mesh that
+# pick_sample_parallel(3200, 4) gives, each with its deadline; the frames
+# timed per setting after the first and warm-up frames; raw samples and
+# the burst as (samples, frames); and the thresholds of
+# tests/test_sharding.py:116 (unlit) and :156 (lit, and raw samples)
+SHARD_RANKS = 4
+SHARD_RANK_TIMEOUT_S = 300
+SHARD_WARMUP, SHARD_TIMED = 2, 5
+SHARD_RAW_SAMPLES = 100
+SHARD_BURST = (100, 10)
+SHARD_UNLIT_ATOL = 2e-6
+SHARD_LIT_ATOL = 2e-5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE))
@@ -2457,6 +2485,482 @@ def blend_phase(card: str, count) -> None:
     tmp.cleanup()
 
 
+def _shard_spec() -> dict:
+    """What a phase-12 rank renders, from this module's sizes, so a rank
+    started as a subprocess renders what its parent checks."""
+    return dict(n_boxes=N_BOXES, n_omm=N_OMM, accept_deg=ACCEPT_DEG,
+                samples=SAMPLES[-1], raw_samples=SHARD_RAW_SAMPLES,
+                burst=list(SHARD_BURST), warmup=SHARD_WARMUP,
+                timed=SHARD_TIMED)
+
+
+def _shard_setting_frames(r, cam, spec, raw: bool = False) -> dict:
+    """1 + warm-up + timed frames of the rank's current setting through
+    render_frame; returns the first frame's seed, the timed frames' ms
+    (median and all), and the last frame's means (or raw samples) with
+    its seed."""
+    out = dict(first_seed=cam.rng_frame, frame_ms=[])
+    for i in range(1 + spec["warmup"] + spec["timed"]):
+        ms = _events_ms(r.render_frame)[1]
+        if i == 0:
+            out["first_frame_ms"] = ms
+        elif i > spec["warmup"]:
+            out["frame_ms"].append(ms)
+    out["median_ms"] = float(np.median(out["frame_ms"]))
+    out["seed"] = cam.rng_frame - 1
+    out["result"] = (r._raw_samples if raw else r._device_means).cpu().numpy()
+    return out
+
+
+def _collective_ms(run) -> dict:
+    """run() with torch.distributed's all_reduce and all_gather timed per
+    call (the card synchronised before and after): {name: [ms, ...]}."""
+    import torch.distributed as dist
+
+    times = {"all_reduce": [], "all_gather": []}
+    orig = {name: getattr(dist, name) for name in times}
+
+    def wrap(name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig[name](*a, **k)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return call
+
+    for name in times:
+        setattr(dist, name, wrap(name))
+    try:
+        run()
+    finally:
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+    return times
+
+
+def _shard_sections_expected(spec: dict) -> dict:
+    """Each phase-12 B section's K1, K2 and K3 launches on one rank: a
+    frame is one K1 launch, the first frame with the far-field cache
+    builds it (one K2), the first lit frame probes its shadow plan (one K1
+    more) and every lit frame traces its shadow rays (one K3); a burst is
+    one K1 launch per frame."""
+    n = 1 + spec["warmup"] + spec["timed"]
+    bursts = (1 + spec["timed"]) * spec["burst"][1]
+    return {"off": dict(k1=n, k2=0, k3=0), "auto": dict(k1=n, k2=1, k3=0),
+            "lit": dict(k1=n + 1, k2=0, k3=n), "raw": dict(k1=n, k2=0, k3=0),
+            "burst": dict(k1=bursts, k2=0, k3=0)}
+
+
+def shard_rank_path(spec: dict):
+    """Phase 12 B, one rank (its process group already joined): the bench
+    configuration on an EyeRenderer with backend "auto", which must take
+    the "sharded" route; with every launch count set to 0, frames at
+    spec["samples"] with the far field off, on (the cache: K2) and lit
+    (the shard-major shadow plan: K3), raw samples and the renderer's
+    bursts, each a section of the path whose launches are counted; the
+    counts are read there.  Then, outside the path, one burst against its
+    frames one by one and the collectives' times over one frame of each
+    kind.  Returns (a JSON-able dict, {name: array})."""
+    global N_BOXES, N_OMM, ACCEPT_DEG
+    from compound_ray_tpu_torch.parallel import sharding as S
+
+    N_BOXES, N_OMM, ACCEPT_DEG = (spec["n_boxes"], spec["n_omm"],
+                                  spec["accept_deg"])
+    _set_config()
+    r, cam = _bench_renderer("cuda")
+    if r._burst_route() != "sharded":
+        raise AssertionError(f"rank took the {r._burst_route()} route")
+    samples = spec["samples"]
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    res, arrays, sections = {}, {}, {}
+    r.set_current_eye_samples_per_ommatidium(samples)
+    for tag, farfield, lit in (("off", "off", False), ("auto", "auto", False),
+                               ("lit", "auto", True)):
+        _set_config(farfield=farfield)
+        r.set_lighting(lit)
+        res[tag] = _counted(sections, tag,
+                            lambda: _shard_setting_frames(r, cam, spec))
+        arrays[tag] = res[tag].pop("result")
+    r.set_lighting(False)
+    _set_config()
+    cam.set_projection("raw_ommatidial_samples")
+    r.set_current_eye_samples_per_ommatidium(spec["raw_samples"])
+    res["raw"] = _counted(sections, "raw", lambda: _shard_setting_frames(
+        r, cam, spec, raw=True))
+    arrays["raw"] = res["raw"].pop("result")
+    cam.set_projection("single_dimension_fast")
+    bs, bf = spec["burst"]
+    r.set_current_eye_samples_per_ommatidium(bs)
+    burst_ms = _counted(sections, "burst", lambda: [
+        _events_ms(lambda: r.render_frames_pipelined(bf))[1] / bf
+        for _ in range(1 + spec["timed"])][1:])
+    res["burst"] = dict(frame_ms=burst_ms,
+                        median_ms=float(np.median(burst_ms)),
+                        seed=cam.rng_frame)
+    res["launches"] = {k: getattr(mod, attr)
+                       for k, (mod, attr) in counters.items()}
+    res["sections"] = sections
+    # after the path: a burst against its frames one by one
+    mesh = r._mesh(bs)
+
+    def args(gen):
+        return r._frame_args(cam.ommatidia, cam.position, cam.local_space,
+                             gen, bs)
+
+    def gens():  # a draw advances its generator: fresh ones for each use
+        return [r._generator(cam.rng_frame + k) for k in range(bf)]
+
+    arrays["burst"] = S.render_means_sharded_packed_frames(
+        *args(gens()), mesh).cpu().numpy()
+    arrays["burst_sequential"] = np.stack([
+        S.render_means_sharded_packed(*args(g), mesh).cpu().numpy()
+        for g in gens()])
+    res["coords"] = list(mesh.coords)
+    res["mesh"] = dict(mesh.shape)
+    # the collectives, timed alone: a means frame and a raw frame
+    r.set_current_eye_samples_per_ommatidium(samples)
+    res["collectives_means"] = _collective_ms(r.render_frame)
+    cam.set_projection("raw_ommatidial_samples")
+    r.set_current_eye_samples_per_ommatidium(spec["raw_samples"])
+    res["collectives_raw"] = _collective_ms(r.render_frame)
+    cam.set_projection("single_dimension_fast")
+    return res, arrays
+
+
+def shard_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
+    """A phase-12 rank: join the gloo group of SHARD_RANKS ranks through
+    the file:// store, run shard_rank_path on the card, write
+    rank<rank>.json and .npz into out_dir, leave the group."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=SHARD_RANKS)
+    try:
+        res, arrays = shard_rank_path(spec)
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_shard_ranks(out_dir: str, spec: dict) -> list:
+    """Start SHARD_RANKS ranks of this script (`--shard-rank`), each with
+    SHARD_RANK_TIMEOUT_S; a rank that fails, hangs or exits non-zero fails
+    the phase (every rank still running is killed).  Returns each rank's
+    (result dict, arrays)."""
+    import subprocess
+
+    store = os.path.join(out_dir, "store")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(k),
+         store, out_dir, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(SHARD_RANKS)]
+    logs, failed = [], []
+    deadline = time.monotonic() + SHARD_RANK_TIMEOUT_S
+    try:
+        for k, p in enumerate(procs):
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {k} passed its {SHARD_RANK_TIMEOUT_S} s")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed += [f"rank {k} exited {p.returncode}:\n{log[-3000:]}"
+               for k, (p, log) in enumerate(zip(procs, logs))
+               if p.returncode != 0]
+    if failed:
+        raise AssertionError("phase 12 ranks failed: " + "\n".join(failed))
+    out = []
+    for k in range(SHARD_RANKS):
+        with open(os.path.join(out_dir, f"rank{k}.json")) as f:
+            res = json.load(f)
+        out.append((res, dict(np.load(os.path.join(out_dir,
+                                                   f"rank{k}.npz")))))
+    return out
+
+
+def nccl_one_rank(r, cam, tmp: str):
+    """Phase 12 A: a world of one NCCL rank on the card.  The path: 1 +
+    SHARD_TIMED unlit SAMPLES[-1]-sample bench frames through
+    render_means_sharded_packed on the (1, 1) mesh (its all-reduce and
+    all-gather run on the card), all on one seed.  After it, one frame
+    through render_means on that seed, bit-equal to the first sharded
+    frame (one shard, factor 1.0), as many dense frames timed, and the
+    collectives of one more sharded frame.  Returns (a result dict,
+    {kernel: launches in the path})."""
+    import torch.distributed as dist
+
+    from compound_ray_tpu_torch.parallel import sharding as S
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-store",
+                            rank=0, world_size=1)
+    try:
+        _set_config()
+        mesh = S.make_eye_mesh(sample_parallel=S.pick_sample_parallel(
+            SAMPLES[-1]), device="cuda")
+        seed = cam.rng_frame
+
+        def sharded():
+            return S.render_means_sharded_packed(*r._frame_args(
+                cam.ommatidia, cam.position, cam.local_space,
+                r._generator(seed), SAMPLES[-1]), mesh)
+
+        runs, n = _path(r, "sharded path A (one NCCL rank)", lambda: [
+            _events_ms(sharded) for _ in range(1 + SHARD_TIMED)], phase=12)
+        if n != dict(k1=1 + SHARD_TIMED, k2=1, k3=0, k4=0, k5=0, k6=0):
+            raise AssertionError(f"phase 12 A's path launched {n}, not K1 "
+                                 f"{1 + SHARD_TIMED} times and K2 once")
+        got = runs[0][0]
+        dense = _render_out(r, cam, seed)
+        if not torch.equal(got, dense):
+            raise AssertionError(
+                f"the NCCL (1, 1) frame differs from render_means: max abs "
+                f"{(got - dense).abs().max().item()}")
+        dense_ms = [_events_ms(lambda: _render_out(r, cam, seed))[1]
+                    for _ in range(SHARD_TIMED)]
+        times = _collective_ms(sharded)
+        res = dict(backend=dist.get_backend(), mesh=dict(mesh.shape),
+                   bit_equal=True, first_frame_ms=runs[0][1],
+                   frame_ms=[round(ms, 4) for _, ms in runs[1:]],
+                   dense_frame_ms=[round(x, 4) for x in dense_ms],
+                   collectives_ms={k: [round(x, 4) for x in v]
+                                   for k, v in times.items()})
+        return res, n
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_kernels_vs_twins(r, cam, first_seed: int) -> dict:
+    """K1 and K3 against their twins at the shapes of the shards: the
+    (2, 2) mesh plan of the lit bench frame (probing the ranks' first lit
+    frame), each shard core's K1 and K3 inputs recorded as it hands them
+    over (K1 at the shard's groups and ray block, K3 on its block of the
+    shard-major shadow table); and each shard's partial means through the
+    K1 twin against its means through K1."""
+    from compound_ray_tpu_torch.parallel import sharding as S
+    from compound_ray_tpu_torch.testing import hit_agreement
+    from compound_ray_tpu_torch.trace.mm_tracer import (
+        _row_ranges,
+        packed_tracer_reference,
+        rows_occlusion_reference,
+        run_packed_tracer,
+        run_rows_occlusion,
+    )
+
+    _set_config()
+    shape = {"omm": SHARD_RANKS // 2, "sample": 2}
+    args = r._frame_args(cam.ommatidia, cam.position, cam.local_space,
+                         r._generator(first_seed), SAMPLES[-1])
+    plan = S._plan_for_mesh(*args, shape, lights=r.get_lights())
+    k1_seen, k3_seen = [], []
+
+    def record(seen, fn):
+        def call(*a, **k):
+            seen.append((a, k))
+            return fn(*a, **k)
+        return call
+
+    coords = [(i, j) for i in range(shape["omm"])
+              for j in range(shape["sample"])]
+    plan.kw["tracer"] = record(k1_seen, run_packed_tracer)
+    plan.kw["shadow_tracer"] = record(k3_seen, run_rows_occlusion)
+    means = [S.shard_core(plan, i, j) for i, j in coords]
+    del plan.kw["shadow_tracer"]
+    plan.kw["tracer"] = packed_tracer_reference
+    means_err = max(float((S.shard_core(plan, i, j) - m).abs().max())
+                    for (i, j), m in zip(coords, means))
+    k1 = dict(shards=len(k1_seen), slot_agree=1.0, max_abs_err=0.0,
+              max_rel_err=0.0, means_vs_twin_max_abs=means_err, ms=[],
+              plain_ms=[])
+    for a, k in k1_seen:
+        rc, pmm, rays = a
+        got = run_packed_tracer(*a, **k)
+        ref = packed_tracer_reference(*a, **k)
+        agree, max_abs, max_rel = hit_agreement(ref, got, rc,
+                                                k["nrb"] * k["rb_size"])
+        k1.update(slot_agree=min(k1["slot_agree"], agree),
+                  max_abs_err=max(k1["max_abs_err"], max_abs),
+                  max_rel_err=max(k1["max_rel_err"], max_rel),
+                  shape=dict(ng=k["ng"], rb_size=k["rb_size"],
+                             rmax=k["rmax"], rays=rays.shape[1]))
+        k1["ms"].append(round(time_ms(lambda: run_packed_tracer(*a, **k),
+                                      reps=5), 4))
+        k1["plain_ms"].append(round(time_ms(
+            lambda: packed_tracer_reference(*a, **k), reps=1), 4))
+    if not (k1["slot_agree"] >= SLOT_AGREE and k1["max_rel_err"] <= T_RTOL
+            and means_err <= MEANS_ATOL):
+        raise AssertionError(f"K1 disagrees with its twin at the shard "
+                             f"shapes: {k1}")
+    differ = live_rays = 0
+    ms = []
+    for a, k in k3_seen:
+        r2v, flag, _, rays = a
+        _, vg_rows = _row_ranges(r2v, flag, rays.shape[1] // (
+            k["nrb"] * k["rb_size"]))
+        live = torch.repeat_interleave(vg_rows > 0, k["nrb"] * k["rb_size"])
+        got = run_rows_occlusion(*a, **k)
+        ref = rows_occlusion_reference(*a, **k)
+        differ += int((got[0, live] != ref[0, live]).sum().item())
+        live_rays += int(live.sum().item())
+        ms.append(time_ms(lambda: run_rows_occlusion(*a, **k), reps=5,
+                          device=r.device))
+    counts, r2v, _, flat_rows, _ = plan.kw["shadow"]
+    agree = 1.0 - differ / max(live_rays, 1)
+    k3 = dict(shards=len(k3_seen), table_rows=int(flat_rows.shape[0]),
+              live_rows=int(counts.sum().item()), live_rays=live_rays,
+              decisions_differ=differ, decision_agree=agree,
+              ms_per_shard=[round(x, 4) for x in ms])
+    if not agree >= K3_AGREE:
+        raise AssertionError(f"K3 disagrees with its twin on the "
+                             f"shard-major table: {k3}")
+    return dict(k1=k1, k3=k3)
+
+
+def shard_checks(r, cam, ranks):
+    """Phase 12 B's checks in the parent: every rank's arrays bit-equal;
+    the mesh plan's n_pad equal to the dense plan's; rank 0's frames
+    against the dense frames of `r` on the same seeds (a lit plan probes the
+    ranks' first lit frame first), timed as well; its raw samples against
+    render_samples; its burst against its sequential frames.  Returns
+    ({setting: max abs error}, {setting: dense median ms}, (mesh n_pad,
+    dense n_pad))."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.eye.pipeline import render_samples
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    res0, arr0 = ranks[0]
+    for k, (res, arr) in enumerate(ranks[1:], 1):
+        for name, x in arr0.items():
+            if not np.array_equal(arr[name], x):
+                raise AssertionError(f"rank {k}'s {name} differs from rank "
+                                     f"0's")
+    eplan_mesh = P.eye_plan(cam.ommatidia, SAMPLES[-1],
+                            ng_multiple=res0["mesh"]["omm"])
+    eplan_dense = P.eye_plan(cam.ommatidia, SAMPLES[-1])
+    if eplan_mesh.n_pad != eplan_dense.n_pad:
+        raise AssertionError(f"mesh n_pad {eplan_mesh.n_pad} != dense "
+                             f"{eplan_dense.n_pad}")
+    # rank 0 against the dense frames on the same seeds (a lit plan probes
+    # the ranks' first lit frame first)
+    errs, dense_ms = {}, {}
+    for tag, farfield, lit in (("off", "off", False), ("auto", "auto", False),
+                               ("lit", "auto", True)):
+        _set_config(farfield=farfield)
+        kw = dict(lights=r.get_lights()) if lit else {}
+        if lit:
+            _render(r, cam, res0[tag]["first_seed"], **kw)
+        dense = _render(r, cam, res0[tag]["seed"], **kw)
+        errs[tag] = float(np.abs(arr0[tag] - dense).max())
+        dense_ms[tag] = float(np.median([_events_ms(
+            lambda: _render_out(r, cam, res0[tag]["seed"], **kw))[1]
+            for _ in range(SHARD_WARMUP + SHARD_TIMED)][SHARD_WARMUP:]))
+        tol = SHARD_LIT_ATOL if lit else SHARD_UNLIT_ATOL
+        if not errs[tag] <= tol:
+            raise AssertionError(f"sharded {tag} frame vs dense: max abs "
+                                 f"{errs[tag]} > {tol}")
+    _set_config()
+    pos, ls, _ = _pose(cam)
+    gen = r._generator(res0["raw"]["seed"])
+    raw_dense = render_samples(
+        r.scene, r.scene.device_triangles(r.device), cam.ommatidia, pos, ls,
+        gen, SHARD_RAW_SAMPLES, miss_id(r.scene.background_shader))
+    errs["raw"] = float(np.abs(arr0["raw"] - raw_dense.cpu().numpy()).max())
+    if not errs["raw"] <= SHARD_LIT_ATOL:
+        raise AssertionError(f"sharded raw samples vs dense: max abs "
+                             f"{errs['raw']}")
+    if not np.array_equal(arr0["burst"], arr0["burst_sequential"]):
+        raise AssertionError("a sharded burst frame differs from its "
+                             "sequential sharded frame")
+    return errs, dense_ms, (eplan_mesh.n_pad, eplan_dense.n_pad)
+
+
+def sharded_phase(card: str, count, launches: dict) -> None:
+    """Phase 12, the sharded path: A, one NCCL rank in process (counted as
+    a path); B, SHARD_RANKS gloo ranks on the card (each rank's path
+    counted by sections, its launches added to the kernel table), their
+    results bit-equal across ranks, rank 0's against the dense frames on
+    the same seeds, each burst frame against the sequential sharded frame,
+    and K1 and K3 against their twins at the shards' shapes."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    r, cam = _bench_renderer("cuda")  # fresh plans: the dense references
+    cam.set_samples_per_ommatidium(SAMPLES[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        a = count(nccl_one_rank(r, cam, tmp))[0]
+    print(f"phase 12 A ({card}): {json.dumps(a)} (the (1, 1) frame "
+          f"bit-equal to render_means)")
+    torch.cuda.empty_cache()
+    spec = _shard_spec()
+    with tempfile.TemporaryDirectory() as tmp:
+        tb = time.perf_counter()
+        ranks = run_shard_ranks(tmp, spec)
+        ranks_s = time.perf_counter() - tb
+    expected = _shard_sections_expected(spec)
+    for k, (res, _) in enumerate(ranks):
+        total = _sum_launches(res["sections"].values())
+        if res["sections"] != expected or any(
+                res["launches"][key] != v for key, v in total.items()) or any(
+                res["launches"][key] for key in ("k4", "k5", "k6")):
+            raise AssertionError(
+                f"rank {k}'s path launched {res['launches']} by sections "
+                f"{res['sections']}, not {expected}")
+        for key, v in res["launches"].items():
+            launches[key] += v
+    errs, dense_ms, n_pad = shard_checks(r, cam, ranks)
+    res0 = ranks[0][0]
+    twins = shard_kernels_vs_twins(r, cam, res0["lit"]["first_seed"])
+    mesh = res0["mesh"]
+    print(f"phase 12 B ({card}): {SHARD_RANKS} gloo ranks on one card, mesh "
+          f"{mesh}, n_pad {n_pad[0]} (dense {n_pad[1]}); "
+          f"ranks ran {ranks_s:.1f} s; every rank's results bit-equal; "
+          f"rank 0 vs dense max abs {json.dumps(errs)} (<= "
+          f"{SHARD_UNLIT_ATOL} unlit, {SHARD_LIT_ATOL} lit and raw); burst "
+          f"frames bit-equal to the sequential sharded frames")
+    print(f"phase 12 B: each rank's launches by section (the sum of its "
+          f"path's): {json.dumps(expected)}")
+    for k, (res, _) in enumerate(ranks):
+        print(f"phase 12 B rank {k} at {res['coords']} ({card}): launches "
+              f"{json.dumps(res['launches'])}; " + "; ".join(
+                  f"{tag} first {res[tag]['first_frame_ms']:.3f} ms, median "
+                  f"{res[tag]['median_ms']:.3f} ms"
+                  for tag in ("off", "auto", "lit", "raw"))
+              + f"; burst {SHARD_BURST[0]} x {SHARD_BURST[1]} median "
+              f"{res['burst']['median_ms']:.3f} ms per frame")
+    print(f"phase 12 B ({card}): dense frames in this process, median ms "
+          f"{json.dumps(dense_ms)}, against the sharded frames' medians "
+          f"above: the cost of {SHARD_RANKS} ranks sharing one card, not "
+          f"scaling")
+    for k, (res, _) in enumerate(ranks):
+        coll = {f"{kind} {name}": dict(
+            calls=len(v), median_ms=round(float(np.median(v)), 4) if v
+            else None)
+            for kind in ("means", "raw")
+            for name, v in res[f"collectives_{kind}"].items()}
+        print(f"phase 12 B rank {k} collectives ({card}, gloo on the card, "
+              f"{SHARD_RANKS} ranks sharing it): {json.dumps(coll)}")
+    print(f"phase 12 B: K1 vs twin at the shards' shapes ({card}): "
+          f"{json.dumps(twins['k1'])} (thresholds: slots >= {SLOT_AGREE}, "
+          f"t rtol {T_RTOL}, partial means <= {MEANS_ATOL})")
+    print(f"phase 12 B: K3 vs twin on the shard-major table ({card}): "
+          f"{json.dumps(twins['k3'])} (threshold: >= {K3_AGREE} equal)")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -2649,6 +3153,7 @@ def main() -> int:
     k2i = real_cameras_phase(r, cam, card, count)
     bursts_phase(r, cam, card, count)
     blend_phase(card, count)
+    sharded_phase(card, count, launches)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -2693,4 +3198,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                   json.loads(sys.argv[5]))
+        sys.exit(0)
     sys.exit(main())

@@ -38,6 +38,16 @@ K1 launch or one frame core each (eye/pipeline.py render_means_frames),
 one sync.  render_batch_poses folds B poses into the ommatidium axis and
 renders them as one frame.
 
+Under a default process group of more than one rank (torchrun, one
+renderer per rank), backend "auto" or "sharded" renders frames, unlit raw
+samples and bursts over the (omm, sample) mesh of the ranks
+(parallel/sharding.py), and every rank gets the whole result.  Every rank
+must then hold the same config, scene, eye and frame count: each draws the
+frame's global angles from its generator, seeded from (config.base_seed,
+the eye's frame), as one controller's key.  In one process "sharded" does
+what the JAX renderer does on one device: frames and bursts take the
+oracle, raw samples the packed path.
+
 load_gltf_scene reads glTF (scene/flat.py) and, by its extension, a
 .blend file (scene/blend.py) with its cameras and compound-eye markup.
 """
@@ -72,6 +82,14 @@ from compound_ray_tpu_torch.eye.pipeline import (
 from compound_ray_tpu_torch.eye.render import (
     render_compound_means,
     render_compound_samples,
+)
+from compound_ray_tpu_torch.parallel.sharding import (
+    _world_size,
+    make_eye_mesh,
+    pick_sample_parallel,
+    render_means_sharded_packed,
+    render_means_sharded_packed_frames,
+    render_samples_sharded_packed,
 )
 from compound_ray_tpu_torch.projection.project import project_frame
 from compound_ray_tpu_torch.scene.flat import FlatScene, load_scene
@@ -250,16 +268,33 @@ class EyeRenderer:
     def _lit(self) -> bool:
         return self.lighting and self._lights is not None
 
+    def _sharded(self) -> bool:
+        """True when frames go to the mesh of ranks: backend "auto" or
+        "sharded" under a default process group of more than one rank
+        (compound_ray_tpu/api/renderer.py:549, :615, :649)."""
+        return get_config().backend in ("auto", "sharded") and (
+            _world_size() > 1)
+
+    def _mesh(self, samples: int):
+        """The mesh of the ranks for a frame of `samples` samples."""
+        return make_eye_mesh(sample_parallel=pick_sample_parallel(samples),
+                             device=self.device)
+
     def _render_means(self, args) -> torch.Tensor:
         """(N, 3) means of one frame on the device
-        (compound_ray_tpu/api/renderer.py:644-704): the oracle under
-        backend="naive", else the packed frame; a lit one keeps its shadow
-        audit for the next sync()."""
+        (compound_ray_tpu/api/renderer.py:644-704): the mesh of ranks when
+        _sharded() (lit frames too, unaudited as in the JAX package), the
+        oracle under backend "naive" (and "sharded" in one process), else
+        the packed frame; a lit packed frame keeps its shadow audit for
+        the next sync()."""
         lit = self._lit()
-        if get_config().backend == "naive":
+        lights = self._lights if lit else None
+        if self._sharded():
+            return render_means_sharded_packed(
+                *args, self._mesh(args[6]), lights=lights)
+        if get_config().backend in ("naive", "sharded"):
             return self._oracle(render_compound_means, args, lit)
-        out = render_means(*args, lights=self._lights if lit else None,
-                           shadow_audit=lit)
+        out = render_means(*args, lights=lights, shadow_audit=lit)
         if lit:
             out, self._pending_shadow_audit = out
         return out
@@ -277,12 +312,16 @@ class EyeRenderer:
                                 self._generator(cam.rng_frame),
                                 cam.samples_per_ommatidium)
         if cam.projection == "raw_ommatidial_samples":
-            # the packed pipeline renders unlit samples; lit ones and every
-            # frame under backend="naive" take the oracle
+            # the packed pipeline renders unlit samples, over the mesh of
+            # ranks when _sharded(); lit ones and every frame under
+            # backend="naive" take the oracle
             # (compound_ray_tpu/api/renderer.py:609-642)
             lit = self._lit()
             if lit or get_config().backend == "naive":
                 raw = self._oracle(render_compound_samples, args, lit)
+            elif self._sharded():
+                raw = render_samples_sharded_packed(*args,
+                                                    self._mesh(args[6]))
             else:
                 raw = render_samples(*args)
             self._end_frames(cam, raw.mean(dim=0), raw, 1)
@@ -353,21 +392,28 @@ class EyeRenderer:
 
         On the burst route (_burst_route) the n frames are one burst: one
         plan at the pose, the frames stacked into one frame core (one K1
-        launch) or one frame core each (render_means_frames); only the last
-        frame's means are kept and projected.  As in the JAX package, a
+        launch) or one frame core each (render_means_frames), or on the
+        "sharded" route one shard core each over the mesh of ranks
+        (render_means_sharded_packed_frames); only the last frame's means
+        are kept and projected.  As in the JAX package, a
         burst records no per-frame time in frame_times_ms and does not
         audit its lit frames against their shadow shafts.  Elsewhere (raw
         samples, backend="naive", a real camera) it renders n unsynced
         frames."""
         t0 = time.perf_counter()
-        if n > 0 and self._burst_route() is not None:
+        route = self._burst_route() if n > 0 else None
+        if route is not None:
             cam = self.current_camera()
             gens = [self._generator(cam.rng_frame + f) for f in range(n)]
             args = self._frame_args(cam.ommatidia, cam.position,
                                     cam.local_space, gens,
                                     cam.samples_per_ommatidium)
-            means = render_means_frames(
-                *args, lights=self._lights if self._lit() else None)
+            lights = self._lights if self._lit() else None
+            if route == "sharded":
+                means = render_means_sharded_packed_frames(
+                    *args, self._mesh(args[6]), lights=lights)
+            else:
+                means = render_means_frames(*args, lights=lights)
             self._end_frames(cam, means[-1], None, n)
         else:
             for _ in range(n):
@@ -381,16 +427,17 @@ class EyeRenderer:
 
     def _burst_route(self) -> Optional[str]:
         """The burst render_frames_pipelined takes
-        (compound_ray_tpu/api/renderer.py:537): "pallas" for a compound
-        eye that is not raw_ommatidial_samples under backend "auto" or
-        "pallas", else None (frame by frame).  There is no "sharded"
-        burst: the port renders on one device."""
+        (compound_ray_tpu/api/renderer.py:537), for a compound eye that is
+        not raw_ommatidial_samples: "sharded" when _sharded(), "pallas"
+        under backend "auto" or "pallas", else None (frame by frame)."""
         if self.scene is None or not self.scene.cameras:
             return None
         cam = self.current_camera()
         if (not isinstance(cam, CompoundEyeCamera)
                 or cam.projection == "raw_ommatidial_samples"):
             return None
+        if self._sharded():
+            return "sharded"
         return "pallas" if get_config().backend in ("auto", "pallas") else None
 
     def _note_frame_time(self, ms: float) -> None:

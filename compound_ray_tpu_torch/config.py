@@ -19,17 +19,21 @@ def _env_bool(s: str) -> bool:
     return s.strip().lower() not in ("", "0", "false", "off", "no")
 
 
-# backends the port renders with: "auto" (the kernels), "pallas" (its
-# synonym, so one CR_TPU_BACKEND serves both packages) and "naive" (the
-# brute-force oracle for every frame)
-BACKENDS = ("auto", "pallas", "naive")
+# backends the port renders with: "auto" (the kernels, over the mesh of
+# ranks when the default process group has more than one), "pallas" (the
+# kernels on this rank's device alone; the name serves both packages'
+# CR_TPU_BACKEND), "sharded" (the mesh of ranks, else the brute-force
+# oracle, as in the JAX package) and "naive" (the brute-force oracle for
+# every frame)
+BACKENDS = ("auto", "pallas", "sharded", "naive")
 
 
 @dataclasses.dataclass
 class RenderConfig:
     # backend (compound_ray_tpu/config.py:44-45): "auto" renders through the
-    # kernels, "naive" through the brute-force oracle (trace/intersect.py)
-    # for every frame, as the JAX package's last fallbacks do
+    # kernels (sharded over the ranks of a multi-rank process group),
+    # "naive" through the brute-force oracle (trace/intersect.py) for every
+    # frame, as the JAX package's last fallbacks do
     backend: str = "auto"
     # real-camera images of scenes below this many triangles take the
     # oracle, not the tile-culled K2 image (compound_ray_tpu/config.py:51)
@@ -82,10 +86,6 @@ class RenderConfig:
                 "to give hosts without a TPU a fast path, and the port's "
                 "kernels and their torch twins already run anywhere; use "
                 "'auto' or 'naive'")
-        if self.backend == "sharded":
-            raise NotImplementedError(
-                "backend='sharded': the multi-device path is not ported yet "
-                "(ROADMAP.md queue 1, item 8); use 'auto' or 'naive'")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"backend={self.backend!r}: expected one of {BACKENDS}")

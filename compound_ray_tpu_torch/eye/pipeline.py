@@ -31,9 +31,10 @@ a ray block).  Ray directions are unit length and tmin is rescaled by
 Not ported here (TPU workarounds or later slices of ROADMAP.md): precision
 modes, direct1, the uv/uvs/flat/loc emit variants (the lit path's one-hot
 local resolve is a plain indexed gather here), affine primary rays, the
-shadow table's rows-per-block and shard layouts, speculative widths, the
-polynomial equirect addressing (FAST_EQUIRECT), bf16 texture-and-cache
-tables and the sharded path.
+shadow table's rows-per-block layout, speculative widths, the polynomial
+equirect addressing (FAST_EQUIRECT) and bf16 texture-and-cache tables.  The
+sharded path (parallel/sharding.py) plans here (_plan_frame's omm_axis) and
+renders each shard with _trace_shade_angles.
 """
 
 from __future__ import annotations
@@ -290,16 +291,21 @@ EYE_PLAN_STORE_SIZE = 16
 _eye_plans: Dict[Tuple, EyePlan] = {}
 
 
-def eye_plan(ommatidia: np.ndarray, samples: int) -> EyePlan:
+def eye_plan(ommatidia: np.ndarray, samples: int,
+             ng_multiple: int = 1) -> EyePlan:
     """Static layout for an (eye, samples) pair
-    (compound_ray_tpu/eye/pipeline.py:354).  Padding replicates the last
+    (compound_ray_tpu/eye/pipeline.py:354).  ng_multiple pads the group
+    count to a multiple of it, so the group axis splits evenly over a mesh
+    of ranks (parallel/sharding.py).  Padding replicates the last
     ommatidium in the scan order; padded outputs are dropped by inv_valid.
     Memoised in an LRU of EYE_PLAN_STORE_SIZE plans (the JAX memo has no
     bound); a plan built again has the same signature, so the width and
-    pack memos keyed by it still serve it."""
+    pack memos keyed by it still serve it.  Plans that pad differently have
+    different signatures, so no pose memo serves one plan's pack to
+    another."""
     h = hashlib.blake2b(np.ascontiguousarray(ommatidia).tobytes(),
                         digest_size=12).hexdigest()
-    key = (h, samples, 1)
+    key = (h, samples, ng_multiple)
     plan = _eye_plans.pop(key, None)
     if plan is not None:
         _eye_plans[key] = plan  # LRU refresh
@@ -315,7 +321,7 @@ def eye_plan(ommatidia: np.ndarray, samples: int) -> EyePlan:
     phi = np.arctan2(dn[:, 2], dn[:, 0])
     band = np.floor(theta / 0.35).astype(np.int64)
     order = np.lexsort((phi, band))
-    n_pad = _ceil_to(n, g)
+    n_pad = _ceil_to(n, g * ng_multiple)
     perm = np.concatenate([order, np.full(n_pad - n, order[-1])])
     inv_valid = np.empty(n, np.int64)
     inv_valid[order] = np.arange(n)
@@ -954,6 +960,19 @@ def _lit_epilogue(out, hit, rr, gg, bb, dx, dy, dz, neg_o, scene_dev,
     return unpad(res_r), unpad(res_g), unpad(res_b), audit
 
 
+def scatter_sky(means, sky_means, sky_scatter):
+    """The live groups' means (Ngl, ..., 3) scattered over the
+    (frame-invariant) sky means (Ng0, 3): row k replaces group
+    sky_scatter[k]; padding rows point past Ng0 and land on a dump row,
+    which is cut off (compound_ray_tpu/eye/pipeline.py:1537-1542)."""
+    n0 = sky_means.shape[0]
+    tail = means.shape[1:-1]
+    base = sky_means.reshape(n0, *(1,) * len(tail), 3).expand(n0, *tail, 3)
+    full = torch.cat([base, sky_means.new_zeros((1, *tail, 3))])
+    full.index_copy_(0, torch.clamp(sky_scatter, max=n0), means)
+    return full[:n0]
+
+
 def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         quad_table, omms_p, position, local_space, splay,
                         spin, samples: int, background: int, ng: int, g: int,
@@ -1063,13 +1082,7 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                          .mean(dim=2) for c in (rr, gg, bb)],
                         dim=-1)  # (Np, F, 3)
     if sky_means is not None:
-        # scatter the live means over the (frame-invariant) sky means;
-        # padding rows land on a dump row past the end, which is cut off
-        n0 = sky_means.shape[0]
-        full = torch.cat([sky_means[:, None, :].expand(n0, frames, 3),
-                          sky_means.new_zeros((1, frames, 3))])
-        full.index_copy_(0, torch.clamp(sky_scatter, max=n0), means)
-        means = full[:n0]
+        means = scatter_sky(means, sky_means, sky_scatter)
     if frames == 1:
         means = means[:, 0]
     if lights is not None and shadow_audit:
@@ -1666,19 +1679,22 @@ def _shadow_pack_one(cg, rg_sph, light_pos, splan, kcand_s: int,
     return rc_s, packed_s[:, :, 0:SHADOW_FEATS, :]
 
 
-def _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg):
+def _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg,
+                shards: int = 1):
     """shadow_store key (compound_ray_tpu/eye/pipeline.py:2240-2243 without
-    the affine, rows-per-block and shard fields, which are not ported)."""
+    the affine and rows-per-block fields, which are not ported): a plan laid
+    out for another number of shards is another plan."""
     return (eplan.sig, samples, pose_sig, lights_np.tobytes(),
-            cfg.cull_sigmas, splan.shadow_sound_all,
+            cfg.cull_sigmas, shards, splan.shadow_sound_all,
             tuple(sorted(splan.shadow_unsound_groups)))
 
 
 def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
                  lights_np: np.ndarray, samples: int, splay, spin,
-                 packed_mm, row_counts, rmax: int, tracer=None):
+                 packed_mm, row_counts, rmax: int, tracer=None,
+                 shards: int = 1):
     """The memoised shadow plan of a lit frame
-    (compound_ray_tpu/eye/pipeline.py:2200, one row per block, one shard):
+    (compound_ray_tpu/eye/pipeline.py:2200, one row per block):
     (counts (L, NG) int32, r2v (TB,) int32, flag (TB,) int32, flat_rows
     (TB, 8, 512) f32, sph (NG, 4) [centre, radius]).
 
@@ -1687,12 +1703,19 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     live rows of the transient dense pack go into one table sorted by
     virtual group light * NG + group: flag 2 marks a group's first row, 1
     a live row, 0 padding; TB is padded to a multiple of 64 and padding
-    rows inherit the last live group.  Chunked over groups at
-    shadow_pack_chunk: an unchunked dense pack at 256 clusters takes
-    several GB.  Row counts come to the host once per chunk; a plan in
-    splan.shadow_store is served as it is."""
+    rows inherit the last live group.  With shards > 1 (the mesh plan of
+    parallel/sharding.py) the table is laid out shard-major: shard k owns
+    groups [k * NG / shards, (k + 1) * NG / shards) and rows [k * TB /
+    shards, (k + 1) * TB / shards), its part padded to the largest part's
+    multiple of 64, and its r2v holds shard-local virtual groups light *
+    NG_local + g_local, so a shard's rows, r2v and flag are a plain slice.
+    The probe stays global: one K1 launch over every sample of the frame.
+    Chunked over each shard's groups at shadow_pack_chunk: an unchunked
+    dense pack at 256 clusters takes several GB.  Row counts come to the
+    host once per chunk; a plan in splan.shadow_store is served as it
+    is."""
     cfg = get_config()
-    sk = _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg)
+    sk = _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg, shards)
     hit = splan.shadow_store.get(sk)
     if hit is not None:
         splan.shadow_store[sk] = splan.shadow_store.pop(sk)  # LRU refresh
@@ -1732,38 +1755,50 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     rw_all = rows_need.cpu().numpy()
     shadow_kmax = min(splan.num_clusters, _ceil_to(max(kc, 1), 8))
     n_lights = lights_np.shape[0]
+    ngl = ng // shards
     cnts_np = np.zeros((n_lights, ng), np.int64)
-    parts = []
+    parts = [[] for _ in range(shards)]  # each shard's live rows, in order
     for li in range(n_lights):
         rmax_li = min(shadow_kmax, _ceil_to(max(int(rw_all[li]), 1), 2))
-        for lo, hi in _refine_chunks(ng, 1, shadow_kmax, max_groups=chunk):
-            rc_s, packed_s = _shadow_pack_one(
-                cg[lo:hi], rg_sph[lo:hi], lights[li, 4:7], splan,
-                shadow_kmax, rmax_li, sig)
-            rc_np = np.minimum(rc_s.cpu().numpy().astype(np.int64), rmax_li)
-            cnts_np[li, lo:hi] = rc_np
-            if rc_np.sum():
-                # the live rows of the chunk's dense transient, group-major
-                src = np.concatenate([gl * rmax_li + np.arange(rc_np[gl])
-                                      for gl in range(hi - lo)])
-                parts.append(packed_s.reshape(-1, SHADOW_FEATS, MM_COLS)[
-                    torch.as_tensor(src, device=dev)])
-            del packed_s  # the dense transient is freed per chunk
-    rows = int(cnts_np.sum())
-    tb = _ceil_to(max(rows, 1), 64)
-    r2v_np = np.zeros(tb, np.int32)
-    flag_np = np.zeros(tb, np.int32)
-    cnt_flat = cnts_np.reshape(-1)  # virtual group order light * NG + g
-    live_v = np.flatnonzero(cnt_flat)
-    if rows:
-        r2v_np[:rows] = np.repeat(live_v, cnt_flat[live_v])
-        flag_np[:rows] = 1
-        flag_np[np.cumsum(cnt_flat[live_v]) - cnt_flat[live_v]] = 2
-        # padding rows inherit the last live group
-        r2v_np[rows:] = r2v_np[rows - 1]
-    parts.append(torch.zeros((tb - rows, SHADOW_FEATS, MM_COLS),
-                             dtype=torch.float32, device=dev))
-    flat_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
+        for k in range(shards):
+            for lo, hi in _refine_chunks(ngl, 1, shadow_kmax,
+                                         max_groups=chunk):
+                lo, hi = k * ngl + lo, k * ngl + hi
+                rc_s, packed_s = _shadow_pack_one(
+                    cg[lo:hi], rg_sph[lo:hi], lights[li, 4:7], splan,
+                    shadow_kmax, rmax_li, sig)
+                rc_np = np.minimum(rc_s.cpu().numpy().astype(np.int64),
+                                   rmax_li)
+                cnts_np[li, lo:hi] = rc_np
+                if rc_np.sum():
+                    # the live rows of the chunk's dense transient,
+                    # group-major
+                    src = np.concatenate([gl * rmax_li + np.arange(rc_np[gl])
+                                          for gl in range(hi - lo)])
+                    parts[k].append(packed_s.reshape(
+                        -1, SHADOW_FEATS, MM_COLS)[torch.as_tensor(
+                            src, device=dev)])
+                del packed_s  # the dense transient is freed per chunk
+    # shard k's counts in its virtual group order light * NG_local + g
+    cnt_k = [cnts_np[:, k * ngl:(k + 1) * ngl].reshape(-1)
+             for k in range(shards)]
+    tb = _ceil_to(max(max(int(c.sum()) for c in cnt_k), 1), 64)
+    r2v_np = np.zeros(shards * tb, np.int32)
+    flag_np = np.zeros(shards * tb, np.int32)
+    tables = []
+    for k, cnt in enumerate(cnt_k):
+        rows = int(cnt.sum())
+        r2v, flag = r2v_np[k * tb:(k + 1) * tb], flag_np[k * tb:(k + 1) * tb]
+        live_v = np.flatnonzero(cnt)
+        if rows:
+            r2v[:rows] = np.repeat(live_v, cnt[live_v])
+            flag[:rows] = 1
+            flag[np.cumsum(cnt[live_v]) - cnt[live_v]] = 2
+            # padding rows inherit the last live group
+            r2v[rows:] = r2v[rows - 1]
+        tables += parts[k] + [torch.zeros((tb - rows, SHADOW_FEATS, MM_COLS),
+                                          dtype=torch.float32, device=dev)]
+    flat_rows = torch.cat(tables) if len(tables) > 1 else tables[0]
     out = (torch.as_tensor(cnts_np.astype(np.int32), device=dev),
            torch.as_tensor(r2v_np, device=dev),
            torch.as_tensor(flag_np, device=dev), flat_rows,
@@ -1784,7 +1819,8 @@ def _shading_rows(splan, scene_dev):
 def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
                 position, local_space, generator: torch.Generator,
                 samples: int, background: int, lights=None, tracer=None,
-                cache_tracer=None, shadow_tracer=None):
+                cache_tracer=None, shadow_tracer=None, omm_axis: int = 1,
+                allow_cache: bool = True, angles=None):
     """Shared frame planning (compound_ray_tpu/eye/pipeline.py:2516-2673,
     without the speculative widths): the far-field split and its cache,
     the sky plan, the widths and the pose's pack, then frame 0's (Np, S)
@@ -1794,10 +1830,18 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     splay and spin among them) but shadow_audit, and inv_valid (N,) puts
     the permuted rows back in ommatidium order.  render_means and the
     bursts both plan here, at S samples, so a burst makes the decisions
-    of its frame 0 (the far-field gate, the sky key, the shadow plan)."""
-    device = generator.device
+    of its frame 0 (the far-field gate, the sky key, the shadow plan).
+
+    The mesh plan of parallel/sharding.py (compound_ray_tpu/parallel/
+    sharding.py:75-199) plans here too, with omm_axis shards of the group
+    axis: the group count padded to a multiple of it, the sky split's live
+    count to a multiple of lcm(64, omm_axis) under a key that holds the
+    axis, and the shadow table laid out shard-major.  allow_cache=False
+    keeps the far-field cache (and so the sky split) off, as raw samples
+    need; angles (splay, spin) replaces the draw from `generator`."""
+    device = (generator if angles is None else angles[0]).device
     splan = scene_plan(scene_flat, device)
-    eplan = eye_plan(omms_np, samples)
+    eplan = eye_plan(omms_np, samples, ng_multiple=omm_axis)
     omms_p, inv_valid = eplan.device_arrays(omms_np, device)
     pos_np = np.asarray(position, np.float32)
     ls_np = np.asarray(local_space, np.float32)
@@ -1806,15 +1850,19 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     ls = torch.as_tensor(ls_np, device=device)
     cfg = get_config()
     lit = lights is not None
-    near_mask, cache, d_thresh = _farfield_plan(
-        splan, eplan, scene_dev, omms_np, pos_np, ls_np, samples, background,
-        cfg, tracer=cache_tracer, lights=lights)
+    near_mask, cache, d_thresh = None, None, 0.0
+    if allow_cache:
+        near_mask, cache, d_thresh = _farfield_plan(
+            splan, eplan, scene_dev, omms_np, pos_np, ls_np, samples,
+            background, cfg, tracer=cache_tracer, lights=lights)
     use_cache = near_mask is not None
     cache_shape = (cfg.farfield_cache_width // 2, cfg.farfield_cache_width)
     sky = sky_key = None
     if cfg.sky_split and use_cache and not lit and eplan.g == 1:
         sky_key = _sky_key(eplan, samples, pose_sig, d_thresh, background,
                            cfg)
+        if omm_axis > 1:
+            sky_key += (omm_axis,)
         found, sky = _sky_probe(splan, sky_key)
         if found:
             sky_key = None  # a memoised plan, or memoised not worth it
@@ -1827,7 +1875,8 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
             near_mask=near_mask, d_thresh=d_thresh)
         if sky_key is not None:
             sky = _sky_build(splan, eplan, omms_p, ls, samples, kcand, rmax,
-                             cache, cache_shape, row_counts, packed_mm)
+                             cache, cache_shape, row_counts, packed_mm,
+                             ng_quantum=int(np.lcm(64, omm_axis)))
             _sky_put(splan, sky_key, sky, cfg)
             if sky is not None:
                 # the compacted plan supersedes the dense pack at this pose
@@ -1839,8 +1888,11 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     if sky is not None:
         (packed_mm, row_counts, omms_f, sky_scatter, sky_means, ng, kcand,
          rmax) = sky
-    splay, spin = sample_angles_ns(generator, omms_f[:, 6] / FWHM_SD_RATIO,
-                                   samples)
+    if angles is None:
+        splay, spin = sample_angles_ns(
+            generator, omms_f[:, 6] / FWHM_SD_RATIO, samples)
+    else:
+        splay, spin = angles
     kw = dict(
         packed_mm=packed_mm, row_counts=row_counts,
         attr_table=splan.attr_table, scene_dev=scene_dev,
@@ -1859,7 +1911,8 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
             shading_rows=_shading_rows(splan, scene_dev),
             shadow=_shadow_plan(splan, eplan, omms_p, pos, ls, pose_sig,
                                 lights_np, samples, splay, spin, packed_mm,
-                                row_counts, rmax, tracer=tracer),
+                                row_counts, rmax, tracer=tracer,
+                                shards=omm_axis),
             shadow_tracer=shadow_tracer)
     return kw, inv_valid
 
@@ -1971,25 +2024,8 @@ def render_samples(scene_flat, scene_dev: Dict[str, Any],
     split; the angles are the ones render_means draws from the same
     generator with the far field off.  `tracer` replaces K1, as in
     render_means."""
-    device = generator.device
-    splan = scene_plan(scene_flat, device)
-    eplan = eye_plan(omms_np, samples)
-    omms_p, inv_valid = eplan.device_arrays(omms_np, device)
-    pos_np = np.asarray(position, np.float32)
-    ls_np = np.asarray(local_space, np.float32)
-    pose_sig = (pos_np.tobytes(), ls_np.tobytes())
-    pos = torch.as_tensor(pos_np, device=device)
-    ls = torch.as_tensor(ls_np, device=device)
-    kcand, rmax = _plan_widths(splan, eplan, omms_p, pos, ls,
-                               (eplan.sig, samples, pose_sig, False, 0.0))
-    row_counts, packed_mm = _packed_plan(splan, eplan, omms_p, pos, ls,
-                                         pose_sig, samples, kcand, rmax)
-    splay, spin = sample_angles_ns(generator, omms_p[:, 6] / FWHM_SD_RATIO,
-                                   samples)
-    raw_p = _trace_shade_angles(
-        packed_mm, row_counts, splan.attr_table, scene_dev,
-        splan.quad_table, omms_p, pos, ls, splay, spin, samples=samples,
-        background=background, ng=eplan.ng, g=eplan.g, nrb=eplan.nrb,
-        rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
-        tex_only=splan.tex_only, tracer=tracer, want_samples=True)
+    kw, inv_valid = _plan_frame(
+        scene_flat, scene_dev, omms_np, position, local_space, generator,
+        samples, background, tracer=tracer, allow_cache=False)
+    raw_p = _trace_shade_angles(want_samples=True, **kw)
     return raw_p[inv_valid].transpose(0, 1)

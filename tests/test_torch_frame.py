@@ -274,18 +274,18 @@ def test_config_refuses_the_far_field(monkeypatch):
 
 
 def test_config_backend(monkeypatch):
-    """backend takes "auto" (the default), "naive" and "pallas" (a synonym
-    of "auto", so one CR_TPU_BACKEND serves both packages); the JAX
-    package's "xla" and "sharded" are refused, and so is anything else."""
+    """backend takes "auto" (the default), "naive", "pallas" (the kernels on
+    one device; one CR_TPU_BACKEND serves both packages) and "sharded" (the
+    mesh of ranks); the JAX package's "xla" is refused, and so is anything
+    else."""
     monkeypatch.delenv("CR_TPU_BACKEND", raising=False)
     monkeypatch.delenv("CR_TPU_MIN_TRIS_CULL", raising=False)
     cfg = tcfg.RenderConfig.from_env()
     assert (cfg.backend, cfg.min_triangles_for_culling) == ("auto", 512)
-    for mode in ("auto", "naive", "pallas"):
+    for mode in ("auto", "naive", "pallas", "sharded"):
         assert tcfg.RenderConfig(backend=mode).backend == mode
-    for mode, why in (("xla", "culled"), ("sharded", "multi-device")):
-        with pytest.raises(NotImplementedError, match=why):
-            tcfg.RenderConfig(backend=mode)
+    with pytest.raises(NotImplementedError, match="culled"):
+        tcfg.RenderConfig(backend="xla")
     with pytest.raises(ValueError, match="backend"):
         tcfg.RenderConfig(backend="fast")
     monkeypatch.setenv("CR_TPU_BACKEND", "naive")
@@ -321,6 +321,8 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch.tools.microbench_k\n"
         "import compound_ray_tpu_torch.tools.frame_time\n"
         "import compound_ray_tpu_torch.scene.blend\n"
+        "import compound_ray_tpu_torch.parallel\n"
+        "import compound_ray_tpu_torch.parallel.sharding\n"
         "from compound_ray_tpu_torch.examples import (\n"
         "    primary_example, speed_test, plot_speed_test,\n"
         "    alias_quantified_experiment, alias_viewpoint_experiment,\n"
