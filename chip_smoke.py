@@ -15,7 +15,8 @@ tools' full sizes; then the API surface through the ctypes shim at 640 x
 480 (raw samples, the eight projections, pipelined frames); then the real
 cameras at 640 x 480 and the brute-force oracle; then bursts, pose
 batches, the eye tools and the viewer; then the bench scene written as a
-.blend and the eight examples on it; then the sharded path over ranks.
+.blend and the eight examples on it; then the sharded path over ranks;
+then the render modes (affine rays, the sphere refine, backend "xla").
 Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
@@ -101,7 +102,21 @@ Phases, each failing loudly:
      the dense frames of this process on the same seeds (2e-6 unlit, 2e-5
      lit and raw samples), each burst frame against its sequential sharded
      frame, K3 against its twin on each shard's block of the table, the
-     frames' and the collectives' times.
+     frames' and the collectives' times;
+ 13. the render modes on a fresh bench renderer: K1's 8-feature affine
+     form against its twin at 3200 samples (far field off and on, the
+     16-feature thresholds); counted as a path, affine_rays at 3200
+     samples with the far field off (standard and affine frames in turns),
+     on (the first builds the cache), lit and raw, an affine 128 x 10
+     burst (each affine frame launching the 8-feature K1, never the
+     16-feature one), refine_mode "sphere" and "exact" frames, and
+     backend "xla" at 100 and 3200 samples (no kernel); after the path,
+     affine against standard frames (2e-3, mean 2e-5; lit 5e-5), raw
+     samples (> 99.9 % within 2e-3), the burst against its frames, an
+     affine (2, 2) mesh plan's shard cores against the dense affine frame
+     (2e-5), sphere against exact (2e-5 on a 1e-5 degree copy of the eye;
+     the jittered rule at 2.6 degrees) with both packs' rows, and "xla"
+     at 100 samples against the oracle on its generator (1e-5).
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; a kernel timed under its bound fails the run), the
 card and {"ok": true, "device": ...}.
@@ -230,6 +245,26 @@ SHARD_RAW_SAMPLES = 100
 SHARD_BURST = (100, 10)
 SHARD_UNLIT_ATOL = 2e-6
 SHARD_LIT_ATOL = 2e-5
+# phase 13: the render modes.  Affine frames against standard frames on one
+# seed (tests/test_affine_rays.py:73-88, :197-213: max abs, and mean abs;
+# raw samples: the share within the max abs, :91-107); the affine burst as
+# (samples, frames): 128 samples is the least at which a group holds one
+# ommatidium (at 100 the groups hold two and the flag renders the
+# 16-feature frame), and 128 x 10 stacks; the sharded check's mesh and its
+# tolerance (:174-194); the sphere refine's gate on a 1e-5 degree copy of
+# the bench eye (tests/test_exact_refine.py:74-82) and on the bench eye
+# the jittered rule (:104-116: mean abs, max abs); the culled backend's
+# samples against the oracle (tests/test_accel.py:80-117) and timed
+MODES_TIMED = 3
+AFFINE_ATOL, AFFINE_MEAN, AFFINE_LIT_MEAN = 2e-3, 2e-5, 5e-5
+AFFINE_RAW_SHARE = 0.999
+AFFINE_BURST = (128, 10)
+AFFINE_MESH = {"omm": 2, "sample": 2}
+AFFINE_SHARD_ATOL = 2e-5
+REFINE_ATOL = 2e-5
+REFINE_JITTER_MEAN, REFINE_JITTER_ATOL = 1e-3, 0.06
+XLA_SAMPLES = (100, 3200)
+XLA_ATOL = 1e-5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE))
@@ -306,22 +341,25 @@ def build_kernels():
                 print(f"  ptxas: {line.strip()}")
 
 
-def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
+def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool,
+                   affine: bool = False):
     """Phase 3: K1 and packed_tracer_reference on the same (row_counts,
     packed_mm, rays) of the bench frame, with the pack the frame uses
-    under `farfield`; returns a result dict."""
+    under `farfield`; with `affine` (phase 13) the affine pack and rays
+    on K1's 8-feature form.  Returns a result dict."""
     from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.eye.sampling import sample_angles_ns
     from compound_ray_tpu_torch.testing import hit_agreement
     from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF
     from compound_ray_tpu_torch.trace.mm_tracer import (
+        AFFINE_LIVE,
         packed_tracer_reference,
         run_packed_tracer,
     )
     from compound_ray_tpu_torch.trace.shade import miss_id
 
-    _set_config(farfield=farfield)
+    _set_config(farfield=farfield, affine_rays=affine)
     dev = r.device
     omms = cam.ommatidia
     splan = P.scene_plan(r.scene, dev)
@@ -337,18 +375,21 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
         splan, eplan, omms_p, pos, ls,
         (eplan.sig, samples, sig, near is not None, d), near)
     rc, pmm = P._packed_plan(splan, eplan, omms_p, pos, ls, sig, samples,
-                             kcand, rmax, near_mask=near, d_thresh=d)
+                             kcand, rmax, near_mask=near, d_thresh=d,
+                             affine=affine)
     gen = torch.Generator(device=dev).manual_seed(12345)
     splay, spin = sample_angles_ns(gen, omms_p[:, 6] / P.FWHM_SD_RATIO,
                                    samples)
     rays, _ = P._gen_ray_features(omms_p, pos, ls, splay, spin,
                                   samples=samples, ng=eplan.ng, g=eplan.g,
-                                  nrb=eplan.nrb, rb_size=eplan.rb_size)
-    kw = dict(ng=eplan.ng, nrb=eplan.nrb, rb_size=eplan.rb_size, rmax=rmax)
+                                  nrb=eplan.nrb, rb_size=eplan.rb_size,
+                                  affine=affine)
+    kw = dict(ng=eplan.ng, nrb=eplan.nrb, rb_size=eplan.rb_size, rmax=rmax,
+              ray_feats=rays.shape[0])
     got = run_packed_tracer(rc, pmm, rays, **kw)
     ref = packed_tracer_reference(rc, pmm, rays, **kw)
     agree, max_abs, max_rel = hit_agreement(ref, got, rc, eplan.rg_pad)
-    res = dict(samples=samples, farfield=farfield,
+    res = dict(samples=samples, farfield=farfield, affine=affine,
                cache=near is not None,
                rays_per_thread=K1_RAYS_PER_THREAD,
                shape=dict(ng=eplan.ng, rmax=rmax, kcand=kcand,
@@ -356,15 +397,17 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
                live_groups=int((rc > 0).sum().item()),
                payload_rows=int(rc.sum().item()),
                slot_agree=agree, max_abs_err=max_abs, max_rel_err=max_rel)
-    # 40 FMAs per (ray, slot) of every live payload row of the ray's group;
-    # beside it the bound of the 10-FMA products the kernel's staged test
-    # needs on these inputs
+    # 4 products of `terms` FMAs per (ray, slot) of every live payload row
+    # of the ray's group (40 FMAs; affine: 16); beside it the bound of the
+    # products the kernel's staged test needs on these inputs
+    terms = AFFINE_LIVE if affine else 10
     nbytes = _nbytes(rc, pmm, rays, got)
     res.update(pairs=int(rc.clamp(0, rmax).sum().item()) * eplan.nrb
                * eplan.rb_size * KERNEL_LEAF,
-               products=_k1_products(rc, pmm, rays, kw))
-    res.update(_bound(80.0 * res["pairs"], nbytes))
-    res["staged_bound_ms"] = _bound(20.0 * res["products"], nbytes)["bound_ms"]
+               products=_k1_products(rc, pmm, rays, kw, terms))
+    res.update(_bound(8.0 * terms * res["pairs"], nbytes))
+    res["staged_bound_ms"] = _bound(2.0 * terms * res["products"],
+                                    nbytes)["bound_ms"]
     if timed:
         res["ms"] = time_ms(lambda: run_packed_tracer(rc, pmm, rays, **kw),
                             reps=20, warmup=3)
@@ -376,23 +419,23 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool):
     return res
 
 
-def _k1_products(rc, pmm, rays, kw) -> int:
-    """The 10-term products K1 needs on these inputs: den and w1 for each
-    (ray, slot) of each live payload row of the ray's group, w2 and tnum
-    where k1_keep_first holds (counted per pair, from f32 products of the
-    same inputs)."""
+def _k1_products(rc, pmm, rays, kw, terms: int = 10) -> int:
+    """The `terms`-term products K1 needs on these inputs (10, or 4 in the
+    affine form): den and w1 for each (ray, slot) of each live payload row
+    of the ray's group, w2 and tnum where k1_keep_first holds (counted per
+    pair, from f32 products of the same inputs)."""
     from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF as leaf
     from compound_ray_tpu_torch.trace.mm_tracer import k1_keep_first
 
     ng, rmax, rg = kw["ng"], kw["rmax"], kw["nrb"] * kw["rb_size"]
-    feats = rays[:10].reshape(10, ng, rg)
+    feats = rays[:terms].reshape(terms, ng, rg)
     cnt = rc.clamp(0, rmax)
     row_ix = torch.arange(rmax, device=rc.device)
     kept = 0
     chunk = max(1, (1 << 26) // (rmax * rg * leaf))
     for g0 in range(0, ng, chunk):
         g1 = min(ng, g0 + chunk)
-        pm = pmm[g0:g1, :, :10]
+        pm = pmm[g0:g1, :, :terms]
         w1, den = (torch.einsum("fgr,gjfc->gjrc", feats[:, g0:g1],
                                 pm[..., b * leaf:(b + 1) * leaf])
                    for b in (0, 2))
@@ -584,11 +627,14 @@ def _report(tag, res):
 
 
 def _counters() -> dict:
-    """{kernel: (module, name of its launch count)} for K1 to K6."""
+    """{kernel: (module, name of its launch count)} for K1 (k1a: its
+    8-feature affine form) to K6."""
     from compound_ray_tpu_torch.tools import microbench_k, probe_step
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
 
-    return {"k1": (mm_tracer, "launches"), "k2": (cluster_tracer, "launches"),
+    return {"k1": (mm_tracer, "launches"),
+            "k1a": (mm_tracer, "affine_launches"),
+            "k2": (cluster_tracer, "launches"),
             "k3": (mm_tracer, "occlusion_launches"),
             "k4": (probe_step, "probe_launches"),
             "k5": (probe_step, "probe3d_launches"),
@@ -1776,10 +1822,10 @@ def _settle_lit(r, n):
     raise AssertionError("the lit frames kept replanning their shadows")
 
 
-def _tally() -> dict:
-    """The K1, K2 and K3 launch counts now."""
+def _tally(keys=("k1", "k2", "k3")) -> dict:
+    """The launch counts of `keys` (by default K1, K2 and K3) now."""
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
-            if k in ("k1", "k2", "k3")}
+            if k in keys}
 
 
 def _counted(sections: dict, name: str, fn):
@@ -2721,7 +2767,8 @@ def nccl_one_rank(r, cam, tmp: str):
 
         runs, n = _path(r, "sharded path A (one NCCL rank)", lambda: [
             _events_ms(sharded) for _ in range(1 + SHARD_TIMED)], phase=12)
-        if n != dict(k1=1 + SHARD_TIMED, k2=1, k3=0, k4=0, k5=0, k6=0):
+        if n != dict(k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0,
+                     k6=0):
             raise AssertionError(f"phase 12 A's path launched {n}, not K1 "
                                  f"{1 + SHARD_TIMED} times and K2 once")
         got = runs[0][0]
@@ -2960,6 +3007,285 @@ def sharded_phase(card: str, count, launches: dict) -> None:
           f"{json.dumps(twins['k3'])} (threshold: >= {K3_AGREE} equal)")
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
+def _mode_frames(r, n: int, **cfg) -> tuple:
+    """n synced render_frame() calls under RenderConfig(**cfg), the eye's
+    frames counted from 0: (the last frame's camera data, each frame's
+    CUDA-event ms, {kernel: launches per frame})."""
+    _set_config(**cfg)
+    r.current_camera().rng_frame = 0
+    ms, per = [], []
+    for _ in range(n):
+        before = _launch_counts()
+        ms.append(_events_ms(r.render_frame)[1])
+        per.append({k: v - before[k] for k, v in _launch_counts().items()})
+    data = r.get_camera_data().copy()
+    _check_means(data, f"{cfg} frame", lit=r.lighting)
+    return data, ms, per
+
+
+def _launch_counts() -> dict:
+    """The K1 (both forms), K2 and K3 launch counts now."""
+    return _tally(("k1", "k1a", "k2", "k3"))
+
+
+def _expect_launches(per, tag: str, k1: int = 0, k1a: int = 1,
+                     k2_first: int = 0) -> None:
+    """Each frame of `per` launched K1 k1 times, its 8-feature form k1a
+    times, K2 k2_first times in the first frame and never after, and K3
+    never."""
+    for i, n in enumerate(per):
+        want = dict(k1=k1, k1a=k1a, k2=k2_first if i == 0 else 0, k3=0)
+        if n != want:
+            raise AssertionError(f"{tag} frame {i} launched {n}, not {want}")
+
+
+def _affine_vs_standard(got, want, mean: float, what: str) -> dict:
+    diff = np.abs(got - want)
+    res = dict(max_abs=float(diff.max()), mean_abs=float(diff.mean()))
+    if not (res["max_abs"] <= AFFINE_ATOL and res["mean_abs"] < mean):
+        raise AssertionError(f"affine {what} vs standard: {res}")
+    return res
+
+
+def modes_path(r, cam) -> dict:
+    """Phase 13's counted path through EyeRenderer at the bench eye: unlit
+    3200-sample frames with the far field off, standard and affine in
+    turns (standard, affine, affine, standard), each mode's first frame
+    packing; affine frames with the far-field cache (the first builds it
+    on K2); lit affine frames (the first probes its shadow plan on the
+    8-feature K1); affine raw samples; an affine 128 x 10 burst (one
+    8-feature launch); the sphere refine's frames; and backend "xla" at
+    100 and 3200 samples (no kernel).  Each affine frame launches the
+    8-feature K1 and never the 16-feature one."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    out, last = {}, {}
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    for k, aff in enumerate((False, True, True, False)):
+        tag = "affine" if aff else "standard"
+        data, ms, per = _mode_frames(r, 1 + MODES_TIMED, farfield="off",
+                                     affine_rays=aff)
+        _expect_launches(per, tag, k1=int(not aff), k1a=int(aff))
+        o = out.setdefault(f"{tag}_off", dict(first_ms=ms[0], ms=[]))
+        o["ms"] += ms[1:]
+        last.setdefault(tag, data)
+        if not np.array_equal(last[tag], data):
+            raise AssertionError(f"{tag} frames differ between passes")
+    splan = P.scene_plan(r.scene, r.device)
+    splan.cache_store.clear()
+    data, ms, per = _mode_frames(r, 1 + MODES_TIMED, affine_rays=True)
+    _expect_launches(per, "affine cache", k2_first=1)
+    out["affine_auto"] = dict(first_ms=ms[0], ms=ms[1:])
+    splan.shadow_store.clear()
+    r.set_lighting(True)
+    data, ms, per = _mode_frames(r, 1 + MODES_TIMED, affine_rays=True)
+    r.set_lighting(False)
+    # the first frame probes its shadow plan on the 8-feature K1; a frame
+    # after a corrective replan probes again
+    if per[0] != dict(k1=0, k1a=2, k2=0, k3=1) or any(
+            n not in (dict(k1=0, k1a=1, k2=0, k3=1),
+                      dict(k1=0, k1a=2, k2=0, k3=1)) for n in per):
+        raise AssertionError(f"the affine lit frames launched {per}")
+    out["affine_lit"] = dict(first_ms=ms[0], ms=ms[1:],
+                             replans=sum(n["k1a"] == 2 for n in per[1:]))
+    cam.set_projection("raw_ommatidial_samples")
+    data, ms, per = _mode_frames(r, 1 + MODES_TIMED, farfield="off",
+                                 affine_rays=True)
+    cam.set_projection("single_dimension_fast")
+    _expect_launches(per, "affine raw")
+    out["affine_raw"] = dict(first_ms=ms[0], ms=ms[1:])
+    bs, bf = AFFINE_BURST
+    _set_config(farfield="off", affine_rays=True)
+    r.set_current_eye_samples_per_ommatidium(bs)
+    before = _launch_counts()
+    ms = [_events_ms(lambda: r.render_frames_pipelined(bf))[1]
+          for _ in range(1 + MODES_TIMED)]
+    n = {k: v - before[k] for k, v in _launch_counts().items()}
+    if n != dict(k1=0, k1a=1 + MODES_TIMED, k2=0, k3=0):
+        raise AssertionError(f"the affine bursts launched {n}")
+    out["affine_burst"] = dict(first_ms=ms[0],
+                               ms_per_frame=[m / bf for m in ms[1:]])
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    for mode in ("sphere", "exact"):
+        data, ms, per = _mode_frames(r, 1 + MODES_TIMED, farfield="off",
+                                     refine_mode=mode)
+        _expect_launches(per, f"{mode} refine", k1=1, k1a=0)
+        out[f"{mode}_off"] = dict(first_ms=ms[0], ms=ms[1:])
+    for samples in XLA_SAMPLES:
+        r.set_current_eye_samples_per_ommatidium(samples)
+        data, ms, per = _mode_frames(r, 1 + (MODES_TIMED if samples > 100
+                                             else 0), backend="xla")
+        if any(any(x.values()) for x in per):
+            raise AssertionError(f"backend xla launched kernels: {per}")
+        out[f"xla_{samples}"] = dict(first_ms=ms[0], ms=ms[1:])
+    _set_config()
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    return out
+
+
+def modes_checks(r, cam) -> dict:
+    """Phase 13 after its path, on the bench eye and seeds of the path:
+    affine frames against standard ones (far field off and on, lit, raw
+    samples), an affine 128 x 10 burst against its frames (bit-equal), the
+    shard core of an affine (2, 2) mesh plan at every coordinate against
+    the dense affine frame on the same angles, the sphere refine against
+    the exact one (the 1e-5 degree copy of the bench eye and the bench eye
+    itself) with both packs' rows, and the culled backend at 100 samples
+    against the oracle on the frame's generator."""
+    from compound_ray_tpu_torch.api.renderer import frame_seed
+    from compound_ray_tpu_torch.config import get_config
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.eye.render import (
+        render_compound_means,
+        render_compound_samples,
+    )
+    from compound_ray_tpu_torch.parallel import sharding as TS
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    res = {}
+    pos, ls, sig = _pose(cam)
+    dev = r.scene.device_triangles(r.device)
+    bg = miss_id(r.scene.background_shader)
+    s = SAMPLES[-1]
+
+    def gen(seed):
+        return torch.Generator(device=r.device).manual_seed(
+            frame_seed(get_config().base_seed, seed))
+
+    def frame(omms=None, samples=s, seed=0, **kw):
+        return P.render_means(r.scene, dev, cam.ommatidia if omms is None
+                              else omms, pos, ls, gen(seed), samples, bg,
+                              **kw).cpu().numpy()
+
+    for tag, cfg, kw, mean in (
+            ("off", dict(farfield="off"), {}, AFFINE_MEAN),
+            ("auto", {}, {}, AFFINE_MEAN),
+            ("lit", dict(farfield="off"), dict(lights=r.get_lights()),
+             AFFINE_LIT_MEAN)):
+        pair = []
+        for aff in (False, True):
+            _set_config(affine_rays=aff, **cfg)
+            pair.append(frame(**kw))
+        res[f"affine_{tag}"] = _affine_vs_standard(pair[1], pair[0], mean,
+                                                   tag)
+    raw = []
+    for aff in (False, True):
+        _set_config(farfield="off", affine_rays=aff)
+        raw.append(P.render_samples(r.scene, dev, cam.ommatidia, pos, ls,
+                                    gen(0), s, bg).cpu().numpy())
+    share = float(np.isclose(raw[1], raw[0], atol=AFFINE_ATOL).mean())
+    res["affine_raw_share_within_atol"] = share
+    if not share > AFFINE_RAW_SHARE:
+        raise AssertionError(f"affine raw samples: {share} within atol")
+    bs, bf = AFFINE_BURST
+    _set_config(farfield="off", affine_rays=True)
+    burst = P.render_means_frames(r.scene, dev, cam.ommatidia, pos, ls,
+                                  [gen(f) for f in range(bf)], bs,
+                                  bg).cpu().numpy()
+    seq = np.stack([frame(samples=bs, seed=f) for f in range(bf)])
+    res["affine_burst_max_abs"] = float(np.abs(burst - seq).max())
+    if not res["affine_burst_max_abs"] <= BURST_ATOL:
+        raise AssertionError(f"the affine burst differs from its frames: "
+                             f"{res['affine_burst_max_abs']}")
+    # the shard core at every coordinate of an affine mesh plan; the eye's
+    # 1000 ommatidia split evenly over the omm axis, so the mesh plan and
+    # the dense plan hold the same groups and angles
+    eplan = P.eye_plan(cam.ommatidia, s, ng_multiple=AFFINE_MESH["omm"])
+    sd = torch.as_tensor(cam.ommatidia[eplan.perm][:, 6],
+                         device=r.device) / P.FWHM_SD_RATIO
+    angles = P.sample_angles_ns(gen(0), sd, s)
+    plan = TS._plan_for_mesh(r.scene, dev, cam.ommatidia, pos, ls, None, s,
+                             bg, AFFINE_MESH, angles=angles)
+    if plan.kw["affine"] is not True:
+        raise AssertionError("the mesh plan is not affine")
+    before = _launch_counts()
+    rows = [sum(TS.shard_core(plan, i, j)
+                for j in range(AFFINE_MESH["sample"]))
+            for i in range(AFFINE_MESH["omm"])]
+    shards_k1a = _launch_counts()["k1a"] - before["k1a"]
+    meshed = torch.cat(rows)[plan.inv_valid].cpu().numpy()
+    kw, inv = P._plan_frame(r.scene, dev, cam.ommatidia, pos, ls, None, s,
+                            bg, angles=angles)
+    dense = P._trace_shade_angles(**kw)[inv].cpu().numpy()
+    res["affine_shards"] = dict(
+        k1a_launches=shards_k1a, max_abs=float(np.abs(meshed - dense).max()))
+    if not (shards_k1a == 4 and res["affine_shards"]["max_abs"]
+            <= AFFINE_SHARD_ATOL):
+        raise AssertionError(f"affine shards vs dense: {res}")
+    _set_config(farfield="off")
+    # the two refines: rows of both packs at the bench eye, the frames there
+    # (jittered rule) and on a 1e-5 degree copy (every sample on the axis)
+    thin = cam.ommatidia.copy()
+    thin[:, 6] = np.radians(1e-5)
+    rows, bench, still = {}, {}, {}
+    for mode in ("exact", "sphere"):
+        _set_config(farfield="off", refine_mode=mode)
+        bench[mode] = frame()
+        still[mode] = frame(omms=thin, samples=SAMPLES[0])
+        splan = P.scene_plan(r.scene, r.device)
+        rc = [v[0] for k, v in splan.packed_store.items()
+              if k[-2] == mode and k[1] == s and k[2] == sig and not k[-1]
+              and not k[5]]
+        rows[mode] = dict(total=int(rc[-1].sum().item()),
+                          max=int(rc[-1].max().item()))
+    d_still = float(np.abs(still["sphere"] - still["exact"]).max())
+    d_bench = np.abs(bench["sphere"] - bench["exact"])
+    res["refine"] = dict(rows=rows, still_max_abs=d_still,
+                         bench_max_abs=float(d_bench.max()),
+                         bench_mean_abs=float(d_bench.mean()))
+    if not (d_still <= REFINE_ATOL and d_bench.mean() < REFINE_JITTER_MEAN
+            and d_bench.max() <= REFINE_JITTER_ATOL):
+        raise AssertionError(f"sphere vs exact refine: {res['refine']}")
+    _set_config(backend="xla")
+    cam.rng_frame = 0
+    r.set_current_eye_samples_per_ommatidium(XLA_SAMPLES[0])
+    r.render_frame()
+    xla = r.get_camera_data()
+    oracle = render_compound_means(dev, cam.ommatidia, pos, ls, gen(0),
+                                   XLA_SAMPLES[0], bg).cpu().numpy()
+    res["xla_vs_oracle_max_abs"] = float(np.abs(xla - oracle).max())
+    res["oracle_ms"] = _events_ms(lambda: render_compound_samples(
+        dev, cam.ommatidia, pos, ls, gen(0), XLA_SAMPLES[0], bg))[1]
+    if not res["xla_vs_oracle_max_abs"] <= XLA_ATOL:
+        raise AssertionError(f"backend xla vs the oracle: {res}")
+    _set_config()
+    r.set_current_eye_samples_per_ommatidium(SAMPLES[-1])
+    return res
+
+
+def modes_phase(card: str, count) -> dict:
+    """Phase 13, the render modes: K1's 8-feature form against its twin at
+    the bench frame (far field off and on), then the counted path
+    (modes_path) and its checks (modes_checks).  Returns the 8-feature
+    K1's results for the kernel table."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    r, cam = _bench_renderer("cuda")
+    k1a_dense = kernel_vs_twin(r, cam, SAMPLES[-1], "off", timed=True,
+                               affine=True)
+    k1a = kernel_vs_twin(r, cam, SAMPLES[-1], "auto", timed=True,
+                         affine=True)
+    for res in (k1a_dense, k1a):
+        print(f"phase 13: K1 8-feature (affine) vs twin at {N_OMM} x "
+              f"{SAMPLES[-1]} ({card}): {json.dumps(res)} (thresholds: "
+              f"slots >= {SLOT_AGREE}, t rtol {T_RTOL})")
+    _set_config()
+    path = count(_path(r, "render modes", lambda: modes_path(r, cam),
+                       phase=13))[0]
+    print(f"phase 13: frames ({card}, CUDA-event ms, first frame apart): "
+          f"{json.dumps(path)}")
+    checks = modes_checks(r, cam)
+    print(f"phase 13: checks ({card}): {json.dumps(checks)} (affine vs "
+          f"standard max abs <= {AFFINE_ATOL}, mean < {AFFINE_MEAN} ("
+          f"lit {AFFINE_LIT_MEAN}); raw samples within the max abs on > "
+          f"{AFFINE_RAW_SHARE}; burst <= {BURST_ATOL}; shards <= "
+          f"{AFFINE_SHARD_ATOL}; sphere vs exact <= {REFINE_ATOL} at 1e-5 "
+          f"degrees, mean < {REFINE_JITTER_MEAN} and max <= "
+          f"{REFINE_JITTER_ATOL} at {ACCEPT_DEG} degrees; xla vs oracle <= "
+          f"{XLA_ATOL})")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return dict(k1a=k1a, k1a_dense=k1a_dense)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3008,7 +3334,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s)")
 
     splan = P.scene_plan(r.scene, r.device)
-    launches = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0)
+    launches = dict(k1=0, k1a=0, k2=0, k3=0, k4=0, k5=0, k6=0)
 
     def count(res_n):
         res, n = res_n
@@ -3154,6 +3480,7 @@ def main() -> int:
     bursts_phase(r, cam, card, count)
     blend_phase(card, count)
     sharded_phase(card, count, launches)
+    modes = modes_phase(card, count)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -3165,6 +3492,8 @@ def main() -> int:
     kernels = [
         entry("K1 packed closest-hit tracer", K1_SOURCE, K1_REPLACES, "k1",
               k1),
+        entry("K1 packed closest-hit tracer, 8-feature affine form",
+              K1_SOURCE, K1_REPLACES, "k1a", modes["k1a"]),
         entry("K2 cluster-shortlist closest-hit tracer", K2_SOURCE,
               K2_REPLACES, "k2", k2),
         entry("K3 any-hit occlusion tracer", K3_SOURCE, K3_REPLACES, "k3",
@@ -3181,7 +3510,9 @@ def main() -> int:
     # skip products that their staged tests do not need, so they are held to
     # the bound of the products they need
     under = [(key, res["ms"], bound)
-             for key, res in (("K1 dense", k1_dense), ("K1", k1), ("K2", k2),
+             for key, res in (("K1 dense", k1_dense), ("K1", k1),
+                              ("K1 affine dense", modes["k1a_dense"]),
+                              ("K1 affine", modes["k1a"]), ("K2", k2),
                               ("K2 image", k2i), ("K3", k3),
                               ("K4", k45["k4"]), ("K5", k45["k5"]),
                               ("K6", k6))

@@ -22,10 +22,11 @@ determinant is always 0.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -49,10 +50,46 @@ class ClusterSet:
     # where fine granularity is what makes culling work at all.
     half_center: np.ndarray = None  # (C, H, 3)
     half_radius: np.ndarray = None  # (C, H)
+    # device -> device_arrays' dict
+    _device_cache: Dict[Any, Dict[str, torch.Tensor]] = field(
+        default_factory=dict, repr=False)
 
     @property
     def num_clusters(self) -> int:
         return int(self.aabb_min.shape[0])
+
+    def device_arrays(self, device) -> Dict[str, torch.Tensor]:
+        """The culled sweep's per-cluster tables on `device`, built once per
+        device (compound_ray_tpu/accel/clusters.py:55): v0, e1, e2 (C, L,
+        3), the Plücker operands edge6 (C, L, 3, 6), normal (C, L, 3) and
+        c0 (C, L) (trace/plucker.py triangle_constants), tri_id (C, L),
+        the AABBs and the bounding spheres."""
+        device = torch.empty(0, device=device).device
+        hit = self._device_cache.get(device)
+        if hit is not None:
+            return hit
+        from compound_ray_tpu_torch.trace.plucker import triangle_constants
+
+        c, l = self.tri_id.shape
+        tri = triangle_constants(self.v0, self.e1, self.e2)
+
+        def dev(x, *shape):
+            return torch.tensor(np.asarray(x).reshape(*shape) if shape
+                                else np.asarray(x), device=device)
+
+        hit = {
+            "v0": dev(self.v0, c, l, 3), "e1": dev(self.e1, c, l, 3),
+            "e2": dev(self.e2, c, l, 3),
+            "edge6": dev(np.asarray(tri["edge6"], np.float32), c, l, 3, 6),
+            "normal": dev(np.asarray(tri["normal"], np.float32), c, l, 3),
+            "c0": dev(np.asarray(tri["c0"], np.float32), c, l),
+            "tri_id": dev(self.tri_id), "aabb_min": dev(self.aabb_min),
+            "aabb_max": dev(self.aabb_max),
+            "sphere_center": dev(self.sphere_center),
+            "sphere_radius": dev(self.sphere_radius),
+        }
+        self._device_cache[device] = hit
+        return hit
 
 
 def _median_split(centroids: np.ndarray, indices: np.ndarray, leaf_size: int,
@@ -158,3 +195,13 @@ def build_clusters(
         sphere_radius=radius.astype(np.float32),
     )
 
+
+
+def scene_clusters(scene, leaf_size: int = 64) -> ClusterSet:
+    """The cluster set of a FlatScene at `leaf_size`, built on first use and
+    kept on the scene (compound_ray_tpu/accel/clusters.py:202)."""
+    cache = scene._accel_cache
+    if cache is None or cache.leaf_size != leaf_size:
+        scene._accel_cache = build_clusters(scene.v0, scene.e1, scene.e2,
+                                            leaf_size)
+    return scene._accel_cache

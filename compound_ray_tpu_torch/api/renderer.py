@@ -30,7 +30,12 @@ config.min_triangles_for_culling triangles through the tile-culled K2 image
 (cameras/fast_image.py), otherwise, and always lit, through the
 brute-force oracle (cameras/raygen.py).  config.backend = "naive" renders
 every compound frame through the oracle (eye/render.py) as well; raw
-samples with lighting on always take it.
+samples with lighting on always take it.  config.backend = "xla" renders
+the means through the cone-culled sweep (trace/dispatch.py
+render_means_fast, itself the oracle for lit frames and small scenes),
+and raw samples, real cameras and bursts as "naive" does (the oracle, and
+bursts frame by frame), as the JAX renderer sends a backend that is not
+its kernels'.
 
 render_frames_pipelined(n) on a compound eye (not raw samples, backend
 "auto" or "pallas") renders a burst: one plan, n frames stacked into one
@@ -93,6 +98,7 @@ from compound_ray_tpu_torch.parallel.sharding import (
 )
 from compound_ray_tpu_torch.projection.project import project_frame
 from compound_ray_tpu_torch.scene.flat import FlatScene, load_scene
+from compound_ray_tpu_torch.trace.dispatch import render_means_fast
 from compound_ray_tpu_torch.trace.lighting import default_lights
 from compound_ray_tpu_torch.trace.shade import miss_id
 
@@ -284,15 +290,18 @@ class EyeRenderer:
         """(N, 3) means of one frame on the device
         (compound_ray_tpu/api/renderer.py:644-704): the mesh of ranks when
         _sharded() (lit frames too, unaudited as in the JAX package), the
-        oracle under backend "naive" (and "sharded" in one process), else
-        the packed frame; a lit packed frame keeps its shadow audit for
-        the next sync()."""
+        culled sweep under backend "xla" (:693-699), the oracle under
+        "naive" (and "sharded" in one process), else the packed frame; a
+        lit packed frame keeps its shadow audit for the next sync()."""
         lit = self._lit()
         lights = self._lights if lit else None
         if self._sharded():
             return render_means_sharded_packed(
                 *args, self._mesh(args[6]), lights=lights)
-        if get_config().backend in ("naive", "sharded"):
+        backend = get_config().backend
+        if backend == "xla":
+            return render_means_fast(*args, use_lighting=lit, lights=lights)
+        if backend in ("naive", "sharded"):
             return self._oracle(render_compound_means, args, lit)
         out = render_means(*args, lights=lights, shadow_audit=lit)
         if lit:
@@ -314,10 +323,10 @@ class EyeRenderer:
         if cam.projection == "raw_ommatidial_samples":
             # the packed pipeline renders unlit samples, over the mesh of
             # ranks when _sharded(); lit ones and every frame under
-            # backend="naive" take the oracle
+            # backend "naive" or "xla" take the oracle
             # (compound_ray_tpu/api/renderer.py:609-642)
             lit = self._lit()
-            if lit or get_config().backend == "naive":
+            if lit or get_config().backend in ("naive", "xla"):
                 raw = self._oracle(render_compound_samples, args, lit)
             elif self._sharded():
                 raw = render_samples_sharded_packed(*args,
@@ -398,8 +407,8 @@ class EyeRenderer:
         are kept and projected.  As in the JAX package, a
         burst records no per-frame time in frame_times_ms and does not
         audit its lit frames against their shadow shafts.  Elsewhere (raw
-        samples, backend="naive", a real camera) it renders n unsynced
-        frames."""
+        samples, backend "naive" or "xla", a real camera) it renders n
+        unsynced frames."""
         t0 = time.perf_counter()
         route = self._burst_route() if n > 0 else None
         if route is not None:

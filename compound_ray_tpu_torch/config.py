@@ -23,21 +23,31 @@ def _env_bool(s: str) -> bool:
 # ranks when the default process group has more than one), "pallas" (the
 # kernels on this rank's device alone; the name serves both packages'
 # CR_TPU_BACKEND), "sharded" (the mesh of ranks, else the brute-force
-# oracle, as in the JAX package) and "naive" (the brute-force oracle for
-# every frame)
-BACKENDS = ("auto", "pallas", "sharded", "naive")
+# oracle, as in the JAX package), "xla" (the cone-culled Plücker sweep of
+# trace/dispatch.py for means, the brute-force oracle for the rest) and
+# "naive" (the brute-force oracle for every frame)
+BACKENDS = ("auto", "pallas", "sharded", "xla", "naive")
+REFINE_MODES = ("exact", "sphere")
 
 
 @dataclasses.dataclass
 class RenderConfig:
     # backend (compound_ray_tpu/config.py:44-45): "auto" renders through the
-    # kernels (sharded over the ranks of a multi-rank process group),
-    # "naive" through the brute-force oracle (trace/intersect.py) for every
-    # frame, as the JAX package's last fallbacks do
+    # kernels (sharded over the ranks of a multi-rank process group), "xla"
+    # its means through the cone-culled sweep (trace/dispatch.py), "naive"
+    # through the brute-force oracle (trace/intersect.py) for every frame,
+    # as the JAX package's last fallbacks do
     backend: str = "auto"
+    # triangles per cluster of the "xla" backend's culled sweep
+    # (compound_ray_tpu/config.py:51)
+    xla_leaf_size: int = 16
     # real-camera images of scenes below this many triangles take the
     # oracle, not the tile-culled K2 image (compound_ray_tpu/config.py:51)
     min_triangles_for_culling: int = 512
+    # ommatidia and samples per chunk of the culled sweep
+    # (compound_ray_tpu/config.py:54-56)
+    omm_chunk: int = 64
+    sample_chunk: int = 64
     # Gaussian truncation for cone culling, in standard deviations
     # (compound_ray_tpu/config.py:49).
     cull_sigmas: float = 4.0
@@ -60,9 +70,17 @@ class RenderConfig:
     # bounded (pose, lights, samples)-keyed store of lit-frame shadow plans
     # (ScenePlan.shadow_store, compound_ray_tpu/config.py:77)
     shadow_store_size: int = 4
-    # level-2 refine test.  The port runs the exact cone-vs-triangle test
-    # only; the JAX package's sphere-bounds-only "sphere" mode is not ported.
+    # level-2 refine test (compound_ray_tpu/config.py:78-81): "exact" =
+    # the triangle-sphere test, then the spherical-projection
+    # cone-vs-triangle test; "sphere" = the triangle bounding spheres only.
+    # Plan-time only, memoised per pose under keys that hold the mode.
     refine_mode: str = "exact"
+    # affine primary rays (compound_ray_tpu/config.py:87-95): on eyes with
+    # one ommatidium per group, fold each group's origin and tmin into the
+    # pose-memoised payload (transform_payload_affine) so the frame traces
+    # [d, 1, 0 x 4] rays on K1's 4-live-feature form.  Equal to the
+    # 16-feature frame up to one more pack-time rounding, not bit for bit.
+    affine_rays: bool = False
     # sky split (compound_ray_tpu/config.py:108-125): at a memoised cache
     # pose, compact the groups with near geometry and serve every zero-row
     # group its acceptance-cone expectation of the cache.  Statistically
@@ -80,22 +98,19 @@ class RenderConfig:
     shadow_pack_chunk: int = 128
 
     def __post_init__(self):
-        if self.backend == "xla":
-            raise NotImplementedError(
-                "backend='xla': the JAX package's culled XLA backend exists "
-                "to give hosts without a TPU a fast path, and the port's "
-                "kernels and their torch twins already run anywhere; use "
-                "'auto' or 'naive'")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"backend={self.backend!r}: expected one of {BACKENDS}")
         if self.farfield not in ("auto", "off"):
             raise ValueError(
                 f"farfield={self.farfield!r}: expected 'auto' or 'off'")
-        if self.refine_mode != "exact":
-            raise NotImplementedError(
-                f"refine_mode={self.refine_mode!r}: the port runs the exact "
-                "cone-vs-triangle refine only")
+        if self.refine_mode not in REFINE_MODES:
+            raise ValueError(
+                f"refine_mode={self.refine_mode!r}: expected one of "
+                f"{REFINE_MODES}")
+        for name in ("xla_leaf_size", "omm_chunk", "sample_chunk"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
         if self.packed_store_size < 1:
             raise ValueError("packed_store_size must be >= 1")
         if self.packed_store_bytes < 1:
@@ -114,7 +129,10 @@ class RenderConfig:
     def from_env(cls) -> "RenderConfig":
         mapping = {
             "CR_TPU_BACKEND": ("backend", str),
+            "CR_TPU_LEAF_SIZE": ("xla_leaf_size", int),
             "CR_TPU_MIN_TRIS_CULL": ("min_triangles_for_culling", int),
+            "CR_TPU_OMM_CHUNK": ("omm_chunk", int),
+            "CR_TPU_SAMPLE_CHUNK": ("sample_chunk", int),
             "CR_TPU_CULL_SIGMAS": ("cull_sigmas", float),
             "CR_TPU_SEED": ("base_seed", int),
             "CR_TPU_FARFIELD": ("farfield", str),
@@ -128,6 +146,7 @@ class RenderConfig:
             "CR_TPU_SKY_SPLIT": ("sky_split", _env_bool),
             "CR_TPU_SKY_QUAD_SPLAY": ("sky_quad_splay", int),
             "CR_TPU_SKY_QUAD_SPIN": ("sky_quad_spin", int),
+            "CR_TPU_AFFINE_RAYS": ("affine_rays", _env_bool),
         }
         kwargs = {}
         for env, (name, typ) in mapping.items():

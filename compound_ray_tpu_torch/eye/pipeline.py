@@ -26,15 +26,19 @@ the mean.
 Ommatidia are permuted by view direction so that groups of G neighbours
 share coherent shortlists (G shrinks to 1 once an ommatidium's samples fill
 a ray block).  Ray directions are unit length and tmin is rescaled by
-|axis|, so the tracer's t is a world distance.
+|axis|, so the tracer's t is a world distance.  With config.affine_rays and
+G = 1, each group's origin and tmin are folded into its pose-memoised pack
+(_pack_fused) and the frame traces [d, 1, 0 x 4] rays on K1's 8-feature
+form; config.refine_mode = "sphere" keeps the refine to the triangle
+bounding spheres.  Both are part of every plan key.
 
-Not ported here (TPU workarounds or later slices of ROADMAP.md): precision
-modes, direct1, the uv/uvs/flat/loc emit variants (the lit path's one-hot
-local resolve is a plain indexed gather here), affine primary rays, the
-shadow table's rows-per-block layout, speculative widths, the polynomial
-equirect addressing (FAST_EQUIRECT) and bf16 texture-and-cache tables.  The
-sharded path (parallel/sharding.py) plans here (_plan_frame's omm_axis) and
-renders each shard with _trace_shade_angles.
+Not ported here (TPU workarounds whose results the port already matches):
+precision modes, direct1, the uv/uvs/flat/loc emit variants (the lit path's
+one-hot local resolve is a plain indexed gather here), the shadow table's
+rows-per-block layout, speculative widths, the polynomial equirect
+addressing (FAST_EQUIRECT) and bf16 texture-and-cache tables.  The sharded
+path (parallel/sharding.py) plans here (_plan_frame's omm_axis) and renders
+each shard with _trace_shade_angles.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from compound_ray_tpu_torch.trace.mm_tracer import (
     MM_COLS,
     MM_FEATS,
     RAY_FEATS,
+    RAY_FEATS_AFFINE,
     build_mm_features,
     run_packed_tracer,
     run_rows_occlusion,
@@ -406,18 +411,24 @@ def _near_counts(gmask, counts, near_mask):
     return gmask, gmask.sum(dim=-1).to(torch.int32)
 
 
+def _refine_tri_cl(splan, cfg):
+    """The exact refine's triangle table under refine_mode "exact", None
+    (the triangle-sphere test alone) under "sphere"."""
+    return splan.slot_tri_cl if cfg.refine_mode == "exact" else None
+
+
 def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
                  radius_cl, g: int, cull_sigmas: float, tri_cl, dmax=None):
     """Level-2 cull of the shortlisted clusters' triangles against the cones
-    (compound_ray_tpu/eye/pipeline.py:486, refine_mode="exact"): the
-    triangle-sphere test, then the exact cone-vs-triangle test on the unit
-    sphere around the apex (a triangle meets the cone iff a vertex lies in
-    the cap, an edge arc passes within `half` of the axis, or the axis
-    pierces the triangle; 1e-3 rad slack).  Works on any run of whole
-    groups: omms_p holds their g * len(ids) ommatidia.  dmax (Np,), the
-    shadow refine's apex-distance bound, also drops triangles whose sphere
-    starts beyond it (:636-639).  Returns (mask, dist, slots), each
-    (NG, kcand*128)."""
+    (compound_ray_tpu/eye/pipeline.py:486): the triangle-sphere test, then,
+    when tri_cl (C, 128, 9) is given (refine_mode "exact"), the exact
+    cone-vs-triangle test on the unit sphere around the apex (a triangle
+    meets the cone iff a vertex lies in the cap, an edge arc passes within
+    `half` of the axis, or the axis pierces the triangle; 1e-3 rad slack).
+    Works on any run of whole groups: omms_p holds their g * len(ids)
+    ommatidia.  dmax (Np,), the shadow refine's apex-distance bound, also
+    drops triangles whose sphere starts beyond it (:636-639).  Returns
+    (mask, dist, slots), each (NG, kcand*128)."""
     apex, axis = eye_world_geometry(omms_p, position, local_space)
     half = torch.clamp(omms_p[:, 6] / FWHM_SD_RATIO * cull_sigmas,
                        max=math.pi)
@@ -450,79 +461,80 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     alpha = torch.arccos(torch.clamp(cos_a, -1.0, 1.0))
     beta = torch.arcsin(torch.clamp(rb * inv_d, 0.0, 1.0))
     m = inside | (alpha <= half[:, None] + beta)
-    slack = 1e-3  # rad; absorbs f32 sign noise at arc/vertex boundaries
-    hs = torch.clamp(half + slack, max=math.pi)[:, None]  # (Np, 1)
-    cosh = torch.cos(hs)
-    sinh = torch.sin(torch.clamp(hs, max=math.pi / 2.0))
-    wide = hs >= math.pi / 2.0
+    if tri_cl is not None:
+        slack = 1e-3  # rad; absorbs f32 sign noise at arc/vertex boundaries
+        hs = torch.clamp(half + slack, max=math.pi)[:, None]  # (Np, 1)
+        cosh = torch.cos(hs)
+        sinh = torch.sin(torch.clamp(hs, max=math.pi / 2.0))
+        wide = hs >= math.pi / 2.0
 
-    def gat(comp):  # slot component -> (NG, kc) candidate-major rows
-        return tri_cl[:, :, comp][ids].reshape(ng, kc)
+        def gat(comp):  # slot component -> (NG, kc) candidate-major rows
+            return tri_cl[:, :, comp][ids].reshape(ng, kc)
 
-    wxp = po(axis[:, 0])
-    wyp = po(axis[:, 1])
-    wzp = po(axis[:, 2])
-    d0x = pc(gat(0)) - po(apex[:, 0])
-    d0y = pc(gat(1)) - po(apex[:, 1])
-    d0z = pc(gat(2)) - po(apex[:, 2])
-    d1x, d1y, d1z = d0x + pc(gat(3)), d0y + pc(gat(4)), d0z + pc(gat(5))
-    d2x, d2y, d2z = d0x + pc(gat(6)), d0y + pc(gat(7)), d0z + pc(gat(8))
+        wxp = po(axis[:, 0])
+        wyp = po(axis[:, 1])
+        wzp = po(axis[:, 2])
+        d0x = pc(gat(0)) - po(apex[:, 0])
+        d0y = pc(gat(1)) - po(apex[:, 1])
+        d0z = pc(gat(2)) - po(apex[:, 2])
+        d1x, d1y, d1z = d0x + pc(gat(3)), d0y + pc(gat(4)), d0z + pc(gat(5))
+        d2x, d2y, d2z = d0x + pc(gat(6)), d0y + pc(gat(7)), d0z + pc(gat(8))
 
-    def unit3(x, y, z):
-        l2 = x * x + y * y + z * z
-        inv = torch.rsqrt(torch.clamp(l2, min=1e-24))
-        return x * inv, y * inv, z * inv, l2
+        def unit3(x, y, z):
+            l2 = x * x + y * y + z * z
+            inv = torch.rsqrt(torch.clamp(l2, min=1e-24))
+            return x * inv, y * inv, z * inv, l2
 
-    u0x, u0y, u0z, l0 = unit3(d0x, d0y, d0z)
-    u1x, u1y, u1z, l1 = unit3(d1x, d1y, d1z)
-    u2x, u2y, u2z, l2_ = unit3(d2x, d2y, d2z)
-    vert_in = (
-        (u0x * wxp + u0y * wyp + u0z * wzp >= cosh)
-        | (u1x * wxp + u1y * wyp + u1z * wzp >= cosh)
-        | (u2x * wxp + u2y * wyp + u2z * wzp >= cosh)
-    )
+        u0x, u0y, u0z, l0 = unit3(d0x, d0y, d0z)
+        u1x, u1y, u1z, l1 = unit3(d1x, d1y, d1z)
+        u2x, u2y, u2z, l2_ = unit3(d2x, d2y, d2z)
+        vert_in = (
+            (u0x * wxp + u0y * wyp + u0z * wzp >= cosh)
+            | (u1x * wxp + u1y * wyp + u1z * wzp >= cosh)
+            | (u2x * wxp + u2y * wyp + u2z * wzp >= cosh)
+        )
 
-    def edge_test(uix, uiy, uiz, ujx, ujy, ujz):
-        # minor arc u_i -> u_j; |w . n| <= sin(half) is exact for
-        # half <= pi/2 and `wide` covers the rest
-        cxx = uiy * ujz - uiz * ujy
-        cyy = uiz * ujx - uix * ujz
-        czz = uix * ujy - uiy * ujx
-        cl2 = cxx * cxx + cyy * cyy + czz * czz
-        invc = torch.rsqrt(torch.clamp(cl2, min=1e-24))
-        nx, ny, nz = cxx * invc, cyy * invc, czz * invc
-        sind = wxp * nx + wyp * ny + wzp * nz
-        # closest great-circle point to the axis; in-arc = positive span
-        ccx = wxp - sind * nx
-        ccy = wyp - sind * ny
-        ccz = wzp - sind * nz
-        in1 = ((uiy * ccz - uiz * ccy) * nx + (uiz * ccx - uix * ccz) * ny
-               + (uix * ccy - uiy * ccx) * nz) >= 0.0
-        in2 = ((ccy * ujz - ccz * ujy) * nx + (ccz * ujx - ccx * ujz) * ny
-               + (ccx * ujy - ccy * ujx) * nz) >= 0.0
-        # u_i ~ -u_j: the apex lies ON the edge segment -> intersects
-        dotij = uix * ujx + uiy * ujy + uiz * ujz
-        deg = (cl2 < 1e-12) & (dotij < 0.0)
-        return (in1 & in2 & ((torch.abs(sind) <= sinh) | wide)) | deg, (
-            cxx, cyy, czz)
+        def edge_test(uix, uiy, uiz, ujx, ujy, ujz):
+            # minor arc u_i -> u_j; |w . n| <= sin(half) is exact for
+            # half <= pi/2 and `wide` covers the rest
+            cxx = uiy * ujz - uiz * ujy
+            cyy = uiz * ujx - uix * ujz
+            czz = uix * ujy - uiy * ujx
+            cl2 = cxx * cxx + cyy * cyy + czz * czz
+            invc = torch.rsqrt(torch.clamp(cl2, min=1e-24))
+            nx, ny, nz = cxx * invc, cyy * invc, czz * invc
+            sind = wxp * nx + wyp * ny + wzp * nz
+            # closest great-circle point to the axis; in-arc = positive span
+            ccx = wxp - sind * nx
+            ccy = wyp - sind * ny
+            ccz = wzp - sind * nz
+            in1 = ((uiy * ccz - uiz * ccy) * nx + (uiz * ccx - uix * ccz) * ny
+                   + (uix * ccy - uiy * ccx) * nz) >= 0.0
+            in2 = ((ccy * ujz - ccz * ujy) * nx + (ccz * ujx - ccx * ujz) * ny
+                   + (ccx * ujy - ccy * ujx) * nz) >= 0.0
+            # u_i ~ -u_j: the apex lies ON the edge segment -> intersects
+            dotij = uix * ujx + uiy * ujy + uiz * ujz
+            deg = (cl2 < 1e-12) & (dotij < 0.0)
+            return (in1 & in2 & ((torch.abs(sind) <= sinh) | wide)) | deg, (
+                cxx, cyy, czz)
 
-    e01, n01 = edge_test(u0x, u0y, u0z, u1x, u1y, u1z)
-    e12, n12 = edge_test(u1x, u1y, u1z, u2x, u2y, u2z)
-    e20, n20 = edge_test(u2x, u2y, u2z, u0x, u0y, u0z)
+        e01, n01 = edge_test(u0x, u0y, u0z, u1x, u1y, u1z)
+        e12, n12 = edge_test(u1x, u1y, u1z, u2x, u2y, u2z)
+        e20, n20 = edge_test(u2x, u2y, u2z, u0x, u0y, u0z)
 
-    def same_side(n, px, py, pz):  # axis and opposite vertex agree on n
-        nx, ny, nz = n
-        return ((wxp * nx + wyp * ny + wzp * nz)
-                * (px * nx + py * ny + pz * nz)) >= 0.0
+        def same_side(n, px, py, pz):  # axis and opposite vertex agree on n
+            nx, ny, nz = n
+            return ((wxp * nx + wyp * ny + wzp * nz)
+                    * (px * nx + py * ny + pz * nz)) >= 0.0
 
-    axis_in = (
-        same_side(n01, u2x, u2y, u2z)
-        & same_side(n12, u0x, u0y, u0z)
-        & same_side(n20, u1x, u1y, u1z)
-    )
-    # apex within f32 range of a vertex: projection undefined -> keep
-    deg_len = (l0 < 1e-12) | (l1 < 1e-12) | (l2_ < 1e-12)
-    m = m & (vert_in | e01 | e12 | e20 | axis_in | deg_len)
+        axis_in = (
+            same_side(n01, u2x, u2y, u2z)
+            & same_side(n12, u0x, u0y, u0z)
+            & same_side(n20, u1x, u1y, u1z)
+        )
+        # apex within f32 range of a vertex: projection undefined -> keep
+        deg_len = (l0 < 1e-12) | (l1 < 1e-12) | (l2_ < 1e-12)
+        m = m & (vert_in | e01 | e12 | e20 | axis_in | deg_len)
     if dmax is not None:
         # occluders past the shaft's far side cannot block a light -> hit
         # segment
@@ -616,22 +628,34 @@ def _refine_pack(omms_p, position, local_space, ids, cl_counts, center_cl,
 def _pack_fused(mm_flat, slot_center_cl, slot_radius_cl, half_center,
                 half_radius, omms_p, position, local_space, g: int,
                 kcand: int, rmax: int, cull_sigmas: float, tri_cl,
-                near_mask=None):
+                near_mask=None, affine: bool = False):
     """Pose-dependent plan: cull -> shortlist -> triangle refine -> packed
     per-group payload (compound_ray_tpu/eye/pipeline.py:906).  With the
     far-field cache on, near_mask (C,) bool keeps only the near clusters:
-    the cache serves the far ones.  Depends only on (scene, eye, pose,
-    widths, far-field split), not on the RNG or the sample count.
-    Returns (row_counts, packed_mm)."""
+    the cache serves the far ones.  tri_cl None refines on the triangle
+    spheres alone (refine_mode "sphere").  affine (g == 1 only) folds each
+    group's ray origin and tmin into its payload (transform_payload_affine,
+    :955-963), for [d, 1, 0 x 4] rays.  Depends only on (scene, eye, pose,
+    widths, far-field split, the two modes), not on the RNG or the sample
+    count.  Returns (row_counts, packed_mm)."""
     gmask, counts, dmin_all = _cull_groups(
         omms_p, position, local_space, half_center, half_radius,
         cull_sigmas, g)
     gmask, counts = _near_counts(gmask, counts, near_mask)
     ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
     cl_counts = torch.clamp(counts, max=kcand)
-    return _refine_pack(
+    row_counts, packed_mm = _refine_pack(
         omms_p, position, local_space, ids, cl_counts, slot_center_cl,
         slot_radius_cl, mm_flat, g, kcand, rmax, cull_sigmas, tri_cl=tri_cl)
+    if affine:
+        if g != 1:
+            raise ValueError(f"affine payloads need one ommatidium per "
+                             f"group, not {g}")
+        (ox, oy, oz), tmin_w, _, _ = _omm_world_origins(
+            omms_p, position, local_space)
+        packed_mm = transform_payload_affine(
+            packed_mm, torch.stack([ox, oy, oz], dim=-1), tmin_w)
+    return row_counts, packed_mm
 
 
 def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
@@ -642,10 +666,12 @@ def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
     the pack will trace (near_mask, when the cache is on) and memoised;
     high-water rounding as in compound_ray_tpu/eye/pipeline.py:1552.  The
     caller's cache_key must tell far-field splits apart, as the JAX
-    package's width key does with (use_cache, d_thresh) (:1700-1701)."""
+    package's width key does with (use_cache, d_thresh) (:1700-1701); the
+    refine mode joins it here.  Affine-ness does not: the fold keeps every
+    row count, so both forms have the same widths, as in the JAX key."""
     cfg = get_config()
     sig = cfg.cull_sigmas
-    cache_key = cache_key + (sig,)
+    cache_key = cache_key + (sig, cfg.refine_mode)
     cached = splan.kmax_cache.get(cache_key)
     if cached is not None:
         return cached
@@ -659,7 +685,7 @@ def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
     row_counts = _refine_counts(
         omms_p, position, local_space, splan.half_center, splan.half_radius,
         splan.slot_center_cl, splan.slot_radius_cl, eplan.g, kcand, sig,
-        tri_cl=splan.slot_tri_cl, near_mask=near_mask)
+        tri_cl=_refine_tri_cl(splan, cfg), near_mask=near_mask)
     r_needed = int(row_counts.max().item())
     rmax = min(max(eplan.rmax_hint, _ceil_to(max(r_needed, 1), 2)), kcand)
     eplan.kmax_hint = kcand  # high-water: nearby poses reuse the widths
@@ -669,12 +695,14 @@ def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
 
 
 def _packed_key(eplan, samples, pose_sig, kcand, rmax, use_cache: bool,
-                d_thresh: float, cfg):
+                d_thresh: float, cfg, affine: bool = False):
     """packed_store key (compound_ray_tpu/eye/pipeline.py:1625): the
-    far-field split is part of it, so a dense pack and a near-masked pack
-    at one pose are never served for each other."""
+    far-field split, the refine mode and affine-ness are part of it, so a
+    dense pack and a near-masked pack at one pose, an exact and a sphere
+    refine, or an affine and a plain payload are never served for each
+    other."""
     return (eplan.sig, samples, pose_sig, kcand, rmax, use_cache, d_thresh,
-            cfg.cull_sigmas)
+            cfg.cull_sigmas, cfg.refine_mode, affine)
 
 
 def _pack_nbytes(pack) -> int:
@@ -683,17 +711,19 @@ def _pack_nbytes(pack) -> int:
 
 
 def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
-                 samples, kcand, rmax, near_mask=None, d_thresh=0.0):
+                 samples, kcand, rmax, near_mask=None, d_thresh=0.0,
+                 affine: bool = False):
     """Memoised _pack_fused with a bounded LRU
     (compound_ray_tpu/eye/pipeline.py:1594): a fixed-pose sequence of
     frames pays the refine and pack once.  near_mask and d_thresh describe
-    the far-field split (None and 0.0 with the cache off).  The store keeps
+    the far-field split (None and 0.0 with the cache off), affine the
+    payload's form (_pack_fused).  The store keeps
     at most config.packed_store_size packs and config.packed_store_bytes
     bytes: the oldest go until a new pack fits, and a pack larger than the
     byte bound serves its frame without being kept."""
     cfg = get_config()
     pk = _packed_key(eplan, samples, pose_sig, kcand, rmax,
-                     near_mask is not None, d_thresh, cfg)
+                     near_mask is not None, d_thresh, cfg, affine)
     hit = splan.packed_store.get(pk)
     if hit is not None:
         splan.packed_store[pk] = splan.packed_store.pop(pk)  # LRU refresh
@@ -702,7 +732,8 @@ def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
         splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
         splan.half_center, splan.half_radius, omms_p, position, local_space,
         g=eplan.g, kcand=kcand, rmax=rmax, cull_sigmas=cfg.cull_sigmas,
-        tri_cl=splan.slot_tri_cl, near_mask=near_mask)
+        tri_cl=_refine_tri_cl(splan, cfg), near_mask=near_mask,
+        affine=affine)
     size = _pack_nbytes(out)
     if size > cfg.packed_store_bytes:
         return out
@@ -786,13 +817,17 @@ def _omm_world_origins(omms_p, position, local_space):
 
 
 def _gen_ray_features(omms_p, position, local_space, splay, spin,
-                      samples: int, ng: int, g: int, nrb: int, rb_size: int):
+                      samples: int, ng: int, g: int, nrb: int, rb_size: int,
+                      affine: bool = False):
     """Sample angles -> world rays -> K1's planar features
-    (compound_ray_tpu/eye/pipeline.py:1057, 16-feature form).
+    (compound_ray_tpu/eye/pipeline.py:1057).
 
-    Returns (rays (16, NG*rg_pad) [d, m, -o', 1, 0 x 6], (dx, dy, dz)) with
-    (Np, S) unit world directions.  Each group's ray block is edge-padded
-    (the last real ray repeated) so padded rays stay finite."""
+    Returns (rays, (dx, dy, dz)) with (Np, S) unit world directions; rays
+    is (16, NG*rg_pad) [d, m, -o', 1, 0 x 6], or (8, NG*rg_pad) [d, 1,
+    0 x 4] when `affine` (the origin and tmin live in the
+    transform_payload_affine'd payload, so the moment and origin features
+    are not built).  Each group's ray block is edge-padded (the last real
+    ray repeated) so padded rays stay finite."""
     (ox, oy, oz), tmin_w, (ax, ay, az), _ = _omm_world_origins(
         omms_p, position, local_space)
     L = local_space
@@ -805,23 +840,29 @@ def _gen_ray_features(omms_p, position, local_space, splay, spin,
     inv_n = torch.rsqrt(torch.clamp(wdx * wdx + wdy * wdy + wdz * wdz,
                                     min=1e-60))
     dx, dy, dz = wdx * inv_n, wdy * inv_n, wdz * inv_n
-    tmin = tmin_w[:, None]
-    oxb, oyb, ozb = ox[:, None], oy[:, None], oz[:, None]
-    # Plücker moment m = o x d; tmin folded into the origin, o' = o + tmin d
-    mx = oyb * dz - ozb * dy
-    my = ozb * dx - oxb * dz
-    mz = oxb * dy - oyb * dx
     ones = torch.ones_like(dx)
     zeros = torch.zeros_like(dx)
-    comps = [dx, dy, dz, mx, my, mz, -(oxb + tmin * dx), -(oyb + tmin * dy),
-             -(ozb + tmin * dz), ones]
-    comps += [zeros] * (RAY_FEATS - len(comps))
+    if affine:
+        comps = [dx, dy, dz, ones]
+        n_feats = RAY_FEATS_AFFINE
+    else:
+        tmin = tmin_w[:, None]
+        oxb, oyb, ozb = ox[:, None], oy[:, None], oz[:, None]
+        # Plücker moment m = o x d; tmin folded into the origin,
+        # o' = o + tmin d
+        mx = oyb * dz - ozb * dy
+        my = ozb * dx - oxb * dz
+        mz = oxb * dy - oyb * dx
+        comps = [dx, dy, dz, mx, my, mz, -(oxb + tmin * dx),
+                 -(oyb + tmin * dy), -(ozb + tmin * dz), ones]
+        n_feats = RAY_FEATS
+    comps += [zeros] * (n_feats - len(comps))
     rg = g * samples
     rg_pad = nrb * rb_size
-    rays = torch.stack([c.reshape(ng, rg) for c in comps])  # (16, NG, rg)
+    rays = torch.stack([c.reshape(ng, rg) for c in comps])  # (F, NG, rg)
     if rg_pad != rg:
         rays = F.pad(rays, (0, rg_pad - rg), mode="replicate")
-    return rays.reshape(RAY_FEATS, ng * rg_pad), (dx, dy, dz)
+    return rays.reshape(n_feats, ng * rg_pad), (dx, dy, dz)
 
 
 def _repad(x, ng: int, rg: int, rg_pad: int):
@@ -982,7 +1023,8 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         sky_means=None, sky_scatter=None, lights=None,
                         slot_tri=None, shading_rows=None, shadow=None,
                         shadow_audit: bool = False, shadow_tracer=None,
-                        want_samples: bool = False, frames: int = 1):
+                        want_samples: bool = False, frames: int = 1,
+                        affine: bool = False):
     """Angle-parameterised frame core: trace + shade + reduce
     (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1545).  Returns
     (Np, 3) means in permuted order, or (means, audit) for a lit frame with
@@ -992,7 +1034,9 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     f's sample s, and the means are (Np, F, 3), each frame's the same
     contiguous S-column reduction a single frame makes.  `tracer` defaults to
     run_packed_tracer (K1) and `shadow_tracer` to run_rows_occlusion (K3);
-    the chip check passes the twins to render through them.
+    the chip check passes the twins to render through them.  affine: the
+    pack was built with _pack_fused(affine=True), so the rays are
+    [d, 1, 0 x 4] and K1 runs its 8-feature form (:1167-1219).
 
     lights (L, 7) on the frame's device turns on GGX direct light with
     shadow rays (_lit_epilogue), which needs slot_tri, shading_rows and the
@@ -1011,10 +1055,10 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     rg_pad = nrb * rb_size
     rays, (dx, dy, dz) = _gen_ray_features(
         omms_p, position, local_space, splay, spin, samples=samples, ng=ng,
-        g=g, nrb=nrb, rb_size=rb_size)
+        g=g, nrb=nrb, rb_size=rb_size, affine=affine)
     trace = run_packed_tracer if tracer is None else tracer
     out = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
-                rmax=rmax)
+                rmax=rmax, ray_feats=rays.shape[0])
     t_f, cu_f, cv_f, texid_f, rgb_f = resolve_kernel_hits(
         out, attr_table, tex_only)
 
@@ -1395,15 +1439,16 @@ def _compact_live(packed_mm, row_counts, omms_p, gidx, real):
     return packed_mm[gidx], row_counts[gidx] * real, omms_p[gidx]
 
 
-def _sky_key(eplan, samples, pose_sig, d_thresh, background, cfg):
-    """sky_store key (compound_ray_tpu/eye/pipeline.py:1835, without the
-    affine field, which is not ported).  Like the JAX key it leaves out the
-    widths: serving the plan must not need the dense pack it replaced.
-    Unlike it, it holds the cache width and the miss shader, which the sky
-    means are computed from."""
-    return ("sky", eplan.sig, samples, pose_sig, cfg.cull_sigmas, d_thresh,
-            cfg.farfield_cache_width, background, cfg.sky_quad_splay,
-            cfg.sky_quad_spin)
+def _sky_key(eplan, samples, pose_sig, d_thresh, background, affine: bool,
+             cfg):
+    """sky_store key (compound_ray_tpu/eye/pipeline.py:1835): the refine
+    mode and affine-ness are part of it, as of every plan key.  Like the
+    JAX key it leaves out the widths: serving the plan must not need the
+    dense pack it replaced.  Unlike it, it holds the cache width and the
+    miss shader, which the sky means are computed from."""
+    return ("sky", eplan.sig, samples, pose_sig, cfg.cull_sigmas,
+            cfg.refine_mode, d_thresh, affine, cfg.farfield_cache_width,
+            background, cfg.sky_quad_splay, cfg.sky_quad_spin)
 
 
 def _sky_probe(splan, sk):
@@ -1594,12 +1639,12 @@ def _shadow_cull(splan, cg, rg_sph, light_pos, cull_sigmas: float,
 
 
 def _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas: float,
-                         kcand_probe: int, probe_chunk: int):
+                         kcand_probe: int, probe_chunk: int, tri_cl):
     """Per light, the shafts' widths on given per-group bound spheres
     (compound_ray_tpu/eye/pipeline.py:2144): the most clusters (kc_need)
     and refined payload rows (rows_need) any group's shaft needs, both
     (L,) tensors, returned with (cg, rg_sph).  The refine runs in group
-    chunks (probe_chunk groups at most)."""
+    chunks (probe_chunk groups at most), exact when tri_cl is given."""
     zero3, eye3 = _light_frame(cg.device)
     kc_list, row_list = [], []
     for li in range(lights.shape[0]):
@@ -1613,7 +1658,7 @@ def _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas: float,
             mask, _, _ = _refine_mask(
                 ps[g0:g1], zero3, eye3, ids[g0:g1], cl[g0:g1],
                 splan.slot_center_cl, splan.slot_radius_cl, 1, cull_sigmas,
-                tri_cl=splan.slot_tri_cl, dmax=dm[g0:g1])
+                tri_cl=tri_cl, dmax=dm[g0:g1])
             row_max.append(_rows(mask.sum(dim=-1)).max())
         kc_list.append(counts.max())
         row_list.append(torch.stack(row_max).max())
@@ -1623,21 +1668,23 @@ def _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas: float,
 def _shadow_probe(packed_mm, row_counts, omms_p, position, local_space,
                   splay, spin, lights, splan, samples: int, ng: int, g: int,
                   nrb: int, rb_size: int, rmax: int, cull_sigmas: float,
-                  kcand_probe: int, probe_chunk: int, tracer=None):
+                  kcand_probe: int, probe_chunk: int, tri_cl, tracer=None,
+                  affine: bool = False):
     """The shadow plan's probe (compound_ray_tpu/eye/pipeline.py:2084):
-    trace the frame's primary rays once (K1, or `tracer`), bound each
-    group's hit points, inflate the bounds (SHADOW_BOUND_INFLATE) and
-    measure the shafts' widths on them.  The JAX probe draws its angles
-    from the frame's key (:2099-2100), so it traces exactly the first lit
-    frame's rays; here the caller passes that frame's splay and spin.  As
-    there, every lane of a live group counts, ray-block padding included.
-    Returns _shadow_probe_widths' (kc_need, rows_need, cg, rg_sph)."""
+    trace the frame's primary rays once (K1, or `tracer`; its 8-feature
+    form on an affine pack), bound each group's hit points, inflate the
+    bounds (SHADOW_BOUND_INFLATE) and measure the shafts' widths on them.
+    The JAX probe draws its angles from the frame's key (:2099-2100), so it
+    traces exactly the first lit frame's rays; here the caller passes that
+    frame's splay and spin.  As there, every lane of a live group counts,
+    ray-block padding included.  Returns _shadow_probe_widths' (kc_need,
+    rows_need, cg, rg_sph)."""
     rays, (dx, dy, dz) = _gen_ray_features(
         omms_p, position, local_space, splay, spin, samples=samples, ng=ng,
-        g=g, nrb=nrb, rb_size=rb_size)
+        g=g, nrb=nrb, rb_size=rb_size, affine=affine)
     trace = run_packed_tracer if tracer is None else tracer
     t_f = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
-                rmax=rmax)[0]
+                rmax=rmax, ray_feats=rays.shape[0])[0]
     del rays
     rg, rg_pad = g * samples, nrb * rb_size
 
@@ -1654,11 +1701,11 @@ def _shadow_probe(packed_mm, row_counts, omms_p, position, local_space,
     rg_sph = torch.where(rg_sph >= 0.0,
                          rg_sph * SHADOW_BOUND_INFLATE + 1e-2, rg_sph)
     return _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas,
-                                kcand_probe, probe_chunk)
+                                kcand_probe, probe_chunk, tri_cl)
 
 
 def _shadow_pack_one(cg, rg_sph, light_pos, splan, kcand_s: int,
-                     rmax_s: int, cull_sigmas: float):
+                     rmax_s: int, cull_sigmas: float, tri_cl):
     """One light's occluder payload for a run of groups
     (compound_ray_tpu/eye/pipeline.py:2028): cull, shortlist, refine with
     dmax and pack as the primary payload is packed, then fold the light in
@@ -1671,7 +1718,7 @@ def _shadow_pack_one(cg, rg_sph, light_pos, splan, kcand_s: int,
     rc_s, packed_s = _refine_pack(
         ps, zero3, eye3, ids, torch.clamp(counts, max=kcand_s),
         splan.slot_center_cl, splan.slot_radius_cl, splan.mm_flat, 1,
-        kcand_s, rmax_s, cull_sigmas, tri_cl=splan.slot_tri_cl, dmax=dm)
+        kcand_s, rmax_s, cull_sigmas, tri_cl=tri_cl, dmax=dm)
     n = packed_s.shape[0]
     packed_s = transform_payload_affine(
         packed_s, light_pos[None, :].expand(n, 3),
@@ -1680,19 +1727,21 @@ def _shadow_pack_one(cg, rg_sph, light_pos, splan, kcand_s: int,
 
 
 def _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg,
-                shards: int = 1):
+                shards: int = 1, affine: bool = False):
     """shadow_store key (compound_ray_tpu/eye/pipeline.py:2240-2243 without
-    the affine and rows-per-block fields, which are not ported): a plan laid
-    out for another number of shards is another plan."""
+    the rows-per-block field, which is not ported): a plan laid out for
+    another number of shards, refined in the other mode or probed through
+    the other payload form is another plan."""
     return (eplan.sig, samples, pose_sig, lights_np.tobytes(),
-            cfg.cull_sigmas, shards, splan.shadow_sound_all,
+            cfg.cull_sigmas, cfg.refine_mode, shards, affine,
+            splan.shadow_sound_all,
             tuple(sorted(splan.shadow_unsound_groups)))
 
 
 def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
                  lights_np: np.ndarray, samples: int, splay, spin,
                  packed_mm, row_counts, rmax: int, tracer=None,
-                 shards: int = 1):
+                 shards: int = 1, affine: bool = False):
     """The memoised shadow plan of a lit frame
     (compound_ray_tpu/eye/pipeline.py:2200, one row per block):
     (counts (L, NG) int32, r2v (TB,) int32, flag (TB,) int32, flat_rows
@@ -1715,7 +1764,8 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     host once per chunk; a plan in splan.shadow_store is served as it
     is."""
     cfg = get_config()
-    sk = _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg, shards)
+    sk = _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg, shards,
+                     affine)
     hit = splan.shadow_store.get(sk)
     if hit is not None:
         splan.shadow_store[sk] = splan.shadow_store.pop(sk)  # LRU refresh
@@ -1728,6 +1778,7 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     ng = eplan.ng
     sig = cfg.cull_sigmas
     chunk = cfg.shadow_pack_chunk
+    tri_cl = _refine_tri_cl(splan, cfg)
     unsound = splan.shadow_unsound_groups
     if splan.shadow_sound_all or unsound:
         cg_s, rg_s = _sound_bound_spheres(
@@ -1735,12 +1786,13 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
             splan.slot_radius_cl.reshape(-1))
     if splan.shadow_sound_all:
         kc_need, rows_need, cg, rg_sph = _shadow_probe_widths(
-            cg_s, rg_s, lights, splan, sig, kcand_probe, chunk)
+            cg_s, rg_s, lights, splan, sig, kcand_probe, chunk, tri_cl)
     else:
         kc_need, rows_need, cg, rg_sph = _shadow_probe(
             packed_mm, row_counts, omms_p, position, local_space, splay,
             spin, lights, splan, samples, ng, eplan.g, eplan.nrb,
-            eplan.rb_size, rmax, sig, kcand_probe, chunk, tracer=tracer)
+            eplan.rb_size, rmax, sig, kcand_probe, chunk, tri_cl,
+            tracer=tracer, affine=affine)
         if unsound:
             um = np.zeros(ng, bool)
             um[[g_ for g_ in unsound if g_ < ng]] = True
@@ -1750,7 +1802,7 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
             # re-measure on the hybrid spheres so rmax covers the fattened
             # shafts
             kc_need, rows_need, _, _ = _shadow_probe_widths(
-                cg, rg_sph, lights, splan, sig, kcand_probe, chunk)
+                cg, rg_sph, lights, splan, sig, kcand_probe, chunk, tri_cl)
     kc = int(kc_need.max().item())
     rw_all = rows_need.cpu().numpy()
     shadow_kmax = min(splan.num_clusters, _ceil_to(max(kc, 1), 8))
@@ -1766,7 +1818,7 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
                 lo, hi = k * ngl + lo, k * ngl + hi
                 rc_s, packed_s = _shadow_pack_one(
                     cg[lo:hi], rg_sph[lo:hi], lights[li, 4:7], splan,
-                    shadow_kmax, rmax_li, sig)
+                    shadow_kmax, rmax_li, sig, tri_cl)
                 rc_np = np.minimum(rc_s.cpu().numpy().astype(np.int64),
                                    rmax_li)
                 cnts_np[li, lo:hi] = rc_np
@@ -1838,7 +1890,12 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     count to a multiple of lcm(64, omm_axis) under a key that holds the
     axis, and the shadow table laid out shard-major.  allow_cache=False
     keeps the far-field cache (and so the sky split) off, as raw samples
-    need; angles (splay, spin) replaces the draw from `generator`."""
+    need; angles (splay, spin) replaces the draw from `generator`.
+
+    config.affine_rays applies where the eye plan has one ommatidium per
+    group (:2567): the pack, the sky plan and the shadow probe are then
+    affine, kw["affine"] is True and every frame core traces K1's
+    8-feature form; elsewhere the flag changes nothing."""
     device = (generator if angles is None else angles[0]).device
     splan = scene_plan(scene_flat, device)
     eplan = eye_plan(omms_np, samples, ng_multiple=omm_axis)
@@ -1850,6 +1907,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     ls = torch.as_tensor(ls_np, device=device)
     cfg = get_config()
     lit = lights is not None
+    affine = bool(cfg.affine_rays) and eplan.g == 1
     near_mask, cache, d_thresh = None, None, 0.0
     if allow_cache:
         near_mask, cache, d_thresh = _farfield_plan(
@@ -1860,7 +1918,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     sky = sky_key = None
     if cfg.sky_split and use_cache and not lit and eplan.g == 1:
         sky_key = _sky_key(eplan, samples, pose_sig, d_thresh, background,
-                           cfg)
+                           affine, cfg)
         if omm_axis > 1:
             sky_key += (omm_axis,)
         found, sky = _sky_probe(splan, sky_key)
@@ -1872,7 +1930,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
             (eplan.sig, samples, pose_sig, use_cache, d_thresh), near_mask)
         row_counts, packed_mm = _packed_plan(
             splan, eplan, omms_p, pos, ls, pose_sig, samples, kcand, rmax,
-            near_mask=near_mask, d_thresh=d_thresh)
+            near_mask=near_mask, d_thresh=d_thresh, affine=affine)
         if sky_key is not None:
             sky = _sky_build(splan, eplan, omms_p, ls, samples, kcand, rmax,
                              cache, cache_shape, row_counts, packed_mm,
@@ -1882,7 +1940,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
                 # the compacted plan supersedes the dense pack at this pose
                 splan.packed_store.pop(_packed_key(
                     eplan, samples, pose_sig, kcand, rmax, True, d_thresh,
-                    cfg), None)
+                    cfg, affine), None)
     ng, omms_f = eplan.ng, omms_p
     sky_means = sky_scatter = None
     if sky is not None:
@@ -1902,7 +1960,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
         rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
         tex_only=splan.tex_only, tracer=tracer, cache=cache,
         cache_shape=cache_shape, sky_means=sky_means,
-        sky_scatter=sky_scatter)
+        sky_scatter=sky_scatter, affine=affine)
     if lit:
         lights_np = np.ascontiguousarray(np.asarray(lights, np.float32))
         kw.update(
@@ -1912,7 +1970,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
             shadow=_shadow_plan(splan, eplan, omms_p, pos, ls, pose_sig,
                                 lights_np, samples, splay, spin, packed_mm,
                                 row_counts, rmax, tracer=tracer,
-                                shards=omm_axis),
+                                shards=omm_axis, affine=affine),
             shadow_tracer=shadow_tracer)
     return kw, inv_valid
 

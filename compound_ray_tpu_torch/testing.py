@@ -384,7 +384,7 @@ def canopy_eye(accept_deg: float = 2.0) -> List[Ommatidium]:
 
 def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
                device, seed: int = 0, cache_width: int = 0,
-               sky: bool = False) -> SimpleNamespace:
+               sky: bool = False, affine: bool = False) -> SimpleNamespace:
     """A small frame on `device`: scene and eye plans, the permuted
     ommatidia, the pose (local space = identity), its packed payload at the
     measured widths, and splay and spin angles for every traced group drawn
@@ -392,7 +392,9 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
     cache_width > 0 turns the far-field cache on at that width (it must
     engage): the pack then holds the near clusters only.  sky also splits
     the frame (it must not decline): the compacted live groups are traced
-    and the others take their cache expectation."""
+    and the others take their cache expectation.  affine folds the groups'
+    origins into the pack (one ommatidium per group only), and the frame
+    then traces affine rays on K1's 8-feature form."""
     device = torch.device(device)
     splan = P.scene_plan(scene, device)
     eplan = P.eye_plan(omms, samples)
@@ -418,7 +420,8 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
         splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
         splan.half_center, splan.half_radius, omms_p, tpos, tls, g=eplan.g,
         kcand=kcand, rmax=rmax, cull_sigmas=get_config().cull_sigmas,
-        tri_cl=splan.slot_tri_cl, near_mask=near)
+        tri_cl=P._refine_tri_cl(splan, get_config()), near_mask=near,
+        affine=affine)
     ng, omms_f, sky_means, scatter = eplan.ng, omms_p, None, None
     if sky:
         split = P._sky_build(splan, eplan, omms_p, tls, samples, kcand,
@@ -439,7 +442,8 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
                            rmax=rmax, splay=splay, spin=spin,
                            samples=samples, cache=cache,
                            cache_shape=(cache_width // 2, cache_width),
-                           ng=ng, sky_means=sky_means, sky_scatter=scatter)
+                           ng=ng, sky_means=sky_means, sky_scatter=scatter,
+                           affine=affine)
 
 
 def frame_means(scene: FlatScene, f: SimpleNamespace) -> np.ndarray:
@@ -453,7 +457,7 @@ def frame_means(scene: FlatScene, f: SimpleNamespace) -> np.ndarray:
         nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax,
         textured=f.splan.textured, tex_only=f.splan.tex_only, cache=f.cache,
         cache_shape=f.cache_shape, sky_means=f.sky_means,
-        sky_scatter=f.sky_scatter)
+        sky_scatter=f.sky_scatter, affine=f.affine)
     return means[f.inv].cpu().numpy()
 
 
@@ -577,7 +581,8 @@ def lit_frame_means(scene: FlatScene, f: SimpleNamespace, lights,
     pose_sig = (f.pos.cpu().numpy().tobytes(), f.ls.cpu().numpy().tobytes())
     shadow = P._shadow_plan(f.splan, ep, f.omms_p, f.pos, f.ls, pose_sig,
                             lights_np, f.samples, f.splay, f.spin,
-                            f.packed_mm, f.row_counts, f.rmax, tracer=tracer)
+                            f.packed_mm, f.row_counts, f.rmax, tracer=tracer,
+                            affine=f.affine)
     means = P._trace_shade_angles(
         f.packed_mm, f.row_counts, f.splan.attr_table, scene_dev,
         f.splan.quad_table, f.omms_p, f.pos, f.ls, f.splay, f.spin,
@@ -587,7 +592,7 @@ def lit_frame_means(scene: FlatScene, f: SimpleNamespace, lights,
         lights=torch.as_tensor(lights_np, device=dev),
         slot_tri=f.splan.slot_tri,
         shading_rows=P._shading_rows(f.splan, scene_dev), shadow=shadow,
-        shadow_tracer=shadow_tracer)
+        shadow_tracer=shadow_tracer, affine=f.affine)
     return means[f.inv].cpu().numpy()
 
 

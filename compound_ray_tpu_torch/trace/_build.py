@@ -92,15 +92,17 @@ def build_many(names) -> Dict[str, str]:
     return paths
 
 
-def _load(name: str, entry: str, argtypes) -> ctypes.CDLL:
-    """csrc/<name>.cu's library with its C entry point's signature declared;
-    built and loaded once per process."""
+def _load(name: str, entries, argtypes) -> ctypes.CDLL:
+    """csrc/<name>.cu's library with its C entry points' signature (one
+    name, or a tuple of names that share it) declared; built and loaded
+    once per process."""
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(build(name))
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry in (entries,) if isinstance(entries, str) else entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -109,8 +111,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def packed_tracer_lib() -> ctypes.CDLL:
-    """The K1 library (csrc/packed_tracer.cu)."""
-    return _load("packed_tracer", "cr_packed_tracer",
+    """The K1 library (csrc/packed_tracer.cu): cr_packed_tracer (16-feature
+    rays) and cr_packed_tracer_affine (8-feature affine rays)."""
+    return _load("packed_tracer", ("cr_packed_tracer",
+                                   "cr_packed_tracer_affine"),
                  [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P])
 
 

@@ -18,11 +18,18 @@ OptiX default).  Padding columns are all zero: den = 0 makes u, v, t NaN or
 inf and every comparison false, so padding masks itself under IEEE
 arithmetic.  Row 10 of the w1 block carries the slot's global id.
 
+With affine primary rays (config.affine_rays, one ommatidium per group)
+each group's shared origin and tmin are folded into its payload
+(transform_payload_affine) and a ray is [d, 1, 0 x 4] (pack_rays_affine):
+K1's 8-feature form (ray_feats=8), whose products read features 0-3 only
+(AFFINE_LIVE), since rows 4-7 of both are zero by construction.
+
 Two implementations of one contract:
   * run_packed_tracer — the wrapper of the CUDA kernel
     (csrc/packed_tracer.cu) for CUDA tensors; CPU tensors take the twin.
-  * packed_tracer_reference — the plain torch twin (einsum + the same
-    candidate algebra and winner order).
+  * packed_tracer_reference — the plain torch twin (einsum, or for the
+    affine form the 4-term products summed in the kernel's order, + the
+    same candidate algebra and winner order).
 
 K3 traces the lit frame's shadow rays against the shadow plan's ragged
 occluder table (eye/pipeline.py _shadow_plan): rows of transform_payload_
@@ -48,6 +55,8 @@ MM_FEATS = 16  # feature rows per column (0-9 live, 10 = slot id on w1)
 MM_BLOCKS = 4  # w1 | w2 | den | tnum
 MM_COLS = MM_BLOCKS * KERNEL_LEAF  # 512 columns per payload row
 RAY_FEATS = 16  # [d, m, -o, 1, 0 x 6]
+RAY_FEATS_AFFINE = 8  # [d, 1, 0 x 4] (pack_rays_affine)
+AFFINE_LIVE = 4  # the affine form's live features (rows 4-7 are zero)
 # rays per ray block are padded to a multiple of this (eye_plan rb_size);
 # the JAX package's TPU-tuned BATCH_RAYS default, kept so shapes match
 BATCH_RAYS = 256
@@ -62,8 +71,10 @@ _OCC_TWIN_CHUNK_ELEMS = 1 << 27
 # rays of a K3 warp (one per thread), for the twin's warp-issued count
 _WARP = 32
 
-# K1 launches by run_packed_tracer (the kernel only, never the twin)
+# K1 launches by run_packed_tracer (the kernel only, never the twin): the
+# 16-feature form, and the 8-feature affine form apart
 launches = 0
+affine_launches = 0
 # K3 launches by run_rows_occlusion (the kernel only, never the twin)
 occlusion_launches = 0
 
@@ -151,8 +162,25 @@ def pack_rays_mm(dirs, origins, tmin):
     return feats.t().contiguous()
 
 
-def _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax):
+def pack_rays_affine(dirs):
+    """(8, R) planar affine ray features [d, 1, 0 x 4] from (R, 3) unit
+    dirs (compound_ray_tpu/trace/mm_tracer.py:428): pack_rays_mm's
+    counterpart for payloads that transform_payload_affine has folded the
+    origin and tmin into."""
+    r = dirs.shape[0]
+    feats = torch.cat(
+        [dirs, torch.ones((r, 1), dtype=dirs.dtype, device=dirs.device),
+         torch.zeros((r, RAY_FEATS_AFFINE - 4), dtype=dirs.dtype,
+                     device=dirs.device)], dim=-1)
+    return feats.t().contiguous()
+
+
+def _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax,
+                  ray_feats=RAY_FEATS):
     """Raise on anything the kernel and its twin do not take."""
+    if ray_feats not in (RAY_FEATS, RAY_FEATS_AFFINE):
+        raise ValueError(f"ray_feats={ray_feats}: K1 takes {RAY_FEATS} or "
+                         f"{RAY_FEATS_AFFINE} (affine) ray features")
     dev = rays.device
     for name, x, dtype in (("row_counts", row_counts, torch.int32),
                            ("packed_mm", packed_mm, torch.float32),
@@ -171,15 +199,35 @@ def _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax):
     if tuple(packed_mm.shape) != (ng, rmax, MM_FEATS, MM_COLS):
         raise ValueError(f"packed_mm {tuple(packed_mm.shape)} != "
                          f"({ng}, {rmax}, {MM_FEATS}, {MM_COLS})")
-    if tuple(rays.shape) != (RAY_FEATS, ng * nrb * rb_size):
+    # the payload's affine-ness is known only from the flag the callers
+    # pass, so the rays' feature count must agree with it
+    # (compound_ray_tpu/trace/mm_tracer.py:1033)
+    if tuple(rays.shape) != (ray_feats, ng * nrb * rb_size):
         raise ValueError(f"rays {tuple(rays.shape)} != "
-                         f"({RAY_FEATS}, {ng * nrb * rb_size})")
+                         f"({ray_feats}, {ng * nrb * rb_size}) for "
+                         f"ray_feats={ray_feats}")
+
+
+def _products(feats, pm, ray_feats: int):
+    """(G, rmax, rg, 512) products of rays (F, G, rg) with payload blocks
+    (G, rmax, 16, 512): an f32 einsum over the 16 features, or for the
+    affine form the AFFINE_LIVE-term sum in feature order, as the kernel
+    sums it (one rounded multiply and add per term, where the kernel
+    fuses them)."""
+    if ray_feats == RAY_FEATS:
+        return torch.einsum("fgr,gjfc->gjrc", feats, pm)
+    p = feats[0][:, None, :, None] * pm[:, :, None, 0, :]
+    for k in range(1, AFFINE_LIVE):
+        p = p + feats[k][:, None, :, None] * pm[:, :, None, k, :]
+    return p
 
 
 def packed_tracer_reference(row_counts, packed_mm, rays, ng: int, nrb: int,
-                            rb_size: int, rmax: int) -> torch.Tensor:
+                            rb_size: int, rmax: int,
+                            ray_feats: int = RAY_FEATS) -> torch.Tensor:
     """Plain torch twin of the K1 kernel: (8, R) planar [t, u, v, slot, 0 x 4],
-    t = +inf, u = v = 0 and slot = -1 on a miss.
+    t = +inf, u = v = 0 and slot = -1 on a miss.  ray_feats=8 takes affine
+    rays against a transform_payload_affine'd payload (_products).
 
     Winner order of the TPU kernel (compound_ray_tpu/trace/mm_tracer.py:
     602-616, 650): each lane keeps its first row at the lane's minimum t,
@@ -187,7 +235,8 @@ def packed_tracer_reference(row_counts, packed_mm, rays, ng: int, nrb: int,
     row_counts == 0 come out as misses (the TPU leaves them unwritten;
     callers mask them either way).  Explicit f32: on CUDA the einsum must
     not run in TF32, so the twin refuses to run with TF32 matmuls on."""
-    _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax)
+    _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax,
+                  ray_feats)
     dev = rays.device
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -199,7 +248,7 @@ def packed_tracer_reference(row_counts, packed_mm, rays, ng: int, nrb: int,
         out[0] = torch.inf
         out[3] = -1.0
         return out
-    feats = rays.reshape(RAY_FEATS, ng, rg)
+    feats = rays.reshape(ray_feats, ng, rg)
     inf = torch.tensor(torch.inf, device=dev)
     row_ix = torch.arange(rmax, device=dev)
     lane_ix = torch.arange(KERNEL_LEAF, device=dev)
@@ -208,7 +257,7 @@ def packed_tracer_reference(row_counts, packed_mm, rays, ng: int, nrb: int,
         g1 = min(ng, g0 + chunk)
         gn = g1 - g0
         pm = packed_mm[g0:g1]  # (G, rmax, 16, 512)
-        p = torch.einsum("fgr,gjfc->gjrc", feats[:, g0:g1], pm)
+        p = _products(feats[:, g0:g1], pm, ray_feats)
         w1, w2, den, tnum = p.split(KERNEL_LEAF, dim=-1)  # (G, rmax, rg, 128)
         inv = 1.0 / den
         u = w1 * inv
@@ -268,33 +317,38 @@ def k1_reject(w1, w2, den, tnum):
 
 
 def run_packed_tracer(row_counts, packed_mm, rays, ng: int, nrb: int,
-                      rb_size: int, rmax: int) -> torch.Tensor:
+                      rb_size: int, rmax: int,
+                      ray_feats: int = RAY_FEATS) -> torch.Tensor:
     """K1: closest hit of every ray against its group's packed payload
     (compound_ray_tpu/trace/mm_tracer.py:983, emit "bary").
 
     row_counts (NG,) int32; packed_mm (NG, rmax, 16, 512) f32 in the
     build_mm_features layout; rays (16, NG*nrb*rb_size) f32 planar
-    [d, m, -o', 1, 0 x 6].  Returns (8, R) f32 planar [t, u, v, slot, 0 x 4]
-    with t = +inf on a miss.  CUDA tensors launch the kernel of
-    csrc/packed_tracer.cu on the current stream (or raise); CPU tensors take
-    packed_tracer_reference."""
-    global launches
+    [d, m, -o', 1, 0 x 6], or with ray_feats=8 (8, R) affine rays
+    [d, 1, 0 x 4] against a transform_payload_affine'd payload.  Returns
+    (8, R) f32 planar [t, u, v, slot, 0 x 4] with t = +inf on a miss.  CUDA
+    tensors launch the kernel of csrc/packed_tracer.cu of that form on the
+    current stream (or raise); CPU tensors take packed_tracer_reference."""
+    global launches, affine_launches
     dev = rays.device
     if dev.type == "cpu":
         return packed_tracer_reference(row_counts, packed_mm, rays, ng, nrb,
-                                       rb_size, rmax)
-    _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax)
+                                       rb_size, rmax, ray_feats)
+    _check_inputs(row_counts, packed_mm, rays, ng, nrb, rb_size, rmax,
+                  ray_feats)
     if dev.type != "cuda":
         raise ValueError(f"run_packed_tracer takes CPU or CUDA tensors, "
                          f"not {dev.type}")
     from compound_ray_tpu_torch.trace import _build
 
     lib = _build.packed_tracer_lib()
+    entry = (lib.cr_packed_tracer if ray_feats == RAY_FEATS
+             else lib.cr_packed_tracer_affine)
     r = rays.shape[1]
     out = torch.empty((OUT_COMPS, r), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cr_packed_tracer(
+        err = entry(
             ctypes.c_void_p(row_counts.data_ptr()),
             ctypes.c_void_p(packed_mm.data_ptr()),
             ctypes.c_void_p(rays.data_ptr()),
@@ -302,7 +356,10 @@ def run_packed_tracer(row_counts, packed_mm, rays, ng: int, nrb: int,
             ng, rmax, nrb * rb_size, r, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"packed tracer launch failed: CUDA error {err}")
-    launches += 1
+    if ray_feats == RAY_FEATS:
+        launches += 1
+    else:
+        affine_launches += 1
     return out
 
 
@@ -314,8 +371,9 @@ def transform_payload_affine(packed_mm, o_g, tmin_g):
     Q_d = P[0:3] + P[3:6] x o - tmin P[6:9] (rows 0-2),
     Q_c = P[9] - o . P[6:9] (row 3), rows 4-7 zero, rows 8-15 unchanged.
     The den block keeps Q_d = n exactly, so all-zero padding columns stay
-    all zero.  The shadow plan applies it with the light as the origin and
-    tmin 0."""
+    all zero.  Affine primary rays apply it with each group's ommatidial
+    origin and tmin (eye/pipeline.py _pack_fused), the shadow plan with
+    the light as the origin and tmin 0."""
     p_d = packed_mm[:, :, 0:3, :]
     p_m = packed_mm[:, :, 3:6, :]
     p_o = packed_mm[:, :, 6:9, :]

@@ -5,12 +5,12 @@ JAX-free, so the file runs where JAX is absent (the card's machine):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Inputs come from the port's own pipeline.  Thresholds as in
-tests/test_torch_k1.py: slot ids (K1) equal on >= 99.9 % of live rays, t
-within rtol 1e-5 where they agree (the kernel fuses products into FMAs, the
-twin does not); frame means within 2e-4.  K2 and K3 sum their products in
-the twins' order without FMAs, so K2's rows and K3's decisions must equal
-the twins' on every ray, bit for bit (K2 also at the camera image's
-shapes).  The real-camera images and the oracle on the card against the
+tests/test_torch_k1.py: slot ids (K1, both forms) equal on >= 99.9 % of
+live rays, t within rtol 1e-5 where they agree (the kernel fuses products
+into FMAs, the twin does not); frame means within 2e-4.  K2 and K3 sum
+their products in the twins' order without FMAs, so K2's rows and K3's
+decisions must equal the twins' on every ray, bit for bit (K2 also at the
+camera image's shapes).  The real-camera images and the oracle on the card against the
 CPU: channels within 1 but at near-ties (the two closest hits within 1e-6
 relative in t), oracle radiance within 2e-4.  The probes (K4, K5):
 copy_only and dma_only bit-equal, the dot modes equal on >= 99.9 % of live rays within rtol 1e-5.
@@ -68,6 +68,93 @@ def test_k1_matches_twin(cuda_device, accept_deg, samples):
     assert (torch.isfinite(ref[0]) & (ref[3] == got[3])).any()
     assert max_rel <= T_RTOL
     assert torch.equal(got[4:], torch.zeros_like(got[4:]))
+
+
+def _affine_k1_case(device, accept_deg, samples):
+    """An affine frame_pack frame (one ommatidium per group) and its
+    8-feature rays: (row_counts, packed_mm, rays, kw, rg_pad)."""
+    scene = testing.make_big_scene(n_boxes=60, seed=5)
+    omms = ommatidia_to_array(testing.make_sphere_eye(16, accept_deg))
+    f = testing.frame_pack(scene, omms, samples, (0.0, 2.0, 0.0), device,
+                           affine=True)
+    ep = f.eplan
+    assert ep.g == 1
+    rays, _ = P._gen_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
+                                  samples=samples, ng=ep.ng, g=ep.g,
+                                  nrb=ep.nrb, rb_size=ep.rb_size, affine=True)
+    assert rays.shape[0] == TM.RAY_FEATS_AFFINE
+    kw = dict(ng=ep.ng, nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax,
+              ray_feats=TM.RAY_FEATS_AFFINE)
+    return f.row_counts, f.packed_mm, rays, kw, ep.rg_pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accept_deg,samples", [(4.0, 640), (20.0, 640),
+                                                (6.0, 128)])
+def test_k1_affine_matches_twin(cuda_device, accept_deg, samples):
+    """K1's 8-feature form (cr_packed_tracer_affine) on an affine pack
+    against the twin at ray_feats=8, with the 16-feature thresholds; it
+    counts as an affine launch, not a 16-feature one."""
+    rc, pm, rays, kw, rg_pad = _affine_k1_case(cuda_device, accept_deg,
+                                               samples)
+    before, before_a = TM.launches, TM.affine_launches
+    got = TM.run_packed_tracer(rc, pm, rays, **kw)
+    torch.cuda.synchronize()
+    assert (TM.launches, TM.affine_launches) == (before, before_a + 1)
+    ref = TM.packed_tracer_reference(rc, pm, rays, **kw)
+    agree, _, max_rel = testing.hit_agreement(ref, got, rc, rg_pad)
+    assert agree >= SLOT_AGREE
+    assert (torch.isfinite(ref[0]) & (ref[3] == got[3])).any()
+    assert max_rel <= T_RTOL
+    assert torch.equal(got[4:], torch.zeros_like(got[4:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rg", [1, 100, 255, 300, 511])
+def test_k1_affine_ragged_groups_match_twin(cuda_device, rg):
+    """cr_packed_tracer_affine at groups of rays that fill no whole number
+    of blocks of 256 rays (called directly: the wrapper pads groups to
+    256): each group's first rg rays of an affine frame at 640 rays per
+    group, traced alone, give the kernel's own output for them bit for bit
+    and the twin's within the thresholds, and nothing past the output is
+    written."""
+    import ctypes
+
+    from compound_ray_tpu_torch.trace import _build
+
+    rc, pm, rays, kw, rg_pad = _affine_k1_case(cuda_device, 4.0, 640)
+    full = TM.run_packed_tracer(rc, pm, rays, **kw)
+    ref = TM.packed_tracer_reference(rc, pm, rays, **kw)
+    ng = kw["ng"]
+    cut = rays.reshape(8, ng, rg_pad)[:, :, :rg].contiguous()
+    out = torch.full((8 * ng * rg + 64,), 7.0, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.packed_tracer_lib().cr_packed_tracer_affine(
+        ctypes.c_void_p(rc.data_ptr()), ctypes.c_void_p(pm.data_ptr()),
+        ctypes.c_void_p(cut.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ng, kw["rmax"], rg, ng * rg, ctypes.c_void_p(stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    got = out[:8 * ng * rg].reshape(8, -1)
+    assert torch.equal(got, full.reshape(8, ng, rg_pad)[:, :, :rg]
+                       .reshape(8, -1))
+    agree, _, max_rel = testing.hit_agreement(
+        ref.reshape(8, ng, rg_pad)[:, :, :rg].reshape(8, -1), got, rc, rg)
+    assert agree >= SLOT_AGREE and max_rel <= T_RTOL
+    assert (out[8 * ng * rg:] == 7.0).all()
+
+
+@pytest.mark.cuda
+def test_affine_frame_on_card_matches_cpu(cuda_device):
+    """The same affine frame (same numpy angles) on the card (K1's
+    8-feature form) and on the CPU (its twin)."""
+    omms = ommatidia_to_array(testing.make_sphere_eye(24, 5.0))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = testing.make_big_scene(n_boxes=60, seed=5)
+        out.append(testing.frame_means(scene, testing.frame_pack(
+            scene, omms, 256, (0.0, 2.0, 0.0), dev, affine=True)))
+    np.testing.assert_allclose(out[0], out[1], atol=ATOL)
 
 
 def _adversarial_k1_case(device, rg=256):

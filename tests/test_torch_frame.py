@@ -265,35 +265,49 @@ def test_config_refuses_the_far_field(monkeypatch):
             cfg.farfield_cache_width) == ("off", 3.5, 7, True, 256)
     monkeypatch.setenv("CR_TPU_SKY_SPLIT", "off")
     assert tcfg.RenderConfig.from_env().sky_split is False
-    for mode in ("sphere", "fast"):
-        with pytest.raises(NotImplementedError, match="exact"):
-            tcfg.RenderConfig(refine_mode=mode)
+    for mode in ("exact", "sphere"):
+        assert tcfg.RenderConfig(refine_mode=mode).refine_mode == mode
+    with pytest.raises(ValueError, match="refine_mode"):
+        tcfg.RenderConfig(refine_mode="fast")
     monkeypatch.setenv("CR_TPU_REFINE", "sphere")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("CR_TPU_AFFINE_RAYS", "1")
+    cfg = tcfg.RenderConfig.from_env()
+    assert (cfg.refine_mode, cfg.affine_rays) == ("sphere", True)
+    monkeypatch.setenv("CR_TPU_REFINE", "fast")
+    with pytest.raises(ValueError):
         tcfg.RenderConfig.from_env()
 
 
 def test_config_backend(monkeypatch):
     """backend takes "auto" (the default), "naive", "pallas" (the kernels on
-    one device; one CR_TPU_BACKEND serves both packages) and "sharded" (the
-    mesh of ranks); the JAX package's "xla" is refused, and so is anything
-    else."""
-    monkeypatch.delenv("CR_TPU_BACKEND", raising=False)
-    monkeypatch.delenv("CR_TPU_MIN_TRIS_CULL", raising=False)
+    one device; one CR_TPU_BACKEND serves both packages), "sharded" (the
+    mesh of ranks) and "xla" (the culled sweep, with its leaf size and
+    chunks); anything else is refused."""
+    for name in ("CR_TPU_BACKEND", "CR_TPU_MIN_TRIS_CULL", "CR_TPU_LEAF_SIZE",
+                 "CR_TPU_OMM_CHUNK", "CR_TPU_SAMPLE_CHUNK"):
+        monkeypatch.delenv(name, raising=False)
     cfg = tcfg.RenderConfig.from_env()
-    assert (cfg.backend, cfg.min_triangles_for_culling) == ("auto", 512)
-    for mode in ("auto", "naive", "pallas", "sharded"):
+    assert (cfg.backend, cfg.min_triangles_for_culling, cfg.xla_leaf_size,
+            cfg.omm_chunk, cfg.sample_chunk) == ("auto", 512, 16, 64, 64)
+    for mode in ("auto", "naive", "pallas", "sharded", "xla"):
         assert tcfg.RenderConfig(backend=mode).backend == mode
-    with pytest.raises(NotImplementedError, match="culled"):
-        tcfg.RenderConfig(backend="xla")
     with pytest.raises(ValueError, match="backend"):
         tcfg.RenderConfig(backend="fast")
+    with pytest.raises(ValueError, match="omm_chunk"):
+        tcfg.RenderConfig(omm_chunk=0)
     monkeypatch.setenv("CR_TPU_BACKEND", "naive")
     monkeypatch.setenv("CR_TPU_MIN_TRIS_CULL", "64")
     cfg = tcfg.RenderConfig.from_env()
     assert (cfg.backend, cfg.min_triangles_for_culling) == ("naive", 64)
     monkeypatch.setenv("CR_TPU_BACKEND", "xla")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("CR_TPU_LEAF_SIZE", "32")
+    monkeypatch.setenv("CR_TPU_OMM_CHUNK", "16")
+    monkeypatch.setenv("CR_TPU_SAMPLE_CHUNK", "8")
+    cfg = tcfg.RenderConfig.from_env()
+    assert (cfg.backend, cfg.xla_leaf_size, cfg.omm_chunk,
+            cfg.sample_chunk) == ("xla", 32, 16, 8)
+    monkeypatch.setenv("CR_TPU_BACKEND", "fast")
+    with pytest.raises(ValueError):
         tcfg.RenderConfig.from_env()
 
 
@@ -308,6 +322,8 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch.projection\n"
         "import compound_ray_tpu_torch.trace.intersect\n"
         "import compound_ray_tpu_torch.eye.render\n"
+        "import compound_ray_tpu_torch.trace.culled\n"
+        "import compound_ray_tpu_torch.trace.dispatch\n"
         "import compound_ray_tpu_torch.cameras.raygen\n"
         "import compound_ray_tpu_torch.cameras.fast_image\n"
         "import compound_ray_tpu_torch.gui, compound_ray_tpu_torch.gui.viewer\n"
