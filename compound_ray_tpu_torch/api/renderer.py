@@ -98,6 +98,7 @@ from compound_ray_tpu_torch.parallel.sharding import (
 )
 from compound_ray_tpu_torch.projection.project import project_frame
 from compound_ray_tpu_torch.scene.flat import FlatScene, load_scene
+from compound_ray_tpu_torch.spans import span, spanned
 from compound_ray_tpu_torch.trace.dispatch import render_means_fast
 from compound_ray_tpu_torch.trace.lighting import default_lights
 from compound_ray_tpu_torch.trace.shade import miss_id
@@ -220,6 +221,7 @@ class EyeRenderer:
         return np.array(self._lights)
 
     # ------------------------------------------------------------- render
+    @spanned("cr.frame")
     def render_frame(self, sync: bool = True) -> float:
         """Render one frame; returns wall milliseconds (renderFrame,
         libEyeRenderer.cpp:279-293; compound_ray_tpu/api/renderer.py:191).
@@ -346,10 +348,11 @@ class EyeRenderer:
         cam.rng_frame += n
         if not self._display():
             return
-        _, omm_pos, omm_dir = cam.device_ommatidia(self.device)
-        self._device_frame = project_frame(
-            cam.projection, self._device_means, self._raw_samples, omm_pos,
-            omm_dir, self.width, self.height)
+        with span("cr.project"):
+            _, omm_pos, omm_dir = cam.device_ommatidia(self.device)
+            self._device_frame = project_frame(
+                cam.projection, self._device_means, self._raw_samples,
+                omm_pos, omm_dir, self.width, self.height)
         self._frame_buffer = None
 
     def _oracle(self, fn, args, lit: bool) -> torch.Tensor:
@@ -495,7 +498,8 @@ class EyeRenderer:
     # ------------------------------------------------------ observability
     def start_profile(self, log_dir: str) -> None:
         """Begin a torch.profiler trace of the host and, on the card, the
-        device; stop_profile writes it as a Chrome trace into log_dir."""
+        device; stop_profile writes it as a Chrome trace into log_dir.
+        While it records, the layers record their cr.* spans (spans.py)."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -716,6 +720,7 @@ class EyeRenderer:
         out[np.isnan(out[:, 0])] = 0.0
         return out.reshape(b, n, 3)
 
+    @spanned("cr.readback")
     def get_camera_data(self) -> np.ndarray:
         """Per-ommatidium mean radiance (N, 3) float32, NaN rows zeroed
         (libEyeRenderer.cpp:457-484)."""

@@ -39,6 +39,12 @@ rows-per-block layout, speculative widths, the polynomial equirect
 addressing (FAST_EQUIRECT) and bf16 texture-and-cache tables.  The sharded
 path (parallel/sharding.py) plans here (_plan_frame's omm_axis) and renders
 each shard with _trace_shade_angles.
+
+Under a profiler the layers record spans (spans.py): cr.plan around
+_plan_frame with cr.plan.farfield and cr.plan.angles inside it, a
+cr.plan.build.* span (widths, pack, cache, sky, shadow) only where a memo
+misses and builds, and cr.core around _trace_shade_angles with
+cr.core.rays, cr.core.shade and cr.core.lit inside it.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from compound_ray_tpu_torch.eye.sampling import (
     cone_offset_components,
     sample_angles_ns,
 )
+from compound_ray_tpu_torch.spans import span, spanned
 from compound_ray_tpu_torch.trace.attrs import (
     ATTR_COMPS_FLAT,
     KERNEL_LEAF,
@@ -675,18 +682,20 @@ def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
     cached = splan.kmax_cache.get(cache_key)
     if cached is not None:
         return cached
-    gmask, counts, _ = _cull_groups(
-        omms_p, position, local_space, splan.half_center, splan.half_radius,
-        sig, eplan.g)
-    _, counts = _near_counts(gmask, counts, near_mask)
-    k_needed = int(counts.max().item())
-    kcand = min(splan.num_clusters,
-                max(eplan.kmax_hint, _ceil_to(max(k_needed, 1), 8)))
-    row_counts = _refine_counts(
-        omms_p, position, local_space, splan.half_center, splan.half_radius,
-        splan.slot_center_cl, splan.slot_radius_cl, eplan.g, kcand, sig,
-        tri_cl=_refine_tri_cl(splan, cfg), near_mask=near_mask)
-    r_needed = int(row_counts.max().item())
+    with span("cr.plan.build.widths"):
+        gmask, counts, _ = _cull_groups(
+            omms_p, position, local_space, splan.half_center,
+            splan.half_radius, sig, eplan.g)
+        _, counts = _near_counts(gmask, counts, near_mask)
+        k_needed = int(counts.max().item())
+        kcand = min(splan.num_clusters,
+                    max(eplan.kmax_hint, _ceil_to(max(k_needed, 1), 8)))
+        row_counts = _refine_counts(
+            omms_p, position, local_space, splan.half_center,
+            splan.half_radius, splan.slot_center_cl, splan.slot_radius_cl,
+            eplan.g, kcand, sig, tri_cl=_refine_tri_cl(splan, cfg),
+            near_mask=near_mask)
+        r_needed = int(row_counts.max().item())
     rmax = min(max(eplan.rmax_hint, _ceil_to(max(r_needed, 1), 2)), kcand)
     eplan.kmax_hint = kcand  # high-water: nearby poses reuse the widths
     eplan.rmax_hint = rmax
@@ -728,12 +737,13 @@ def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     if hit is not None:
         splan.packed_store[pk] = splan.packed_store.pop(pk)  # LRU refresh
         return hit
-    out = _pack_fused(
-        splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
-        splan.half_center, splan.half_radius, omms_p, position, local_space,
-        g=eplan.g, kcand=kcand, rmax=rmax, cull_sigmas=cfg.cull_sigmas,
-        tri_cl=_refine_tri_cl(splan, cfg), near_mask=near_mask,
-        affine=affine)
+    with span("cr.plan.build.pack"):
+        out = _pack_fused(
+            splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
+            splan.half_center, splan.half_radius, omms_p, position,
+            local_space, g=eplan.g, kcand=kcand, rmax=rmax,
+            cull_sigmas=cfg.cull_sigmas, tri_cl=_refine_tri_cl(splan, cfg),
+            near_mask=near_mask, affine=affine)
     size = _pack_nbytes(out)
     if size > cfg.packed_store_bytes:
         return out
@@ -1014,6 +1024,7 @@ def scatter_sky(means, sky_means, sky_scatter):
     return full[:n0]
 
 
+@spanned("cr.core")
 def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         quad_table, omms_p, position, local_space, splay,
                         spin, samples: int, background: int, ng: int, g: int,
@@ -1053,73 +1064,79 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     n_pad = omms_p.shape[0]
     rg = g * samples
     rg_pad = nrb * rb_size
-    rays, (dx, dy, dz) = _gen_ray_features(
-        omms_p, position, local_space, splay, spin, samples=samples, ng=ng,
-        g=g, nrb=nrb, rb_size=rb_size, affine=affine)
+    with span("cr.core.rays"):
+        rays, (dx, dy, dz) = _gen_ray_features(
+            omms_p, position, local_space, splay, spin, samples=samples,
+            ng=ng, g=g, nrb=nrb, rb_size=rb_size, affine=affine)
     trace = run_packed_tracer if tracer is None else tracer
     out = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
                 rmax=rmax, ray_feats=rays.shape[0])
-    t_f, cu_f, cv_f, texid_f, rgb_f = resolve_kernel_hits(
-        out, attr_table, tex_only)
+    with span("cr.core.shade"):
+        t_f, cu_f, cv_f, texid_f, rgb_f = resolve_kernel_hits(
+            out, attr_table, tex_only)
 
-    def unpad(x):
-        return x.reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
+        def unpad(x):
+            return x.reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
 
-    t = unpad(t_f)
-    # groups with empty payloads are misses whatever their rows hold
-    group_live = torch.repeat_interleave(row_counts > 0, g)[:, None]
-    hit = (t < 1e30) & group_live
-    if tex_only:
-        rr = gg = bb = torch.zeros_like(t)
-    else:
-        rr, gg, bb = (unpad(c) for c in rgb_f)
-    if textured:
-        texid = unpad(texid_f)
-        tex_idx, tfx, tfy = texture_quad_coords_c(
-            scene_dev, torch.clamp(texid.reshape(-1), min=0),
-            unpad(cu_f).reshape(-1), unpad(cv_f).reshape(-1))
-    if textured and cache is not None:
-        # one gather from the combined table: texture quads for textured
-        # hits, cache quads for misses
-        ch, cw = cache_shape
-        c_idx, cfx, cfy = _equirect_coords_c(
-            ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
-        sel_tex = (hit & (texid >= 0)).reshape(-1)
-        idx = torch.where(sel_tex, tex_idx, cache.shape[0] - ch * cw + c_idx)
-        qr, qg, qb = quad_bilinear_c(
-            cache[idx], torch.where(sel_tex, tfx, cfx),
-            torch.where(sel_tex, tfy, cfy))
-        # hits on untextured triangles keep their interpolated colour
-        keep = hit & (texid < 0)
-        rr = torch.where(keep, rr, qr.reshape(n_pad, samples))
-        gg = torch.where(keep, gg, qg.reshape(n_pad, samples))
-        bb = torch.where(keep, bb, qb.reshape(n_pad, samples))
-    else:
-        if textured:
-            qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
-            sel = (texid >= 0) & hit
-            rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
-            gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
-            bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
-        if lights is not None:
-            rr, gg, bb, audit = _lit_epilogue(
-                out, hit, rr, gg, bb, dx, dy, dz,
-                _neg_origins(omms_p, position, local_space, dx, dy, dz),
-                scene_dev, shading_rows, slot_tri, lights, shadow, samples,
-                ng, g, nrb, rb_size, shadow_audit, shadow_tracer)
-        if cache is not None:
-            # the cache already holds the miss shader where nothing is hit
-            c_idx, cfx, cfy = _equirect_coords_c(
-                cache.shape[0], cache.shape[1], dx.reshape(-1),
-                dy.reshape(-1), dz.reshape(-1))
-            mr, mg, mb = quad_bilinear_c(cache.reshape(-1, 16)[c_idx], cfx,
-                                         cfy)
+        t = unpad(t_f)
+        # groups with empty payloads are misses whatever their rows hold
+        group_live = torch.repeat_interleave(row_counts > 0, g)[:, None]
+        hit = (t < 1e30) & group_live
+        if tex_only:
+            rr = gg = bb = torch.zeros_like(t)
         else:
-            mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1),
-                                      dz.reshape(-1), background)
-        rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
-        gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
-        bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
+            rr, gg, bb = (unpad(c) for c in rgb_f)
+        if textured:
+            texid = unpad(texid_f)
+            tex_idx, tfx, tfy = texture_quad_coords_c(
+                scene_dev, torch.clamp(texid.reshape(-1), min=0),
+                unpad(cu_f).reshape(-1), unpad(cv_f).reshape(-1))
+        if textured and cache is not None:
+            # one gather from the combined table: texture quads for textured
+            # hits, cache quads for misses
+            ch, cw = cache_shape
+            c_idx, cfx, cfy = _equirect_coords_c(
+                ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
+            sel_tex = (hit & (texid >= 0)).reshape(-1)
+            idx = torch.where(sel_tex, tex_idx,
+                              cache.shape[0] - ch * cw + c_idx)
+            qr, qg, qb = quad_bilinear_c(
+                cache[idx], torch.where(sel_tex, tfx, cfx),
+                torch.where(sel_tex, tfy, cfy))
+            # hits on untextured triangles keep their interpolated colour
+            keep = hit & (texid < 0)
+            rr = torch.where(keep, rr, qr.reshape(n_pad, samples))
+            gg = torch.where(keep, gg, qg.reshape(n_pad, samples))
+            bb = torch.where(keep, bb, qb.reshape(n_pad, samples))
+        else:
+            if textured:
+                qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
+                sel = (texid >= 0) & hit
+                rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
+                gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
+                bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
+            if lights is not None:
+                with span("cr.core.lit"):
+                    rr, gg, bb, audit = _lit_epilogue(
+                        out, hit, rr, gg, bb, dx, dy, dz,
+                        _neg_origins(omms_p, position, local_space, dx, dy,
+                                     dz),
+                        scene_dev, shading_rows, slot_tri, lights, shadow,
+                        samples, ng, g, nrb, rb_size, shadow_audit,
+                        shadow_tracer)
+            if cache is not None:
+                # the cache already holds the miss shader where nothing is hit
+                c_idx, cfx, cfy = _equirect_coords_c(
+                    cache.shape[0], cache.shape[1], dx.reshape(-1),
+                    dy.reshape(-1), dz.reshape(-1))
+                mr, mg, mb = quad_bilinear_c(cache.reshape(-1, 16)[c_idx],
+                                             cfx, cfy)
+            else:
+                mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1),
+                                          dz.reshape(-1), background)
+            rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
+            gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
+            bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
     if want_samples:
         return torch.stack([rr, gg, bb], dim=-1)
     means = torch.stack([c.reshape(n_pad, frames, samples // frames)
@@ -1334,6 +1351,7 @@ def _farfield_split(splan, ommatidia_np, pos_np, ls_np, tol: float):
     return (cdist - splan.sphere_radius_np) > d_thresh, center_np, d_thresh
 
 
+@spanned("cr.plan.farfield")
 def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
                    samples: int, background: int, cfg, tracer=None,
                    lights=None):
@@ -1364,16 +1382,17 @@ def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
     key = (center32.tobytes(), width, background, d_thresh)
     cache = splan.cache_store.get(key)
     if cache is None:
-        cache = build_equirect_quads(_render_cache(
-            splan.payload, splan.attr_table, scene_dev, splan.quad_table,
-            splan.half_center, splan.half_radius,
-            torch.as_tensor(center32, device=dev),
-            torch.as_tensor(far, device=dev), width=width,
-            background=background, kmax=min(splan.num_clusters, 256),
-            textured=splan.textured, tex_only=splan.tex_only,
-            tracer=tracer))
-        if splan.textured:
-            cache = torch.cat([splan.quad_table, cache.reshape(-1, 16)])
+        with span("cr.plan.build.cache"):
+            cache = build_equirect_quads(_render_cache(
+                splan.payload, splan.attr_table, scene_dev, splan.quad_table,
+                splan.half_center, splan.half_radius,
+                torch.as_tensor(center32, device=dev),
+                torch.as_tensor(far, device=dev), width=width,
+                background=background, kmax=min(splan.num_clusters, 256),
+                textured=splan.textured, tex_only=splan.tex_only,
+                tracer=tracer))
+            if splan.textured:
+                cache = torch.cat([splan.quad_table, cache.reshape(-1, 16)])
         if len(splan.cache_store) > _CACHE_STORE_MAX:
             splan.cache_store.clear()
         splan.cache_store[key] = cache
@@ -1467,6 +1486,7 @@ def _sky_put(splan, sk, entry, cfg):
     splan.sky_store[sk] = entry
 
 
+@spanned("cr.plan.build.sky")
 def _sky_build(splan, eplan, omms_p, local_space, samples: int, kcand: int,
                rmax: int, cache, cache_shape: Tuple[int, int], row_counts,
                packed_mm, ng_quantum: int = 64):
@@ -1770,6 +1790,23 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     if hit is not None:
         splan.shadow_store[sk] = splan.shadow_store.pop(sk)  # LRU refresh
         return hit
+    out = _shadow_build(splan, eplan, omms_p, position, local_space,
+                        lights_np, samples, splay, spin, packed_mm,
+                        row_counts, rmax, tracer, shards, affine)
+    while len(splan.shadow_store) >= cfg.shadow_store_size:
+        splan.shadow_store.pop(next(iter(splan.shadow_store)))
+    splan.shadow_store[sk] = out
+    return out
+
+
+@spanned("cr.plan.build.shadow")
+def _shadow_build(splan, eplan, omms_p, position, local_space,
+                  lights_np: np.ndarray, samples: int, splay, spin,
+                  packed_mm, row_counts, rmax: int, tracer, shards: int,
+                  affine: bool):
+    """_shadow_plan's tuple built anew: the probe (or the guaranteed
+    bounds), then each light's shafts packed chunk by chunk."""
+    cfg = get_config()
     dev = packed_mm.device
     lights = torch.as_tensor(lights_np, device=dev)
     # probe every cluster: a narrower probe would under-measure the rows
@@ -1851,14 +1888,10 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
         tables += parts[k] + [torch.zeros((tb - rows, SHADOW_FEATS, MM_COLS),
                                           dtype=torch.float32, device=dev)]
     flat_rows = torch.cat(tables) if len(tables) > 1 else tables[0]
-    out = (torch.as_tensor(cnts_np.astype(np.int32), device=dev),
-           torch.as_tensor(r2v_np, device=dev),
-           torch.as_tensor(flag_np, device=dev), flat_rows,
-           torch.cat([cg, rg_sph[:, None]], dim=-1))
-    while len(splan.shadow_store) >= cfg.shadow_store_size:
-        splan.shadow_store.pop(next(iter(splan.shadow_store)))
-    splan.shadow_store[sk] = out
-    return out
+    return (torch.as_tensor(cnts_np.astype(np.int32), device=dev),
+            torch.as_tensor(r2v_np, device=dev),
+            torch.as_tensor(flag_np, device=dev), flat_rows,
+            torch.cat([cg, rg_sph[:, None]], dim=-1))
 
 
 def _shading_rows(splan, scene_dev):
@@ -1868,6 +1901,7 @@ def _shading_rows(splan, scene_dev):
     return splan.shading_rows
 
 
+@spanned("cr.plan")
 def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
                 position, local_space, generator: torch.Generator,
                 samples: int, background: int, lights=None, tracer=None,
@@ -1947,8 +1981,9 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
         (packed_mm, row_counts, omms_f, sky_scatter, sky_means, ng, kcand,
          rmax) = sky
     if angles is None:
-        splay, spin = sample_angles_ns(
-            generator, omms_f[:, 6] / FWHM_SD_RATIO, samples)
+        with span("cr.plan.angles"):
+            splay, spin = sample_angles_ns(
+                generator, omms_f[:, 6] / FWHM_SD_RATIO, samples)
     else:
         splay, spin = angles
     kw = dict(

@@ -23,11 +23,6 @@ The eye tools (compound_ray_tpu/tools/*, each with its main(argv)):
 eye_generator (its gradient mode), minimum_sample_rate_finder and
 variance_mapper run on the card unless given --device cpu; the others are
 numpy.
-
-    python -m compound_ray_tpu_torch.tools.frame_time --samples 100
-
-times render_frame on the bench configuration on the card (device and
-wall ms per frame, torch operations per frame).
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
+from compound_ray_tpu_torch.spans import span
 from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF, OUT_COMPS
 
 PAYLOAD_COMPS = 16  # w1 edge6, w2 edge6, normal, c0
@@ -290,15 +291,16 @@ def run_tracer_kernel(counts, ids, dmin, payload, rays, ng: int, nrb: int,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cr_cluster_tracer(
-            ctypes.c_void_p(counts.data_ptr()),
-            ctypes.c_void_p(ids.data_ptr()),
-            ctypes.c_void_p(dmin.data_ptr()),
-            ctypes.c_void_p(payload.data_ptr()),
-            ctypes.c_void_p(rays.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            ng, ids.shape[1], kmax, payload.shape[0], nrb * rb_size,
-            int(bool(early_exit)), ctypes.c_void_p(stream))
+        with span("cr.k2"):
+            err = lib.cr_cluster_tracer(
+                ctypes.c_void_p(counts.data_ptr()),
+                ctypes.c_void_p(ids.data_ptr()),
+                ctypes.c_void_p(dmin.data_ptr()),
+                ctypes.c_void_p(payload.data_ptr()),
+                ctypes.c_void_p(rays.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()),
+                ng, ids.shape[1], kmax, payload.shape[0], nrb * rb_size,
+                int(bool(early_exit)), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cluster tracer launch failed: CUDA error {err}")
     launches += 1

@@ -49,6 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
+from compound_ray_tpu_torch.spans import span
 from compound_ray_tpu_torch.trace.attrs import KERNEL_LEAF, OUT_COMPS
 
 MM_FEATS = 16  # feature rows per column (0-9 live, 10 = slot id on w1)
@@ -348,12 +349,13 @@ def run_packed_tracer(row_counts, packed_mm, rays, ng: int, nrb: int,
     out = torch.empty((OUT_COMPS, r), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(
-            ctypes.c_void_p(row_counts.data_ptr()),
-            ctypes.c_void_p(packed_mm.data_ptr()),
-            ctypes.c_void_p(rays.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            ng, rmax, nrb * rb_size, r, ctypes.c_void_p(stream))
+        with span("cr.k1"):
+            err = entry(
+                ctypes.c_void_p(row_counts.data_ptr()),
+                ctypes.c_void_p(packed_mm.data_ptr()),
+                ctypes.c_void_p(rays.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()),
+                ng, rmax, nrb * rb_size, r, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"packed tracer launch failed: CUDA error {err}")
     if ray_feats == RAY_FEATS:
@@ -568,13 +570,14 @@ def run_rows_occlusion(r2v, flag, flat_rows, rays, nrb: int, rb_size: int,
     out = torch.empty((1, r), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cr_rows_occlusion(
-            ctypes.c_void_p(start.data_ptr()),
-            ctypes.c_void_p(count.data_ptr()),
-            ctypes.c_void_p(flat_rows.data_ptr()),
-            ctypes.c_void_p(rays.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            nvg, feats, live, nrb * rb_size, r, ctypes.c_void_p(stream))
+        with span("cr.k3"):
+            err = lib.cr_rows_occlusion(
+                ctypes.c_void_p(start.data_ptr()),
+                ctypes.c_void_p(count.data_ptr()),
+                ctypes.c_void_p(flat_rows.data_ptr()),
+                ctypes.c_void_p(rays.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()),
+                nvg, feats, live, nrb * rb_size, r, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"rows occlusion launch failed: CUDA error {err}")
     occlusion_launches += 1

@@ -335,7 +335,6 @@ def test_port_never_imports_jax():
         "import compound_ray_tpu_torch.tools.variance_mapper\n"
         "import compound_ray_tpu_torch.tools.probe_step\n"
         "import compound_ray_tpu_torch.tools.microbench_k\n"
-        "import compound_ray_tpu_torch.tools.frame_time\n"
         "import compound_ray_tpu_torch.scene.blend\n"
         "import compound_ray_tpu_torch.parallel\n"
         "import compound_ray_tpu_torch.parallel.sharding\n"
