@@ -16,13 +16,14 @@ tools' full sizes; then the API surface through the ctypes shim at 640 x
 cameras at 640 x 480 and the brute-force oracle; then bursts, pose
 batches, the eye tools and the viewer; then the bench scene written as a
 .blend and the eight examples on it; then the sharded path over ranks;
-then the render modes (affine rays, the sphere refine, backend "xla").
+then the render modes (affine rays, the sphere refine, backend "xla");
+then the planning refine at the pose sweep's shapes.
 Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
-     (csrc/microbench_k.cu) with nvcc for sm_90a, one process per source,
-     started together;
+     (csrc/microbench_k.cu) and the planning refine (csrc/refine_mask.cu)
+     with nvcc for sm_90a, one process per source, started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
      and the near-clusters pack of the cache frame), and K3 against its
      twin on the first lit frame's own shadow table and rays, which the
@@ -116,10 +117,25 @@ Phases, each failing loudly:
      affine (2, 2) mesh plan's shard cores against the dense affine frame
      (2e-5), sphere against exact (2e-5 on a 1e-5 degree copy of the eye;
      the jittered rule at 2.6 degrees) with both packs' rows, and "xla"
-     at 100 samples against the oracle on its generator (1e-5).
+     at 100 samples against the oracle on its generator (1e-5);
+ 14. the planning refine (csrc/refine_mask.cu) at the natural-1000 pose
+     sweep's shapes (testing.natural_sweep: 100 samples, two ommatidia a
+     group, the exact refine): counted as a path, REFINE_VIEWS new sweep
+     poses through render_frame, each view's refine launches equal to the
+     chunks of its widths and pack passes (2 at one chunk a pass); then at
+     the configuration's pose and REFINE_POSES seeded sweep poses, chunk
+     by chunk as the widths and the pack call it: row counts (both forms)
+     and keys bit-equal to the twin, each pose's kernel time in both forms
+     and the twin's (CUDA events), the bound (REFINE_*_OPS, slot tables
+     read once), and each pose's widths-and-pack plan through the kernel
+     and through the twin.
+Every counted path reports the refine's launches with the kernels'; the
+lit path's first frame (and a frame after a corrective replan) refines,
+its other frames never.
 The last lines are the kernel table (each kernel's launches, error, time,
-plain time and bound; a kernel timed under its bound fails the run), the
-card and {"ok": true, "device": ...}.
+plain time and bound; the refine's launches are its sweep path's; a
+kernel timed under its bound fails the run), the card and {"ok": true,
+"device": ...}.
 """
 
 from __future__ import annotations
@@ -166,6 +182,28 @@ K45_SOURCE = "compound_ray_tpu_torch/csrc/probe_step.cu"
 PROBE_REPS = 20  # timed launches of each probe entry of the step split
 K6_REPLACES = "tools/microbench_k.py:59"
 K6_SOURCE = "compound_ray_tpu_torch/csrc/microbench_k.cu"
+# phase 14: the planning refine, which replaces no Pallas kernel (XLA fused
+# the eager chain); it runs at the natural-1000 pose sweep's shapes: a
+# counted path of REFINE_VIEWS sweep views through render_frame, then the
+# checks and times at the configuration's pose and REFINE_POSES seeded
+# poses of the sweep's region
+REFINE_REPLACES = ("no Pallas counterpart (XLA-fused chain at "
+                   "compound_ray_tpu/eye/pipeline.py:486)")
+REFINE_SOURCE = "compound_ray_tpu_torch/csrc/refine_mask.cu"
+REFINE_POSES = 8
+REFINE_VIEWS = 16
+REFINE_SAMPLES = 100
+REFINE_REPS = 20
+# operations the refine needs, counted from the kernel's arithmetic (an
+# acos, asin, square root, reciprocal square root or division counts one):
+# the apex-to-centre distance of every member (9), the rest of one sphere
+# test per (group, slot) pair (16), and one triangle test (303) per pair
+# whose sphere test some member passes
+REFINE_DIST_OPS = 9
+REFINE_SPHERE_OPS = 16
+REFINE_TRIANGLE_OPS = 303
+# bytes per slot of the refine's tables: centre (3), radius, triangle (9)
+REFINE_SLOT_BYTES = 13 * 4
 # K6 vs twin: max error over the sum of |terms| of each output element; both
 # round the operands alike ("default": to bf16) and sum in f32
 K6_REL = 1e-5
@@ -267,7 +305,7 @@ XLA_SAMPLES = (100, 3200)
 XLA_ATOL = 1e-5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
-           ("microbench_k", K6_SOURCE))
+           ("microbench_k", K6_SOURCE), ("refine_mask", REFINE_SOURCE))
 # bounds: NVIDIA's H100 SXM data sheet (dense): f32 outside the tensor cores,
 # bf16 on them, and device memory
 PEAK_F32 = 67e12
@@ -328,6 +366,7 @@ def build_kernels():
     _build.rows_occlusion_lib()
     _build.probe_step_lib()
     _build.microbench_k_lib()
+    _build.refine_mask_lib()
     wall = time.perf_counter() - t0
     for name, src in SOURCES:
         secs, log = _build.build_info[name]
@@ -628,7 +667,8 @@ def _report(tag, res):
 
 def _counters() -> dict:
     """{kernel: (module, name of its launch count)} for K1 (k1a: its
-    8-feature affine form) to K6."""
+    8-feature affine form) to K6 and the planning refine."""
+    from compound_ray_tpu_torch.eye import pipeline
     from compound_ray_tpu_torch.tools import microbench_k, probe_step
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
 
@@ -638,7 +678,8 @@ def _counters() -> dict:
             "k3": (mm_tracer, "occlusion_launches"),
             "k4": (probe_step, "probe_launches"),
             "k5": (probe_step, "probe3d_launches"),
-            "k6": (microbench_k, "dot_bench_launches")}
+            "k6": (microbench_k, "dot_bench_launches"),
+            "refine": (pipeline, "refine_launches")}
 
 
 def _path(r, name, run, phase: int = 5):
@@ -775,8 +816,10 @@ def lit_k3_vs_twin(r, cam, samples: int):
 def lit_frames(r):
     """The lit path through EyeRenderer.render_frame: the first frame at
     the pose builds the shadow plan (K1 twice: the probe and the frame; K3
-    once), every later frame launches K1 and K3 once, K2 never; a frame
-    after a corrective replan probes again.  Returns the CUDA-event frame
+    once; the refine on its chunks), every later frame launches K1 and K3
+    once, K2 never and the refine only where a corrective replan left it
+    a shadow plan to build; a frame after a corrective replan probes
+    again.  Returns the CUDA-event frame
     times, the first frame's, the audit totals over the timed frames, the
     corrective replans and the peak MB."""
     from compound_ray_tpu_torch.eye import pipeline as P
@@ -788,11 +831,12 @@ def lit_frames(r):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = dict(frame_ms=[], wall_ms=[], audit_leaked=0, audit_hits=0,
-               replans=0)
+               replans=0, refines=[])
     for i in range(1 + WARMUP + TIMED):
-        probes = not splan.shadow_store and not splan.shadow_sound_all
+        builds = not splan.shadow_store
+        probes = builds and not splan.shadow_sound_all
         k1, k2 = mm_tracer.launches, cluster_tracer.launches
-        k3 = mm_tracer.occlusion_launches
+        k3, refines = mm_tracer.occlusion_launches, P.refine_launches
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -805,6 +849,12 @@ def lit_frames(r):
         if got != want:
             raise AssertionError(f"lit frame {i} launched K1, K2, K3 {got} "
                                  f"times, not {want}")
+        refines = P.refine_launches - refines
+        if (refines > 0) != builds:
+            raise AssertionError(
+                f"lit frame {i} launched the refine {refines} times, "
+                f"{'building' if builds else 'serving'} its shadow plan")
+        out["refines"].append(refines)
         if i > 0 and probes:
             out["replans"] += 1
         _check_means(r.get_camera_data(), f"lit frame {i}", lit=True)
@@ -2767,8 +2817,8 @@ def nccl_one_rank(r, cam, tmp: str):
 
         runs, n = _path(r, "sharded path A (one NCCL rank)", lambda: [
             _events_ms(sharded) for _ in range(1 + SHARD_TIMED)], phase=12)
-        if n != dict(k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0,
-                     k6=0):
+        if {k: v for k, v in n.items() if k != "refine"} != dict(
+                k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0, k6=0):
             raise AssertionError(f"phase 12 A's path launched {n}, not K1 "
                                  f"{1 + SHARD_TIMED} times and K2 once")
         got = runs[0][0]
@@ -3287,6 +3337,208 @@ def modes_phase(card: str, count) -> dict:
     return dict(k1a=k1a, k1a_dense=k1a_dense)
 
 
+def _sweep_renderer(scene, omms, samples: int):
+    """An EyeRenderer on the card holding the natural-1000 scene and eye at
+    `samples` per ommatidium."""
+    from compound_ray_tpu_torch import EyeRenderer
+    from compound_ray_tpu_torch.cameras.types import CompoundEyeCamera
+
+    r = EyeRenderer(verbose=False, device="cuda")
+    r.scene = scene
+    r.scene.cameras.append(CompoundEyeCamera("eye", "single_dimension_fast",
+                                             []))
+    r.goto_camera(len(r.scene.cameras) - 1)
+    r.set_ommatidia(omms)
+    r.set_current_eye_samples_per_ommatidium(samples)
+    return r
+
+
+def refine_sweep_path(r, poses) -> list:
+    """Phase 14's counted path: one render_frame at each pose, every pose
+    new to the renderer's memos, so each view plans its widths and its
+    pack.  Each view's refine launches must equal the chunks of those two
+    passes (_refine_chunks' ranges): 2 at one chunk a pass.  Returns
+    (launches, [chunks of each pass]) per view."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    chunking, passes, per_view = P._refine_chunks, [], []
+
+    def counted(*args, **kw):
+        out = chunking(*args, **kw)
+        passes.append(len(out))
+        return out
+
+    P._refine_chunks = counted
+    try:
+        for pose in poses:
+            passes.clear()
+            before = P.refine_launches
+            r.set_camera_pose(*pose)
+            r.render_frame()
+            per_view.append((P.refine_launches - before, list(passes)))
+            _check_means(r.get_camera_data(), f"sweep view at {pose}")
+    finally:
+        P._refine_chunks = chunking
+    for n, chunks in per_view:
+        if len(chunks) != 2 or n != sum(chunks):
+            raise AssertionError(f"a sweep view launched the refine {n} "
+                                 f"times over passes of {chunks} chunks")
+    return per_view
+
+
+def _refine_work(P, splan, chunks, g: int) -> dict:
+    """Operations and bytes the refine's chunks need (REFINE_*_OPS; each
+    slot-table entry of a referenced cluster, the shortlists, counts and
+    member rows read once; rows and keys written once)."""
+    ops = nbytes = 0
+    for args in chunks:
+        omms_p, pos, ls, ids, cl = args[:5]
+        kcand = ids.shape[1]
+        live = ((torch.arange(kcand, device=ids.device)[None, :]
+                 < cl[:, None])[:, :, None]
+                & (splan.slot_radius_cl[ids] >= 0.0))
+        pairs = int(live.sum())
+        sphere = int(P._refine_mask(*args[:9], None)[0].sum())
+        ops += (pairs * (g * REFINE_DIST_OPS + REFINE_SPHERE_OPS)
+                + sphere * REFINE_TRIANGLE_OPS)
+        nbytes += (int(torch.unique(ids).numel()) * P.KERNEL_LEAF
+                   * REFINE_SLOT_BYTES + _nbytes(ids, cl)
+                   + omms_p.shape[0] * 11 * 4
+                   + ids.shape[0] * (4 + kcand * P.KERNEL_LEAF * 4))
+    return dict(flop=float(ops), bytes=nbytes)
+
+
+def refine_phase(card: str) -> dict:
+    """Phase 14: the planning refine (csrc/refine_mask.cu) at the pose
+    sweep's shapes (100 samples, two ommatidia a group, the exact refine).
+    First the counted path, REFINE_VIEWS views of the sweep through
+    render_frame (refine_sweep_path).  Then, chunk by chunk as
+    _plan_widths and _packed_plan call it, at the configuration's pose and
+    REFINE_POSES seeded poses: the kernel against its twin (row counts
+    equal in both forms, keys bit for bit); its time per pose in each form
+    and the twin's (CUDA events over every chunk of the pose; the
+    wrapper's forms include its per-ommatidium rows), the kernel's
+    launches alone on precomputed rows, its bound, and each pose's plan
+    (widths, then the pack, fresh memos) through the kernel and through
+    the twin.  Returns the bare kernel's key-form result for the kernel
+    table, with the path's refine launches."""
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.config import get_config
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    t0 = time.perf_counter()
+    scene, omms, render_config, samples, poses = testing.natural_sweep(
+        REFINE_POSES, 14)
+    if samples != REFINE_SAMPLES:
+        raise AssertionError(f"the sweep renders {samples} samples")
+    _set_config(**render_config)
+    r = _sweep_renderer(scene, omms, samples)
+    views = testing.natural_sweep(REFINE_VIEWS, 15)[4][1:]
+    per_view, path_n = _path(r, "pose sweep", lambda: refine_sweep_path(
+        r, views), phase=14)
+    if not (path_n["refine"] == sum(v[0] for v in per_view)
+            and path_n["k1"] == len(views) and path_n["k3"] == 0):
+        raise AssertionError(f"the sweep path launched {path_n}")
+    one = [v[0] for v in per_view if v[1] == [1, 1]]
+    print(f"phase 14: pose sweep, {len(views)} views through render_frame "
+          f"({card}): refine launches by view "
+          f"{[v[0] for v in per_view]}, chunks by pass "
+          f"{[v[1] for v in per_view]}; {len(one)} views at one chunk a "
+          f"pass, {sum(one)} launches")
+    splan = P.scene_plan(scene, "cuda")
+    eplan = P.eye_plan(omms, REFINE_SAMPLES)
+    g, sig = eplan.g, get_config().cull_sigmas
+    omms_p = eplan.device_arrays(omms, "cuda")[0]
+    tri = splan.slot_tri_cl
+    per_pose, work = [], dict(flop=0.0, bytes=0)
+    for pose in poses:
+        pos_np, ls_np = testing.pose_arrays(pose)
+        pos = torch.as_tensor(pos_np, device="cuda")
+        ls = torch.as_tensor(ls_np, device="cuda")
+        gmask, counts, dmin = P._cull_groups(
+            omms_p, pos, ls, splan.half_center, splan.half_radius, sig, g)
+        kcand = min(splan.num_clusters,
+                    max(8, P._ceil_to(max(int(counts.max()), 1), 8)))
+        ids = P._shortlist_sorted(gmask, dmin, kcand)[0][:, :kcand]
+        cl = torch.clamp(counts, max=kcand)
+        chunks = [(omms_p[a * g:b * g], pos, ls, ids[a:b], cl[a:b],
+                   splan.slot_center_cl, splan.slot_radius_cl, g, sig, tri)
+                  for a, b in P._refine_chunks(ids.shape[0], g, kcand)]
+        for args in chunks:
+            rows_c, _ = P.run_refine(*args, keys=False)
+            rows_k, key = P.run_refine(*args)
+            torch.cuda.synchronize()
+            want_rows, want_key = P.refine_reference(*args)
+            if not (torch.equal(rows_c, want_rows)
+                    and torch.equal(rows_k, want_rows)
+                    and torch.equal(key, want_key)):
+                bad = int((key != want_key).sum())
+                raise AssertionError(
+                    f"refine kernel vs twin at {pos_np.tolist()}: rows "
+                    f"{int((rows_k != want_rows).sum())} differ, keys {bad}")
+        w = _refine_work(P, splan, chunks, g)
+        work["flop"] += w["flop"]
+        work["bytes"] += w["bytes"]
+        res = dict(kcand=kcand, chunks=len(chunks), groups=ids.shape[0])
+        for tag, fn in (
+                ("counts_ms", lambda: [P.run_refine(*a, keys=False)
+                                       for a in chunks]),
+                ("key_ms", lambda: [P.run_refine(*a) for a in chunks])):
+            res[tag] = time_ms(fn, reps=REFINE_REPS)
+        # the kernel alone: its launches on precomputed member rows
+        bare = []
+        for a in chunks:
+            rows = torch.empty(a[3].shape[0], dtype=torch.int32,
+                               device="cuda")
+            bare.append((P._refine_cones(a[0], pos, ls, sig, True, None),
+                         a[3], a[4], a[5], a[6], tri, g, False, rows,
+                         torch.empty(a[3].shape[0], a[3].shape[1]
+                                     * P.KERNEL_LEAF, device="cuda")))
+        res["kernel_ms"] = time_ms(
+            lambda: [P._launch_refine(*b) for b in bare], reps=REFINE_REPS)
+        res["plain_ms"] = time_ms(
+            lambda: [P.refine_reference(*a) for a in chunks], reps=3)
+        res.update({k: v for k, v in _bound(w["flop"], w["bytes"]).items()
+                    if k in ("bound_ms", "bound_by")})
+
+        def plan(tag):  # widths, then the pack, with fresh memos
+            splan.kmax_cache.clear()
+            splan.packed_store.clear()
+            eplan.kmax_hint, eplan.rmax_hint = 8, 1
+            kc, rm = P._plan_widths(splan, eplan, omms_p, pos, ls,
+                                    (eplan.sig, tag, pos_np.tobytes()))
+            return P._packed_plan(splan, eplan, omms_p, pos, ls,
+                                  (pos_np.tobytes(), tag), REFINE_SAMPLES,
+                                  kc, rm)
+
+        kernel = P.run_refine
+        res["plan_ms"] = _events_ms(lambda: plan("kernel"))[1]
+        P.run_refine = P.refine_reference
+        try:
+            res["plan_plain_ms"] = _events_ms(lambda: plan("twin"))[1]
+        finally:
+            P.run_refine = kernel
+        per_pose.append(res)
+    n = len(per_pose)
+    out = dict(
+        poses=n, g=g, max_abs_err=0.0,  # keys bit-equal, or the phase raised
+        ms=float(np.mean([p["kernel_ms"] for p in per_pose])),
+        key_ms=float(np.mean([p["key_ms"] for p in per_pose])),
+        counts_ms=float(np.mean([p["counts_ms"] for p in per_pose])),
+        plain_ms=float(np.mean([p["plain_ms"] for p in per_pose])),
+        **_bound(work["flop"] / n, work["bytes"] // n),
+        plan_ms=float(np.mean([p["plan_ms"] for p in per_pose])),
+        plan_plain_ms=float(np.mean([p["plan_plain_ms"] for p in per_pose])),
+        launches=path_n["refine"], views=len(views))
+    print(f"phase 14: refine kernel vs twin at the pose sweep's shapes "
+          f"({N_OMM} ommatidia x {REFINE_SAMPLES} samples, g {g}, exact; "
+          f"{card}), per pose: {json.dumps(per_pose)}")
+    print(f"phase 14: refine, mean of {n} poses: {json.dumps(out)} "
+          f"(rows equal in both forms and keys bit for bit at every chunk; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -3334,7 +3586,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s)")
 
     splan = P.scene_plan(r.scene, r.device)
-    launches = dict(k1=0, k1a=0, k2=0, k3=0, k4=0, k5=0, k6=0)
+    launches = dict.fromkeys(_counters(), 0)
 
     def count(res_n):
         res, n = res_n
@@ -3409,7 +3661,8 @@ def main() -> int:
           f"shadow plan) {res_lit['first_frame_ms']:.3f} ms; frame ms (CUDA "
           f"events) {res_lit['frame_ms']}, mean "
           f"{np.mean(res_lit['frame_ms']):.3f}; render_frame wall ms "
-          f"{[round(w, 3) for w in res_lit['wall_ms']]}; peak memory "
+          f"{[round(w, 3) for w in res_lit['wall_ms']]}; refine launches "
+          f"by frame {res_lit['refines']}; peak memory "
           f"{res_lit['peak_mb']:.1f} MB; audit over the timed frames "
           f"{res_lit['audit_leaked']} of {res_lit['audit_hits']} hits out "
           f"of shaft; corrective replans {res_lit['replans']} (unsound "
@@ -3481,6 +3734,9 @@ def main() -> int:
     blend_phase(card, count)
     sharded_phase(card, count, launches)
     modes = modes_phase(card, count)
+    refine = refine_phase(card)
+    # the refine's launches are its sweep path's, not the whole run's
+    launches["refine"] = refine["launches"]
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -3504,6 +3760,8 @@ def main() -> int:
               k45["k5"]),
         entry("K6 skinny-K dot bench (K %d, N %d, %s)" % K6_ENTRY, K6_SOURCE,
               K6_REPLACES, "k6", k6),
+        entry("Planning refine (key form, per pose of the sweep)",
+              REFINE_SOURCE, REFINE_REPLACES, "refine", refine),
     ]
     # a time under its bound means the compiler dropped work the kernel must
     # keep, or the bound counts work the kernel does not need; K1 and K3
@@ -3515,7 +3773,7 @@ def main() -> int:
                               ("K1 affine", modes["k1a"]), ("K2", k2),
                               ("K2 image", k2i), ("K3", k3),
                               ("K4", k45["k4"]), ("K5", k45["k5"]),
-                              ("K6", k6))
+                              ("K6", k6), ("refine", refine))
              for bound in [res.get("staged_bound_ms", res["bound_ms"])]
              if res["ms"] < bound]
     if under:

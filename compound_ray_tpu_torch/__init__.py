@@ -9,7 +9,8 @@ torch device, through EyeRenderer or its libEyeRenderer3-shaped ctypes shim
 and built with nvcc at first use: K1 closest hit (csrc/packed_tracer.cu),
 K2 the cluster-shortlist closest hit of the far-field cache and the camera
 image (csrc/cluster_tracer.cu) and K3 the shadow rays' any-hit occlusion
-(csrc/rows_occlusion.cu).  The brute-force oracle (trace/intersect.py,
+(csrc/rows_occlusion.cu); a fourth, the per-triangle cone refine, plans
+each pose's payload (csrc/refine_mask.cu).  The brute-force oracle (trace/intersect.py,
 eye/render.py, cameras/raygen.py) is plain torch on every device.  On CPU
 tensors the same contracts run as plain torch.  The kernel-measurement
 tools (compound_ray_tpu_torch.tools) add the probes of K1's row step

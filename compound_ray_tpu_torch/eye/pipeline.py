@@ -7,9 +7,10 @@ Per frame:
      -> _render_cache on K2, trace/cluster_tracer.py), the kernel widths at
      this pose (_plan_widths) and the pose's packed payload (_packed_plan ->
      _pack_fused: cone cull -> near clusters -> cluster shortlist ->
-     per-triangle refine -> payload pack); with the sky split on, the
-     compacted live groups and the sky groups' cache expectation
-     (_sky_build);
+     per-triangle refine (run_refine: csrc/refine_mask.cu on CUDA
+     tensors, its twin _refine_mask on the CPU) -> payload pack); with the
+     sky split on, the compacted live groups and the sky groups' cache
+     expectation (_sky_build);
   2. draw (N, S) cone-jitter angles from the caller's torch.Generator;
      a lit frame then takes its memoised shadow plan (_shadow_plan: a K1
      probe of the first frame's hit points at the pose, per-light occluder
@@ -43,12 +44,14 @@ each shard with _trace_shade_angles.
 Under a profiler the layers record spans (spans.py): cr.plan around
 _plan_frame with cr.plan.farfield and cr.plan.angles inside it, a
 cr.plan.build.* span (widths, pack, cache, sky, shadow) only where a memo
-misses and builds, and cr.core around _trace_shade_angles with
-cr.core.rays, cr.core.shade and cr.core.lit inside it.
+misses and builds, cr.refine around each refine kernel launch, and cr.core
+around _trace_shade_angles with cr.core.rays, cr.core.shade and
+cr.core.lit inside it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import math
 from dataclasses import dataclass, field
@@ -103,10 +106,14 @@ from compound_ray_tpu_torch.trace.shade import (
     texture_quad_coords_c,
 )
 
-# (groups x candidate slots) elements per refine chunk: the refine keeps
-# ~60 temporaries of this size alive, so 2**23 f32 elements (32 MB) bounds
-# its peak near 2 GB whatever the shortlist width
+# (groups x candidate slots) elements per refine chunk: the torch twin
+# (_refine_mask, the CPU path) keeps ~60 temporaries of this size alive, so
+# 2**23 f32 elements (32 MB) bounds its peak near 2 GB whatever the
+# shortlist width; the kernel (run_refine on CUDA) writes at most the
+# chunk's key, which the pack's sort then copies
 _REFINE_CHUNK_ELEMS = 1 << 23
+# refine kernel launches by run_refine (the kernel only, never the twin)
+refine_launches = 0
 
 # Inflation of the per-group hit-bound spheres the shadow plan is built
 # from (compound_ray_tpu/eye/pipeline.py:86-101): the probe samples one
@@ -424,6 +431,34 @@ def _refine_tri_cl(splan, cfg):
     return splan.slot_tri_cl if cfg.refine_mode == "exact" else None
 
 
+def _refine_cones(omms_p, position, local_space, cull_sigmas: float,
+                  exact: bool, dmax):
+    """(Np, 11) per-ommatidium rows of the refine, read by _refine_mask
+    and csrc/refine_mask.cu alike: apex, axis, the cone's half-angle
+    `half`, the exact refine's cos(hs), sin(min(hs, pi/2)) and hs >= pi/2
+    with hs = half + 1e-3 rad of slack (zeros under "sphere"), and dmax
+    (zeros without it)."""
+    apex, axis = eye_world_geometry(omms_p, position, local_space)
+    half = torch.clamp(omms_p[:, 6] / FWHM_SD_RATIO * cull_sigmas,
+                       max=math.pi)
+    zero = torch.zeros_like(half)
+    cap = [zero] * 3
+    if exact:
+        # rad; absorbs f32 sign noise at arc/vertex boundaries
+        hs = torch.clamp(half + 1e-3, max=math.pi)
+        cap = [torch.cos(hs), torch.sin(torch.clamp(hs, max=math.pi / 2.0)),
+               (hs >= math.pi / 2.0).to(torch.float32)]
+    return torch.cat([apex, axis, torch.stack(
+        [half, *cap, zero if dmax is None else dmax], dim=1)], dim=1)
+
+
+def _refine_slots(ids):
+    """(NG, kcand*128) global slot ids of a shortlist, candidate-major."""
+    return (ids[:, :, None] * KERNEL_LEAF
+            + torch.arange(KERNEL_LEAF, device=ids.device)).reshape(
+                ids.shape[0], -1)
+
+
 def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
                  radius_cl, g: int, cull_sigmas: float, tri_cl, dmax=None):
     """Level-2 cull of the shortlisted clusters' triangles against the cones
@@ -434,11 +469,12 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     `half` of the axis, or the axis pierces the triangle; 1e-3 rad slack).
     Works on any run of whole groups: omms_p holds their g * len(ids)
     ommatidia.  dmax (Np,), the shadow refine's apex-distance bound, also
-    drops triangles whose sphere starts beyond it (:636-639).  Returns
-    (mask, dist, slots), each (NG, kcand*128)."""
-    apex, axis = eye_world_geometry(omms_p, position, local_space)
-    half = torch.clamp(omms_p[:, 6] / FWHM_SD_RATIO * cull_sigmas,
-                       max=math.pi)
+    drops triangles whose sphere starts beyond it (:636-639).  The
+    per-ommatidium terms are _refine_cones' columns, as the kernel reads
+    them.  Returns (mask, dist, slots), each (NG, kcand*128)."""
+    cones = _refine_cones(omms_p, position, local_space, cull_sigmas,
+                          tri_cl is not None, dmax)
+    apex, axis, half = cones[:, 0:3], cones[:, 3:6], cones[:, 6]
     kcand = ids.shape[1]
     np_ = omms_p.shape[0]
     ng = np_ // g
@@ -469,11 +505,10 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     beta = torch.arcsin(torch.clamp(rb * inv_d, 0.0, 1.0))
     m = inside | (alpha <= half[:, None] + beta)
     if tri_cl is not None:
-        slack = 1e-3  # rad; absorbs f32 sign noise at arc/vertex boundaries
-        hs = torch.clamp(half + slack, max=math.pi)[:, None]  # (Np, 1)
-        cosh = torch.cos(hs)
-        sinh = torch.sin(torch.clamp(hs, max=math.pi / 2.0))
-        wide = hs >= math.pi / 2.0
+        # the cap widened by the slack: cos(hs), sin(min(hs, pi/2)) and
+        # hs >= pi/2, each (Np, 1)
+        cosh, sinh = po(cones[:, 7]), po(cones[:, 8])
+        wide = po(cones[:, 9]) != 0.0
 
         def gat(comp):  # slot component -> (NG, kc) candidate-major rows
             return tri_cl[:, :, comp][ids].reshape(ng, kc)
@@ -545,7 +580,7 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     if dmax is not None:
         # occluders past the shaft's far side cannot block a light -> hit
         # segment
-        m = m & (dist - rb <= dmax[:, None])
+        m = m & (dist - rb <= po(cones[:, 10]))
     if g > 1:
         m = m.reshape(ng, g, kc).any(dim=1)
         dist = dist.reshape(ng, g, kc).amin(dim=1)
@@ -555,9 +590,101 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
     # r < 0 marks padding slots: their zero centroid could otherwise pass
     # the angular test whenever the cone looks at the origin
     mask = m & cand_valid & (r >= 0.0)
-    slots = (ids[:, :, None] * KERNEL_LEAF
-             + torch.arange(KERNEL_LEAF, device=ids.device)).reshape(ng, kc)
-    return mask, dist, slots
+    return mask, dist, _refine_slots(ids)
+
+
+def refine_reference(omms_p, position, local_space, ids, cl_counts,
+                     center_cl, radius_cl, g: int, cull_sigmas: float,
+                     tri_cl, dmax=None, keys: bool = True):
+    """run_refine's plain torch twin: _refine_mask, then the refined rows
+    per group and, with keys, the pack's sort key."""
+    mask, dist, _ = _refine_mask(omms_p, position, local_space, ids,
+                                 cl_counts, center_cl, radius_cl, g,
+                                 cull_sigmas, tri_cl, dmax=dmax)
+    key = torch.where(mask, dist, torch.inf) if keys else None
+    return _rows(mask.sum(dim=-1)), key
+
+
+def run_refine(omms_p, position, local_space, ids, cl_counts, center_cl,
+               radius_cl, g: int, cull_sigmas: float, tri_cl, dmax=None,
+               keys: bool = True):
+    """The per-triangle refine of a run of whole groups, _refine_mask's
+    arguments: (rows (NG,) int32, key (NG, kcand*128) f32 or None).  rows
+    is _rows of the refined slots per group; key (keys=True, the pack's
+    form) is where(mask, dist, inf) of _refine_mask's mask and distance,
+    None with keys=False (the widths' form).  CUDA tensors launch
+    csrc/refine_mask.cu once on the current stream (or raise), and equal
+    the twin bit for bit on the same card; CPU tensors take
+    refine_reference."""
+    dev = ids.device
+    if dev.type == "cpu":
+        return refine_reference(omms_p, position, local_space, ids,
+                                cl_counts, center_cl, radius_cl, g,
+                                cull_sigmas, tri_cl, dmax=dmax, keys=keys)
+    if dev.type != "cuda":
+        raise ValueError(f"run_refine takes CPU or CUDA tensors, not "
+                         f"{dev.type}")
+    ng, kcand = ids.shape
+    c = center_cl.shape[0]
+    want = [("ids", ids, torch.int32, (ng, kcand)),
+            ("cl_counts", cl_counts, torch.int32, (ng,)),
+            ("omms_p", omms_p[:, 0], torch.float32, (ng * g,)),
+            ("center_cl", center_cl, torch.float32, (c, KERNEL_LEAF, 3)),
+            ("radius_cl", radius_cl, torch.float32, (c, KERNEL_LEAF))]
+    if tri_cl is not None:
+        want.append(("tri_cl", tri_cl, torch.float32, (c, KERNEL_LEAF, 9)))
+    if dmax is not None:
+        want.append(("dmax", dmax, torch.float32, (ng * g,)))
+    for name, x, dtype, shape in want:
+        if x.dtype != dtype or x.device != dev:
+            raise TypeError(f"{name} must be {dtype} on {dev}, not "
+                            f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+        if name in ("cl_counts", "center_cl", "radius_cl", "tri_cl") and (
+                not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous")
+    if ids.stride(1) != 1:
+        raise ValueError("ids rows must be contiguous")
+    if not 1 <= g <= 32:
+        raise ValueError(f"g={g}: the refine kernel takes 1 to 32 "
+                         f"ommatidia per group")
+    rows = torch.empty(ng, dtype=torch.int32, device=dev)
+    key = (torch.empty((ng, kcand * KERNEL_LEAF), dtype=torch.float32,
+                       device=dev) if keys else None)
+    cones = _refine_cones(omms_p, position, local_space, cull_sigmas,
+                          tri_cl is not None, dmax)
+    _launch_refine(cones, ids, cl_counts, center_cl, radius_cl, tri_cl, g,
+                   dmax is not None, rows, key)
+    return rows, key
+
+
+def _launch_refine(cones, ids, cl_counts, center_cl, radius_cl, tri_cl,
+                   g: int, has_dmax: bool, rows, key) -> None:
+    """One launch of csrc/refine_mask.cu on run_refine's checked inputs and
+    _refine_cones' rows, writing rows and (unless None) key."""
+    global refine_launches
+    from compound_ray_tpu_torch.trace import _build
+
+    lib = _build.refine_mask_lib()
+    dev = ids.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("cr.refine"):
+            err = lib.cr_refine_mask(
+                ctypes.c_void_p(cones.data_ptr()),
+                ctypes.c_void_p(ids.data_ptr()), ids.stride(0),
+                ctypes.c_void_p(cl_counts.data_ptr()),
+                ctypes.c_void_p(center_cl.data_ptr()),
+                ctypes.c_void_p(radius_cl.data_ptr()),
+                ctypes.c_void_p(0 if tri_cl is None else tri_cl.data_ptr()),
+                ids.shape[0], g, ids.shape[1], int(tri_cl is not None),
+                int(has_dmax), ctypes.c_void_p(rows.data_ptr()),
+                ctypes.c_void_p(0 if key is None else key.data_ptr()),
+                ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"refine launch failed: CUDA error {err}")
+    refine_launches += 1
 
 
 def _refine_chunks(ng: int, g: int, kcand: int, max_groups: int = None):
@@ -588,11 +715,11 @@ def _refine_counts(omms_p, position, local_space, half_center, half_radius,
     cl_counts = torch.clamp(counts, max=kcand)
     parts = []
     for g0, g1 in _refine_chunks(ids.shape[0], g, kcand):
-        mask, _, _ = _refine_mask(
+        rows, _ = run_refine(
             omms_p[g0 * g:g1 * g], position, local_space, ids[g0:g1],
             cl_counts[g0:g1], center_cl, radius_cl, g, cull_sigmas,
-            tri_cl=tri_cl)
-        parts.append(_rows(mask.sum(dim=-1)))
+            tri_cl=tri_cl, keys=False)
+        parts.append(rows)
     return torch.cat(parts)
 
 
@@ -612,17 +739,17 @@ def _refine_pack(omms_p, position, local_space, ids, cl_counts, center_cl,
     packed_mm = torch.empty((ng, rmax, MM_FEATS, MM_COLS),
                             dtype=torch.float32, device=ids.device)
     for g0, g1 in _refine_chunks(ng, g, kcand):
-        mask, dist, slots = _refine_mask(
+        rows, key = run_refine(
             omms_p[g0 * g:g1 * g], position, local_space, ids[g0:g1],
             cl_counts[g0:g1], center_cl, radius_cl, g, cull_sigmas,
             tri_cl=tri_cl,
             dmax=None if dmax is None else dmax[g0 * g:g1 * g])
         # the tracer loops row_counts[g] rows of an rmax block: never more
-        row_counts[g0:g1] = torch.clamp(_rows(mask.sum(dim=-1)), max=rmax)
-        key = torch.where(mask, dist, torch.inf)
+        row_counts[g0:g1] = torch.clamp(rows, max=rmax)
         sk, order = torch.sort(key, dim=-1, stable=True)
         sk = sk[:, :rmax * KERNEL_LEAF]
-        ss = slots.gather(-1, order[:, :rmax * KERNEL_LEAF])
+        ss = _refine_slots(ids[g0:g1]).gather(
+            -1, order[:, :rmax * KERNEL_LEAF])
         packed_slot = torch.where(torch.isfinite(sk), ss, pad_slot)
         gathered = mm_flat[packed_slot]  # (G, rmax*128, 64)
         packed_mm[g0:g1] = (
@@ -1675,11 +1802,11 @@ def _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas: float,
         row_max = []
         for g0, g1 in _refine_chunks(ps.shape[0], 1, kcand_probe,
                                      max_groups=probe_chunk):
-            mask, _, _ = _refine_mask(
+            rows, _ = run_refine(
                 ps[g0:g1], zero3, eye3, ids[g0:g1], cl[g0:g1],
                 splan.slot_center_cl, splan.slot_radius_cl, 1, cull_sigmas,
-                tri_cl=tri_cl, dmax=dm[g0:g1])
-            row_max.append(_rows(mask.sum(dim=-1)).max())
+                tri_cl=tri_cl, dmax=dm[g0:g1], keys=False)
+            row_max.append(rows.max())
         kc_list.append(counts.max())
         row_list.append(torch.stack(row_max).max())
     return torch.stack(kc_list), torch.stack(row_list), cg, rg_sph

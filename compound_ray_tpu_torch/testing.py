@@ -136,6 +136,74 @@ def make_big_scene(n_boxes: int = 500, seed: int = 0,
     )
 
 
+def natural_sweep(n_poses: int, seed: int, root: str = None):
+    """The natural-1000 configuration under the pose-sweep traffic, read
+    as data from benchmark/configs/natural-1000.json and
+    benchmark/traffic/posesweep-s100.json under `root` (by default the
+    repository that holds this package) and built by make_big_scene and
+    make_sphere_eye, whose frozen copies the benchmark renders: (scene,
+    (N, 8) float32 ommatidia, the RenderConfig fields, samples per
+    ommatidium, poses).  poses holds (x, y, z, rx, ry, rz) tuples in
+    set_camera_pose's terms: the configuration's pose, then n_poses drawn
+    from `seed`, positions uniform in the sweep's region and a yaw
+    uniform in its range, each redrawn while the eye's sphere meets a
+    box (the ground slab included)."""
+    import json
+    import os
+
+    from compound_ray_tpu_torch.scene.eye_io import ommatidia_to_array
+
+    if root is None:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "natural-1000.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(root, "benchmark", "traffic",
+                           "posesweep-s100.json")) as f:
+        traffic = json.load(f)
+    sc, ey = cfg["scene"], cfg["eye"]
+    if (sc["generator"], ey["generator"]) != ("boxes_field", "sphere_eye"):
+        raise ValueError(f"natural-1000 names {sc['generator']} and "
+                         f"{ey['generator']}, not boxes_field and sphere_eye")
+    scene = make_big_scene(**sc["params"])
+    e = ey["params"]
+    omms = ommatidia_to_array(make_sphere_eye(
+        e["n"], e["acceptance_deg"], e["radius"], e["focal_offset"]))
+    boxes = _big_scene_boxes(sc["params"]["n_boxes"], sc["params"]["seed"])
+    lo_s = np.array([c - s / 2.0 for c, s, _ in boxes])
+    hi_s = np.array([c + s / 2.0 for c, s, _ in boxes])
+    radius = float(np.max(np.linalg.norm(omms[:, 0:3], axis=1)
+                          + np.abs(omms[:, 7])))
+    spec = traffic["poses"]
+    lo = np.array([r[0] for r in spec["region"]], np.float64)
+    hi = np.array([r[1] for r in spec["region"]], np.float64)
+    rng = np.random.default_rng(seed)
+    poses = [tuple(float(v) for v in cfg["pose"]["position"]
+                   + cfg["pose"]["rotation"])]
+    drawn = []
+    while len(drawn) < n_poses:
+        pos = rng.uniform(lo, hi, size=(n_poses, 3))
+        yaw = rng.uniform(*spec["yaw"], size=n_poses)
+        gap = np.maximum(np.maximum(lo_s[None] - pos[:, None],
+                                    pos[:, None] - hi_s[None]), 0.0)
+        clear = ~(np.sum(gap * gap, axis=-1) <= radius * radius).any(axis=1)
+        drawn += [(float(p[0]), float(p[1]), float(p[2]), 0.0, float(a), 0.0)
+                  for p, a in zip(pos[clear], yaw[clear])]
+    return (scene, omms, cfg["render_config"], traffic["samples"],
+            poses + drawn[:n_poses])
+
+
+def pose_arrays(pose) -> Tuple[np.ndarray, np.ndarray]:
+    """(position (3,), local space (3, 3)), float32, of an (x, y, z, rx,
+    ry, rz) pose as set_camera_pose sets it."""
+    from compound_ray_tpu_torch.cameras.types import Camera
+
+    cam = Camera("pose")
+    cam.set_pose(*pose)
+    return (np.asarray(cam.position, np.float32),
+            np.asarray(cam.local_space, np.float32))
+
+
 def make_textured_quad_scene(tex_size: int = 8,
                              background: str = "black") -> FlatScene:
     """A textured floor quad (z-up plane at y=0, 20x20) with a checker

@@ -131,6 +131,13 @@ def rows_occlusion_lib() -> ctypes.CDLL:
                   _P])
 
 
+def refine_mask_lib() -> ctypes.CDLL:
+    """The planning refine's library (csrc/refine_mask.cu)."""
+    return _load("refine_mask", "cr_refine_mask",
+                 [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                  _P])
+
+
 def probe_step_lib() -> ctypes.CDLL:
     """The K4 and K5 library (csrc/probe_step.cu)."""
     return _load("probe_step", "cr_probe_step",

@@ -15,7 +15,13 @@ CPU: channels within 1 but at near-ties (the two closest hits within 1e-6
 relative in t), oracle radiance within 2e-4.  The probes (K4, K5):
 copy_only and dma_only bit-equal, the dot modes equal on >= 99.9 % of live rays within rtol 1e-5.
 The dot bench (K6): within 1e-5 of the sum of |terms| in both precisions.
+The planning refine (csrc/refine_mask.cu) writes every product, sum and
+division as its twin (_refine_mask) rounds it: its row counts and pack
+keys equal the twin's on the card bit for bit, and so do the plans built
+through it, at the pose sweep cell's scene and poses.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -877,3 +883,118 @@ def test_blend_scene_frame_card_vs_cpu(cuda_device, tmp_path):
     np.testing.assert_array_equal(scenes[0].v0, scenes[1].v0)
     assert np.isfinite(means[0]).all()
     np.testing.assert_allclose(means[0], means[1], atol=ATOL)
+
+
+REFINE_POSES = 16
+
+
+@functools.lru_cache(maxsize=1)
+def _natural_sweep():
+    """The natural-1000 cell's scene, its eye, its render settings, and
+    (position, local space) at the configuration's pose and at
+    REFINE_POSES seeded poses of the pose sweep's region
+    (testing.natural_sweep)."""
+    scene, omms, render_config, _, poses = testing.natural_sweep(
+        REFINE_POSES, 17)
+    return scene, omms, render_config, [testing.pose_arrays(p)
+                                        for p in poses]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dmax", [False, True], ids=["plain", "dmax"])
+@pytest.mark.parametrize("samples", [100, 128], ids=["g2", "g1"])
+@pytest.mark.parametrize("refine_mode", ["exact", "sphere"])
+def test_refine_kernel_equals_twin_on_the_sweep(cuda_device, refine_mode,
+                                                samples, with_dmax):
+    """run_refine's kernel against refine_reference on the card, chunk by
+    chunk as the widths and the pack call them, at the natural-1000 cell's
+    pose and 16 sweep poses: row counts equal in both forms and keys bit
+    for bit, one launch per chunk and form.  dmax is a seeded
+    apex-distance bound per ommatidium."""
+    scene, omms, _, poses = _natural_sweep()
+    splan = P.scene_plan(scene, cuda_device)
+    eplan = P.eye_plan(omms, samples)
+    g = eplan.g
+    assert g == (2 if samples == 100 else 1)
+    omms_p = eplan.device_arrays(omms, cuda_device)[0]
+    tri = splan.slot_tri_cl if refine_mode == "exact" else None
+    rng = np.random.default_rng(samples)
+    refined = chunks = 0
+    before = P.refine_launches
+    for pos_np, ls_np in poses:
+        pos = torch.as_tensor(pos_np, device=cuda_device)
+        ls = torch.as_tensor(ls_np, device=cuda_device)
+        gmask, counts, dmin = P._cull_groups(
+            omms_p, pos, ls, splan.half_center, splan.half_radius, 4.0, g)
+        kcand = min(splan.num_clusters,
+                    P._ceil_to(max(int(counts.max()), 1), 8))
+        ids = P._shortlist_sorted(gmask, dmin, kcand)[0][:, :kcand]
+        cl = torch.clamp(counts, max=kcand)
+        dmax = (torch.tensor(rng.uniform(1.0, 30.0, omms_p.shape[0]),
+                             dtype=torch.float32, device=cuda_device)
+                if with_dmax else None)
+        for g0, g1 in P._refine_chunks(ids.shape[0], g, kcand):
+            args = (omms_p[g0 * g:g1 * g], pos, ls, ids[g0:g1], cl[g0:g1],
+                    splan.slot_center_cl, splan.slot_radius_cl, g, 4.0, tri)
+            dm = None if dmax is None else dmax[g0 * g:g1 * g]
+            rows_c, none = P.run_refine(*args, dmax=dm, keys=False)
+            rows_k, key = P.run_refine(*args, dmax=dm)
+            torch.cuda.synchronize()
+            want_rows, want_key = P.refine_reference(*args, dmax=dm)
+            assert none is None
+            assert torch.equal(rows_c, want_rows)
+            assert torch.equal(rows_k, want_rows)
+            assert torch.equal(key, want_key)
+            refined += int(torch.isfinite(key).sum())
+            chunks += 1
+    assert P.refine_launches == before + 2 * chunks
+    assert refined > 0
+
+
+@pytest.mark.cuda
+def test_plans_through_the_refine_kernel_equal_the_twin_path(cuda_device,
+                                                            monkeypatch):
+    """_plan_frame at the natural-1000 cell's 100 samples and render
+    settings, at the configuration's pose and 16 sweep poses, with fresh
+    width and pack memos and the same width hints on both sides: the plan
+    through the kernel (widths, then the pack) and the plan through the
+    twin (run_refine replaced by refine_reference) give equal widths and
+    torch.equal (row_counts, packed_mm); the twin path launches no
+    kernel."""
+    from compound_ray_tpu_torch import config
+    from compound_ray_tpu_torch.trace.shade import miss_id
+
+    scene, omms, render_config, poses = _natural_sweep()
+    monkeypatch.setattr(config, "_global_config",
+                        config.RenderConfig(**render_config))
+    splan = P.scene_plan(scene, cuda_device)
+    eplan = P.eye_plan(omms, 100)
+    scene_dev = scene.device_triangles(cuda_device)
+    background = miss_id(scene.background_shader)
+
+    def plan(pos, ls, hints):
+        splan.kmax_cache.clear()
+        splan.packed_store.clear()
+        eplan.kmax_hint, eplan.rmax_hint = hints
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        kw, _ = P._plan_frame(scene, scene_dev, omms, pos, ls, gen, 100,
+                              background)
+        torch.cuda.synchronize()
+        return kw["row_counts"], kw["packed_mm"], kw["rmax"]
+
+    twin_run = P.refine_reference
+    for pos, ls in poses:
+        hints = (eplan.kmax_hint, eplan.rmax_hint)
+        before = P.refine_launches
+        rc_k, pm_k, rmax_k = plan(pos, ls, hints)
+        assert P.refine_launches > before
+        after = (eplan.kmax_hint, eplan.rmax_hint)
+        with monkeypatch.context() as m:
+            m.setattr(P, "run_refine", twin_run)
+            before = P.refine_launches
+            rc_t, pm_t, rmax_t = plan(pos, ls, hints)
+            assert P.refine_launches == before
+        assert (eplan.kmax_hint, eplan.rmax_hint) == after
+        assert rmax_k == rmax_t
+        assert torch.equal(rc_k, rc_t)
+        assert torch.equal(pm_k, pm_t)
