@@ -407,9 +407,10 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool,
     pos_np, ls_np, sig = _pose(cam)
     pos, ls = torch.as_tensor(pos_np, device=dev), torch.as_tensor(ls_np,
                                                                    device=dev)
-    near, _, d = P._farfield_plan(
+    near, _, sphere = P._farfield_plan(
         splan, eplan, r.scene.device_triangles(dev), omms, pos_np, ls_np,
         samples, miss_id(r.scene.background_shader), get_config())
+    d = 0.0 if sphere is None else sphere[1]
     kcand, rmax = P._plan_widths(
         splan, eplan, omms_p, pos, ls,
         (eplan.sig, samples, sig, near is not None, d), near)
@@ -513,14 +514,18 @@ def _k2_pair_tests(c, ref) -> int:
 
 
 def k2_vs_twin(r, cam):
-    """Phase 4: K2 and cluster_tracer_reference on the bench cache's own
-    inputs (2048 tiles of 256 rays, KP 256) with the early exit on, as
-    _render_cache traces them, and with it off: every row of a live tile
-    must equal the twin's bit for bit (the kernel rounds each product and
-    sum as the twin does).  Counts the (ray, lane) pair tests three ways:
-    from below (the bound's), as the 128-ray batches walk their shortlists
-    (the twin counts the clusters each batch walks), and with no early
-    exit.  Also the whole cache build timed."""
+    """Phase 4: K2 and cluster_tracer_reference on the bench frame's own
+    cache inputs (testing.cache_trace_inputs as _farfield_plan builds them:
+    every cluster that reaches past D, from t = D, CACHE_SUPERSAMPLE rays
+    a side per pixel: 8192 tiles of 256 rays at width 1024 and 2 x 2, KP
+    256) with the early exit on,
+    as _render_cache traces them, and with it off: every row of a live
+    tile must equal the twin's bit for bit (the kernel rounds each product
+    and sum as the twin does).  Counts the (ray, lane) pair tests three
+    ways: from below (the bound's), as the 128-ray batches walk their
+    shortlists (the twin counts the clusters each batch walks), and with
+    no early exit.  Also the frame's whole cache build timed on the same
+    arguments."""
     from compound_ray_tpu_torch import testing
     from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye import pipeline as P
@@ -554,7 +559,7 @@ def k2_vs_twin(r, cam):
     pair = BATCH_RAYS * KERNEL_LEAF  # pair tests per walked cluster
     res = dict(shape=dict(tiles=c.kw["ng"], kp=int(c.ids.shape[1]),
                           kmax=c.kw["kmax"], rays=int(c.rays.shape[0])),
-               far_clusters=int(c.far.sum()),
+               clusters=int(c.far.sum()),
                live_tiles=int((c.counts > 0).sum().item()),
                mean_shortlist=float(c.counts.float().mean().item()),
                hit_share=float(torch.isfinite(ref[live, 0]).float().mean()
@@ -587,18 +592,17 @@ def k2_vs_twin(r, cam):
         res["ms_no_early_exit"] * 1e6
         / max(res["pair_tests_no_early_exit"], 1))
     splan = P.scene_plan(r.scene, r.device)
-    center = torch.tensor(np.asarray(
-        pos_np + cam.ommatidia[:, 0:3].mean(axis=0), np.float32),
-        device=r.device)
+    _, center_np, d = P._farfield_split(splan, cam.ommatidia, pos_np,
+                                        np.eye(3),
+                                        get_config().farfield_tolerance)
     res["cache_build_ms"] = time_ms(lambda: P.build_equirect_quads(
         P._render_cache(
             splan.payload, splan.attr_table,
             r.scene.device_triangles(r.device), splan.quad_table,
-            splan.half_center, splan.half_radius, center,
-            torch.as_tensor(c.far, device=r.device), width=width,
+            splan.half_center, splan.half_radius, width=width,
             background=miss_id(r.scene.background_shader),
-            kmax=c.kw["kmax"], textured=splan.textured,
-            tex_only=splan.tex_only)), reps=5, warmup=1)
+            textured=splan.textured, tex_only=splan.tex_only,
+            **P._frame_cache_args(splan, center_np, d))), reps=5, warmup=1)
     if rows_differ or rows_differ_full:
         raise AssertionError(f"K2 differs from its twin: {res}")
     return res
@@ -3615,8 +3619,8 @@ def main() -> int:
         raise AssertionError(f"farfield=auto path launched K1 {a}, K2 {b}")
     _report(f"farfield=auto, {SAMPLES[-1]} samples", res_ff)
     use_cache = len(splan.cache_store) == 1
-    print(f"phase 5: farfield=auto: use_cache {use_cache}, far clusters "
-          f"{k2['far_clusters']} of {splan.num_clusters}")
+    print(f"phase 5: farfield=auto: use_cache {use_cache}, clusters in "
+          f"the cache {k2['clusters']} of {splan.num_clusters}")
     if not use_cache:
         raise AssertionError("the frames did not memoise one cache")
     cached = r.get_camera_data().copy()
@@ -3625,8 +3629,8 @@ def main() -> int:
     _set_config()
     diff_direct = float(np.abs(cached - direct).mean())
     print(f"phase 6: cache frame vs the direct frame (same seed): mean abs "
-          f"{diff_direct:.3e} (< {CACHE_MEAN_ABS}); far clusters "
-          f"{k2['far_clusters']} of {splan.num_clusters}")
+          f"{diff_direct:.3e} (< {CACHE_MEAN_ABS}); clusters in the cache "
+          f"{k2['clusters']} of {splan.num_clusters}")
     if not diff_direct < CACHE_MEAN_ABS:
         raise AssertionError(f"cache vs direct: mean abs {diff_direct}")
     err_ff = frame_vs_twins(r, cam, cache=True)

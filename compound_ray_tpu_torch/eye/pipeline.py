@@ -46,7 +46,8 @@ _plan_frame with cr.plan.farfield and cr.plan.angles inside it, a
 cr.plan.build.* span (widths, pack, cache, sky, shadow) only where a memo
 misses and builds, cr.refine around each refine kernel launch, and cr.core
 around _trace_shade_angles with cr.core.rays, cr.core.shade and
-cr.core.lit inside it.
+cr.core.lit inside it, and cr.core.farfield (the far-field sphere's hit
+test and the cache lookups) inside cr.core.shade.
 """
 
 from __future__ import annotations
@@ -1024,6 +1025,28 @@ def _neg_origins(omms_p, position, local_space, dx, dy, dz):
             -(oz[:, None] + tmin * dz))
 
 
+def _inside_far_sphere(t, omms_p, position, local_space, dx, dy, dz,
+                       far_sphere):
+    """(Np, S) bool: the hit points o' + t d of K1's t (Np, S) lie within
+    the far-field sphere far_sphere = (centre (3,), D).  Each ray starts
+    inside it (D exceeds the eye's extent), so the first hit lies inside
+    iff some triangle is hit before the ray leaves the sphere; a first hit
+    beyond it belongs to the cache, which shows the first surface past D
+    from the centre.  Misses (t = inf) come out False."""
+    if far_sphere is None:
+        raise ValueError("a frame with the far-field cache needs its "
+                         "far_sphere (centre, D)")
+    centre, d_far = far_sphere
+    (ox, oy, oz), tmin_w, _, _ = _omm_world_origins(omms_p, position,
+                                                    local_space)
+    tt = t + tmin_w[:, None]
+    px = torch.addcmul((ox - centre[0])[:, None], tt, dx)
+    py = torch.addcmul((oy - centre[1])[:, None], tt, dy)
+    pz = torch.addcmul((oz - centre[2])[:, None], tt, dz)
+    r2 = torch.addcmul(torch.addcmul(px * px, py, py), pz, pz)
+    return r2 <= d_far * d_far
+
+
 def _lit_epilogue(out, hit, rr, gg, bb, dx, dy, dz, neg_o, scene_dev,
                   shading_rows, slot_tri, lights, shadow, samples: int,
                   ng: int, g: int, nrb: int, rb_size: int,
@@ -1158,7 +1181,8 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         nrb: int, rb_size: int, rmax: int, textured: bool,
                         tex_only: bool, tracer=None, cache=None,
                         cache_shape: Tuple[int, int] = (0, 0),
-                        sky_means=None, sky_scatter=None, lights=None,
+                        far_sphere=None, sky_means=None, sky_scatter=None,
+                        lights=None,
                         slot_tri=None, shading_rows=None, shadow=None,
                         shadow_audit: bool = False, shadow_tracer=None,
                         want_samples: bool = False, frames: int = 1,
@@ -1182,12 +1206,16 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
 
     cache is the far-field cache of _farfield_plan: (H, W, 16) equirect
     quads, or for a textured scene the combined (P + H*W, 16) table of
-    texture quads followed by cache quads, with cache_shape (H, W).  Rays
-    that miss the near clusters then read the cache in place of the miss
-    shader; in the combined table, textured hits and cache lookups share
-    one row gather (:1253-1281).  sky_means (Ng0, 3) and sky_scatter (Np,)
-    are the sky split's base means and the group each row's mean replaces
-    (rows pointing past Ng0 are dropped; :1537-1542)."""
+    texture quads followed by cache quads, with cache_shape (H, W), and
+    far_sphere its (centre (3,), D): the sphere of radius D about the eye
+    centre.  A hit of the near clusters counts only inside that sphere
+    (_inside_far_sphere): everything beyond D, near clusters' parts
+    included, is the cache's.  Rays with no hit inside read the cache in
+    place of the miss shader; in the combined table, textured hits and
+    cache lookups share one row gather (:1253-1281).  sky_means (Ng0, 3)
+    and sky_scatter (Np,) are the sky split's base means and the group
+    each row's mean replaces (rows pointing past Ng0 are dropped;
+    :1537-1542)."""
     n_pad = omms_p.shape[0]
     rg = g * samples
     rg_pad = nrb * rb_size
@@ -1209,6 +1237,11 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
         # groups with empty payloads are misses whatever their rows hold
         group_live = torch.repeat_interleave(row_counts > 0, g)[:, None]
         hit = (t < 1e30) & group_live
+        if cache is not None:
+            with span("cr.core.farfield"):
+                hit = hit & _inside_far_sphere(
+                    t, omms_p, position, local_space, dx, dy, dz,
+                    far_sphere)
         if tex_only:
             rr = gg = bb = torch.zeros_like(t)
         else:
@@ -1221,15 +1254,16 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
         if textured and cache is not None:
             # one gather from the combined table: texture quads for textured
             # hits, cache quads for misses
-            ch, cw = cache_shape
-            c_idx, cfx, cfy = _equirect_coords_c(
-                ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
-            sel_tex = (hit & (texid >= 0)).reshape(-1)
-            idx = torch.where(sel_tex, tex_idx,
-                              cache.shape[0] - ch * cw + c_idx)
-            qr, qg, qb = quad_bilinear_c(
-                cache[idx], torch.where(sel_tex, tfx, cfx),
-                torch.where(sel_tex, tfy, cfy))
+            with span("cr.core.farfield"):
+                ch, cw = cache_shape
+                c_idx, cfx, cfy = _equirect_coords_c(
+                    ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
+                sel_tex = (hit & (texid >= 0)).reshape(-1)
+                idx = torch.where(sel_tex, tex_idx,
+                                  cache.shape[0] - ch * cw + c_idx)
+                qr, qg, qb = quad_bilinear_c(
+                    cache[idx], torch.where(sel_tex, tfx, cfx),
+                    torch.where(sel_tex, tfy, cfy))
             # hits on untextured triangles keep their interpolated colour
             keep = hit & (texid < 0)
             rr = torch.where(keep, rr, qr.reshape(n_pad, samples))
@@ -1253,11 +1287,12 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         shadow_tracer)
             if cache is not None:
                 # the cache already holds the miss shader where nothing is hit
-                c_idx, cfx, cfy = _equirect_coords_c(
-                    cache.shape[0], cache.shape[1], dx.reshape(-1),
-                    dy.reshape(-1), dz.reshape(-1))
-                mr, mg, mb = quad_bilinear_c(cache.reshape(-1, 16)[c_idx],
-                                             cfx, cfy)
+                with span("cr.core.farfield"):
+                    c_idx, cfx, cfy = _equirect_coords_c(
+                        cache.shape[0], cache.shape[1], dx.reshape(-1),
+                        dy.reshape(-1), dz.reshape(-1))
+                    mr, mg, mb = quad_bilinear_c(
+                        cache.reshape(-1, 16)[c_idx], cfx, cfy)
             else:
                 mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1),
                                           dz.reshape(-1), background)
@@ -1347,12 +1382,13 @@ _CACHE_BLOCK = 16  # a tile is a 16x16 pixel block: a small, tight cone
 
 
 def _cache_trace_inputs(half_center, half_radius, center, far_mask,
-                        width: int, kmax: int):
+                        width: int, kmax: int, tmin: float = 0.0):
     """The cache's K2 inputs (compound_ray_tpu/eye/pipeline.py:3093-3151):
     the pixel directions in 16x16 blocks, one 256-ray group per block, and
-    per block the far clusters whose half-spheres meet the block's bounding
-    cone from `center`, nearest first.  Returns (blocked (n, 3), counts
-    (NG,), ids (NG, KP), dmin (NG, KP), rays (n, 16))."""
+    per block the clusters of far_mask whose half-spheres meet the block's
+    bounding cone from `center`, nearest first; every ray starts at
+    `center` and counts hits from t = tmin on.  Returns (blocked (n, 3),
+    counts (NG,), ids (NG, KP), dmin (NG, KP), rays (n, 16))."""
     height = width // 2
     bs, tile = _CACHE_BLOCK, _CACHE_TILE
     if width % bs or height % bs or (width * height) % tile:
@@ -1391,7 +1427,7 @@ def _cache_trace_inputs(half_center, half_radius, center, far_mask,
     ids, dmin = _shortlist_sorted(gmask, dmin_all[None, :].expand_as(gmask),
                                   kmax)
     rays = pack_rays(blocked, center[None, :].expand(n, 3),
-                     torch.zeros(n, device=blocked.device))
+                     torch.full((n,), tmin, device=blocked.device))
     return blocked, counts, ids, dmin, rays
 
 
@@ -1426,27 +1462,33 @@ def shade_cluster_hits(out, live, dirs, attr_table, scene_dev, quad_table,
 def _render_cache(payload, attr_table, scene_dev, quad_table, half_center,
                   half_radius, center, far_mask, width: int, background: int,
                   kmax: int, textured: bool, tex_only: bool = False,
-                  tracer=None) -> torch.Tensor:
-    """(H, W, 3) linear-RGB equirect radiance cache of the far clusters
-    from `center` (compound_ray_tpu/eye/pipeline.py:3085).  Each 16x16
-    pixel block is one 256-ray group of K2 over its shortlist of at most
-    kmax far clusters (_cache_trace_inputs), traced with the early exit on;
-    the winners are resolved and shaded like the frame's hits.  `tracer`
+                  tracer=None, tmin: float = 0.0,
+                  supersample: int = 1) -> torch.Tensor:
+    """(H, W, 3) linear-RGB equirect radiance cache of the clusters of
+    far_mask from `center` (compound_ray_tpu/eye/pipeline.py:3085): the
+    first surface at t >= tmin along each ray, each pixel the mean of
+    supersample x supersample rays over its area (the JAX package traces
+    one ray, at the pixel's centre).  Each 16x16 block of rays is one
+    256-ray group of K2 over its shortlist of at most kmax of those
+    clusters (_cache_trace_inputs), traced with the early exit on; the
+    winners are resolved and shaded like the frame's hits.  `tracer`
     defaults to run_tracer_kernel (K2); the chip check passes
     cluster_tracer_reference to render through the twin."""
-    height = width // 2
+    ss = supersample
+    height, wide = width // 2, width * ss
     bs, tile = _CACHE_BLOCK, _CACHE_TILE
     blocked, counts, ids, dmin, rays = _cache_trace_inputs(
-        half_center, half_radius, center, far_mask, width, kmax)
+        half_center, half_radius, center, far_mask, wide, kmax, tmin)
     trace = run_tracer_kernel if tracer is None else tracer
     out = trace(counts, ids, dmin, payload, rays, ng=counts.shape[0], nrb=1,
                 rb_size=tile, kmax=kmax, early_exit=True)
     rgb = shade_cluster_hits(out, torch.repeat_interleave(counts > 0, tile),
                              blocked, attr_table, scene_dev, quad_table,
                              background, textured, tex_only)
-    # un-block back to row-major (H, W)
-    return (rgb.reshape(height // bs, width // bs, bs, bs, 3)
-            .permute(0, 2, 1, 3, 4).reshape(height, width, 3))
+    # un-block back to row-major, then each pixel the mean of its ss x ss
+    return (rgb.reshape(height * ss // bs, wide // bs, bs, bs, 3)
+            .permute(0, 2, 1, 3, 4).reshape(height, ss, width, ss, 3)
+            .mean(dim=(1, 3)))
 
 
 def _farfield_threshold(ommatidia_np: np.ndarray, tol: float) -> float:
@@ -1460,6 +1502,14 @@ def _farfield_threshold(ommatidia_np: np.ndarray, tol: float) -> float:
     return extent / max(tol * sigma_min, 1e-9)
 
 
+# rays per cache pixel along each axis, averaged: a pixel holds the mean
+# radiance over its area, not the surface at its centre, which would move
+# every edge by up to half a pixel (0.18 degrees at width 1024, 0.16 sd of
+# a 2.6-degree cone) on top of the parallax that D allows.  The cache is
+# built once a pose: at width 1024 on an H100, 1 x 1 takes 4.4 ms, 2 x 2
+# 10.3 ms and 4 x 4 35 ms, and a 2.6-degree eye at 3200 samples reads a
+# worst ommatidium 0.093, 0.057 and 0.023 off the exact frame
+CACHE_SUPERSAMPLE = 2
 # the cache store is cleared past this many viewpoints (pose sweeps)
 _CACHE_STORE_MAX = 64
 
@@ -1478,22 +1528,55 @@ def _farfield_split(splan, ommatidia_np, pos_np, ls_np, tol: float):
     return (cdist - splan.sphere_radius_np) > d_thresh, center_np, d_thresh
 
 
+def _farfield_reach(splan, center_np, d_thresh: float) -> np.ndarray:
+    """(C,) bool: the clusters whose spheres reach beyond D from the eye
+    centre, the far ones and the near ones that straddle D (a ground
+    slab): the geometry the cache shows."""
+    cdist = np.linalg.norm(splan.sphere_center_np - center_np[None, :],
+                           axis=1)
+    return (cdist + splan.sphere_radius_np) > d_thresh
+
+
+def _frame_cache_args(splan, center_np, d_thresh: float) -> Dict[str, Any]:
+    """_render_cache's keywords for a frame's cache seen from center_np
+    (_farfield_plan): the centre on the device, every cluster that reaches
+    past D (_farfield_reach), hits from t = D on, CACHE_SUPERSAMPLE rays a
+    side per pixel, and the shortlist's kmax."""
+    dev = splan.device
+    return dict(
+        center=torch.as_tensor(np.asarray(center_np, np.float32),
+                               device=dev),
+        far_mask=torch.as_tensor(_farfield_reach(splan, center_np, d_thresh),
+                                 device=dev),
+        kmax=min(splan.num_clusters, 256), tmin=d_thresh,
+        supersample=CACHE_SUPERSAMPLE)
+
+
 @spanned("cr.plan.farfield")
 def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
                    samples: int, background: int, cfg, tracer=None,
                    lights=None):
     """The far-field split of a frame and its pose-memoised cache
     (compound_ray_tpu/eye/pipeline.py:2437).  Returns (near_mask (C,) bool
-    or None, cache or None, d_thresh): None and 0.0 unless the cache is on,
-    which needs an unlit frame (lights None: the cached radiance is unlit,
-    :2453), farfield="auto", more than 8 clusters, at least as many rays as
-    cache pixels and at least one far cluster.  The cache is
-    (H, W, 16) equirect quads, or for a textured scene the combined table
-    of the texture quads followed by the cache quads.  It depends on the
-    eye centre, the width, the miss shader and D, not on the samples or the
-    RNG, so frames at one pose build it once; `tracer` (K2 by default)
-    renders a cache not in splan.cache_store."""
-    off = (None, None, 0.0)
+    or None, cache or None, far_sphere or None): all None unless the cache
+    is on, which needs an unlit frame (lights None: the cached radiance is
+    unlit, :2453), farfield="auto", more than 8 clusters, at least as many
+    rays as cache pixels and at least one far cluster.
+
+    The split is a sphere of radius D about the eye centre, far_sphere =
+    (centre (3,) on the device, D).  The frame traces the clusters that
+    meet it (near_mask) and counts a hit only inside it; the cache shows
+    the first surface beyond it, K2 tracing from the centre, from t = D on,
+    every cluster that reaches past it (_farfield_reach), so the part of a
+    near cluster beyond D (a ground slab's) is the cache's too, and cannot
+    hide far clusters in front of it (the JAX package's per-cluster split
+    lets it).  The cache is (H, W, 16) equirect quads, or for a textured
+    scene the combined table of the texture quads followed by the cache
+    quads.  It depends on the eye centre, the width, the miss shader and
+    D, not on the samples or the RNG, so frames at one pose build it once,
+    with the near mask and the centre on the device; `tracer` (K2 by
+    default) renders a cache not in splan.cache_store."""
+    off = (None, None, None)
     if (lights is not None or cfg.farfield != "auto"
             or splan.num_clusters <= 8):
         return off
@@ -1504,26 +1587,26 @@ def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
         splan, ommatidia_np, pos_np, ls_np, cfg.farfield_tolerance)
     if not far.any():
         return off
-    dev = splan.device
-    center32 = np.asarray(center_np, np.float32)
-    key = (center32.tobytes(), width, background, d_thresh)
-    cache = splan.cache_store.get(key)
-    if cache is None:
+    key = (np.asarray(center_np, np.float32).tobytes(), width, background,
+           d_thresh)
+    hit = splan.cache_store.get(key)
+    if hit is None:
+        args = _frame_cache_args(splan, center_np, d_thresh)
         with span("cr.plan.build.cache"):
             cache = build_equirect_quads(_render_cache(
                 splan.payload, splan.attr_table, scene_dev, splan.quad_table,
-                splan.half_center, splan.half_radius,
-                torch.as_tensor(center32, device=dev),
-                torch.as_tensor(far, device=dev), width=width,
-                background=background, kmax=min(splan.num_clusters, 256),
-                textured=splan.textured, tex_only=splan.tex_only,
-                tracer=tracer))
+                splan.half_center, splan.half_radius, width=width,
+                background=background, textured=splan.textured,
+                tex_only=splan.tex_only, tracer=tracer, **args))
             if splan.textured:
                 cache = torch.cat([splan.quad_table, cache.reshape(-1, 16)])
         if len(splan.cache_store) > _CACHE_STORE_MAX:
             splan.cache_store.clear()
-        splan.cache_store[key] = cache
-    return torch.as_tensor(~far, device=dev), cache, d_thresh
+        hit = (torch.as_tensor(~far, device=splan.device), cache,
+               args["center"])
+        splan.cache_store[key] = hit
+    near_t, cache, center_t = hit
+    return near_t, cache, (center_t, d_thresh)
 
 
 # ----------------------------------------------------------------- sky split
@@ -2069,12 +2152,13 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
     cfg = get_config()
     lit = lights is not None
     affine = bool(cfg.affine_rays) and eplan.g == 1
-    near_mask, cache, d_thresh = None, None, 0.0
+    near_mask = cache = far_sphere = None
     if allow_cache:
-        near_mask, cache, d_thresh = _farfield_plan(
+        near_mask, cache, far_sphere = _farfield_plan(
             splan, eplan, scene_dev, omms_np, pos_np, ls_np, samples,
             background, cfg, tracer=cache_tracer, lights=lights)
     use_cache = near_mask is not None
+    d_thresh = far_sphere[1] if use_cache else 0.0
     cache_shape = (cfg.farfield_cache_width // 2, cfg.farfield_cache_width)
     sky = sky_key = None
     if cfg.sky_split and use_cache and not lit and eplan.g == 1:
@@ -2121,7 +2205,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
         background=background, ng=ng, g=eplan.g, nrb=eplan.nrb,
         rb_size=eplan.rb_size, rmax=rmax, textured=splan.textured,
         tex_only=splan.tex_only, tracer=tracer, cache=cache,
-        cache_shape=cache_shape, sky_means=sky_means,
+        cache_shape=cache_shape, far_sphere=far_sphere, sky_means=sky_means,
         sky_scatter=sky_scatter, affine=affine)
     if lit:
         lights_np = np.ascontiguousarray(np.asarray(lights, np.float32))

@@ -470,16 +470,17 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
     pos_np = np.asarray(pos, np.float32)
     tpos = torch.tensor(pos_np, device=device)
     tls = torch.eye(3, device=device)
-    near, cache, d_thresh = None, None, 0.0
+    near = cache = sphere = None
     if cache_width:
         cfg = dataclasses.replace(get_config(), farfield="auto",
                                   farfield_cache_width=cache_width)
-        near, cache, d_thresh = P._farfield_plan(
+        near, cache, sphere = P._farfield_plan(
             splan, eplan, scene.device_triangles(device), omms, pos_np,
             np.eye(3, dtype=np.float32), samples,
             miss_id(scene.background_shader), cfg)
         if near is None:
             raise ValueError("the far-field cache does not engage here")
+    d_thresh = 0.0 if sphere is None else sphere[1]
     kcand, rmax = P._plan_widths(
         splan, eplan, omms_p, tpos, tls,
         (eplan.sig, samples, pos_np.tobytes(), near is not None, d_thresh),
@@ -510,6 +511,7 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
                            rmax=rmax, splay=splay, spin=spin,
                            samples=samples, cache=cache,
                            cache_shape=(cache_width // 2, cache_width),
+                           far_sphere=sphere,
                            ng=ng, sky_means=sky_means, sky_scatter=scatter,
                            affine=affine)
 
@@ -524,7 +526,8 @@ def frame_means(scene: FlatScene, f: SimpleNamespace) -> np.ndarray:
         background=miss_id(scene.background_shader), ng=f.ng, g=ep.g,
         nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax,
         textured=f.splan.textured, tex_only=f.splan.tex_only, cache=f.cache,
-        cache_shape=f.cache_shape, sky_means=f.sky_means,
+        cache_shape=f.cache_shape, far_sphere=f.far_sphere,
+        sky_means=f.sky_means,
         sky_scatter=f.sky_scatter, affine=f.affine)
     return means[f.inv].cpu().numpy()
 
@@ -545,27 +548,38 @@ def hit_agreement(ref, got, row_counts, rg: int):
 
 
 def cache_trace_inputs(scene: FlatScene, omms: np.ndarray, pos, device,
-                       width: int, all_far: bool = False) -> SimpleNamespace:
-    """K2's inputs of the far-field cache of `omms` at `pos` (local space =
-    identity) on `device`, as _render_cache traces them: counts, ids, dmin,
-    payload, rays and the shape keywords.  all_far puts every cluster in
-    the cache instead of the far ones only."""
+                       width: int, split: str = "frame") -> SimpleNamespace:
+    """K2's inputs of a far-field cache of `omms` at `pos` (local space =
+    identity) on `device`, traced from the eye centre by
+    _cache_trace_inputs: counts, ids, dmin, payload, rays, the clusters
+    traced (`far`, numpy) and the shape keywords.  split "frame" is the
+    cache a frame renders (_frame_cache_args: every cluster that reaches
+    past D, from t = D, width x CACHE_SUPERSAMPLE rays wide); "far" the
+    split's far clusters and "all" every cluster, from t = 0 at `width`
+    rays (the JAX package's cache, and K2 on every cluster)."""
     device = torch.device(device)
     splan = P.scene_plan(scene, device)
-    far, center, _ = P._farfield_split(
+    far, center, d = P._farfield_split(
         splan, omms, np.asarray(pos, np.float32), np.eye(3),
         get_config().farfield_tolerance)
-    if all_far:
-        far = np.ones_like(far)
-    kmax = min(splan.num_clusters, 256)
+    if split == "frame":
+        a = P._frame_cache_args(splan, center, d)
+        mask, kmax = a["far_mask"], a["kmax"]
+        wide, tmin, center = width * a["supersample"], a["tmin"], a["center"]
+    elif split in ("far", "all"):
+        mask = torch.tensor(far if split == "far" else np.ones_like(far),
+                            device=device)
+        kmax, wide, tmin = min(splan.num_clusters, 256), width, 0.0
+        center = torch.tensor(np.asarray(center, np.float32), device=device)
+    else:
+        raise ValueError(f"split {split!r}: frame, far or all")
     _, counts, ids, dmin, rays = P._cache_trace_inputs(
-        splan.half_center, splan.half_radius,
-        torch.tensor(np.asarray(center, np.float32), device=device),
-        torch.tensor(far, device=device), width, kmax)
+        splan.half_center, splan.half_radius, center, mask, wide, kmax, tmin)
     return SimpleNamespace(
         counts=counts, ids=ids, dmin=dmin, payload=splan.payload, rays=rays,
-        far=far, kw=dict(ng=counts.shape[0], nrb=1, rb_size=P._CACHE_TILE,
-                         kmax=kmax))
+        far=mask.cpu().numpy(),
+        kw=dict(ng=counts.shape[0], nrb=1, rb_size=P._CACHE_TILE,
+                kmax=kmax))
 
 
 def camera_trace_inputs(scene: FlatScene, kind: str, pos, local_space,

@@ -18,6 +18,7 @@ EyeRenderer.render_frames_pipelined).
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -146,11 +147,14 @@ def test_stacked_frame_core_matches_jax(jax_unlit):
 def test_stacked_frame_core_with_the_sky_split_matches_jax(pinned):
     """tests/test_torch_farfield.py's sky-split setup (32 clusters, 64
     ommatidia, 128 samples, a 64-wide cache) with 3 stacked frames: the
-    live groups' means scattered over the frame-invariant sky means."""
+    live groups' means scattered over the frame-invariant sky means.  As
+    there, both packages read the port's cache and keep every near hit
+    (the port's far-field sphere at an infinite radius)."""
     jcfg.set_config(_configs(sky_split=True)[0])
     tcfg.set_config(_configs(sky_split=True)[1])
     p = _pair()
-    (jnear, jcache, _), (tnear, tcache, _) = _farfield_both(p)
+    (jnear, _, _), (tnear, tcache, (centre, _)) = _farfield_both(p)
+    jcache = jnp.asarray(tcache.numpy())
     kcand, rmax, jpack, tpack = _packs(p, jnear, tnear)
     jsky = JP._sky_build(p.jsp, p.je, p.jo, p.jls, p.samples, kcand, rmax,
                          jcache, jpack[0], jpack[1])
@@ -162,7 +166,7 @@ def test_stacked_frame_core_with_the_sky_split_matches_jax(pinned):
     want, got = _frames(p, (jrc, jpm), (trc, tpm), jcache, tcache, rmax,
                         tngl, (jo, to), splay, spin,
                         sky=(jmeans, jscatter, tmeans, tscatter),
-                        frames=FRAMES)
+                        frames=FRAMES, far_sphere=(centre, math.inf))
     assert got.shape == (64, FRAMES, 3) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=ATOL)
     # the sky groups hold their expectation in every frame

@@ -297,7 +297,7 @@ def test_k2_matches_twin(cuda_device, size, early_exit):
         pos = (float(c[0]), float(c[1]) + 1.0, float(c[2]))
     omms = ommatidia_to_array(testing.make_sphere_eye(64, 4.0))
     c = testing.cache_trace_inputs(scene, omms, pos, cuda_device, width,
-                                   all_far=True)
+                                   split="all")
     args = (c.counts, c.ids, c.dmin, c.payload, c.rays)
     before = CT.launches
     got = CT.run_tracer_kernel(*args, early_exit=early_exit, **c.kw)
@@ -322,7 +322,7 @@ def _k2_edge_case(device):
     scene = testing.make_big_scene(200, seed=11)
     omms = ommatidia_to_array(testing.make_sphere_eye(64, 4.0))
     c = testing.cache_trace_inputs(scene, omms, (0.0, 2.0, 0.0), "cpu", 64,
-                                   all_far=True)
+                                   split="all")
     counts, ids, dmin = c.counts.clone(), c.ids.clone(), c.dmin.clone()
     kp, rg = ids.shape[1], c.kw["rb_size"]
     assert kp == 128 and c.kw["ng"] == 8 and int(counts.min()) >= 4

@@ -3,7 +3,13 @@
 The setup of tests/test_sky_split.py:35-49: make_big_scene(200, seed=11)
 (32 clusters, 16 of them far), a 64-ommatidium 4-degree eye at (0, 2, 0),
 128 samples, and a 64-wide cache (64 x 128 rays >= 64 x 32 cache pixels, so
-the cache gate holds).  The textured case adds, from arrays and in both
+the cache gate holds).  The port's cache is not the JAX package's: it
+shows everything beyond the far-field sphere, near clusters' parts
+included, as a mean over each pixel's area, and the port's frame counts a
+near hit only inside the sphere (_farfield_plan).  So the split, the packs,
+the cache renderer at the JAX package's arguments and the functions that
+read a cache are held to the JAX package on the same inputs, and the
+port's cache frame to its dense frame.  The textured case adds, from arrays and in both
 packages alike, a near and a far textured quad to the same box field.  The
 JAX side runs with farfield="auto", affine rays off, f32 tables
 (big_table_bf16_bytes=0), the exact equirect addressing (fast=False), its
@@ -12,10 +18,12 @@ mode.  Both packages see the same numpy splay and spin angles.
 
 Tolerances: equirect lookups, the cache image and the sky expectation
 atol 1e-5 (transcendentals of two libraries); frame means atol 2e-4 (the
-tolerance of tests/test_torch_frame.py); plans and masks exactly.
+tolerance of tests/test_torch_frame.py); plans and masks exactly; the
+cache frame against the dense frame as set out at its test.
 """
 
 import dataclasses
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -148,14 +156,16 @@ def _pair(textured=False, samples=SAMPLES):
 
 
 def _farfield_both(p):
+    """Both packages' (near mask, cache, D); the port's far-field sphere
+    (centre, D) in place of its D."""
     juse, jnear, jcache, jd = JP._farfield_plan(
         p.jsp, p.je, p.jdev, p.omms, POS, LS, p.samples, BG, None,
         jcfg.get_config())
-    tnear, tcache, td = TP._farfield_plan(
+    tnear, tcache, tsphere = TP._farfield_plan(
         p.tsp, p.te, p.tdev, p.omms, POS, LS, p.samples, BG,
         tcfg.get_config())
     assert juse and tnear is not None, "the cache must engage at this pose"
-    return (jnear, jcache, jd), (tnear, tcache, td)
+    return (jnear, jcache, jd), (tnear, tcache, tsphere)
 
 
 def _packs(p, jnear, tnear):
@@ -183,10 +193,11 @@ def _angles(n, samples, seed=11):
 
 
 def _frames(p, jpack, tpack, jcache, tcache, rmax, ng, omms_f, splay, spin,
-            sky=(None, None, None, None), frames=1):
+            sky=(None, None, None, None), frames=1, far_sphere=None):
     """Means of both packages' _trace_shade_angles on the same angles;
     frames > 1 stacks that many frames of p.samples each on the sample axis
-    in one ray block per group, padded to 256 rays."""
+    in one ray block per group, padded to 256 rays.  far_sphere is the
+    port's (centre, D) of its cache frame."""
     jsky_means, jscatter, tsky_means, tscatter = sky
     jo, to = omms_f
     geo = dict(samples=p.samples, background=BG, ng=ng, g=p.je.g,
@@ -206,8 +217,8 @@ def _frames(p, jpack, tpack, jcache, tcache, rmax, ng, omms_f, splay, spin,
     got = TP._trace_shade_angles(
         tpack[1], tpack[0], p.tsp.attr_table, p.tdev, p.tsp.quad_table, to,
         p.tpos, p.tls, torch.tensor(splay), torch.tensor(spin), cache=tcache,
-        cache_shape=(WIDTH // 2, WIDTH), sky_means=tsky_means,
-        sky_scatter=tscatter, **geo).numpy()
+        cache_shape=(WIDTH // 2, WIDTH), far_sphere=far_sphere,
+        sky_means=tsky_means, sky_scatter=tscatter, **geo).numpy()
     return want, got
 
 
@@ -245,17 +256,19 @@ def test_threshold_and_near_mask_match_jax(pinned):
     p = _pair()
     assert TP._farfield_threshold(p.omms, 0.25) == JP._farfield_threshold(
         p.omms, 0.25) > 0.0
-    (jnear, _, jd), (tnear, _, td) = _farfield_both(p)
+    (jnear, _, jd), (tnear, _, (centre, td)) = _farfield_both(p)
     assert td == jd
+    np.testing.assert_allclose(centre.numpy(),
+                               POS + p.omms[:, 0:3].mean(axis=0), atol=1e-6)
     np.testing.assert_array_equal(tnear.numpy(), np.asarray(jnear))
     assert int((~tnear).sum()) == 16
     # fewer rays than cache pixels: the gate keeps the cache off
     few = TP.eye_plan(p.omms, 16)
     assert TP._farfield_plan(p.tsp, few, p.tdev, p.omms, POS, LS, 16, BG,
-                             tcfg.get_config()) == (None, None, 0.0)
+                             tcfg.get_config()) == (None, None, None)
     off = tcfg.RenderConfig(farfield="off", farfield_cache_width=WIDTH)
     assert TP._farfield_plan(p.tsp, p.te, p.tdev, p.omms, POS, LS,
-                             SAMPLES, BG, off) == (None, None, 0.0)
+                             SAMPLES, BG, off) == (None, None, None)
 
 
 @pytest.mark.parametrize("textured", [False, True],
@@ -291,29 +304,59 @@ def test_render_cache_matches_jax(pinned, textured, far):
 @pytest.mark.parametrize("textured", [False, True],
                          ids=["untextured", "textured"])
 def test_trace_shade_angles_with_cache_matches_jax(pinned, textured):
+    """The near-masked packs equal the JAX package's; the frame through
+    the port's cache, on them, against the port's dense frame on the same
+    angles.  The frame reads the port's cache at twice the JAX setup's
+    width (the most its 8192 rays engage), as the near mask and D do not
+    depend on it.  The gap is the cache's: its 2.8-degree pixels (0.7 of
+    this eye's 4-degree cones) blur the far boxes' and the ground's edges
+    beyond D, so a cone looking at an edge may be off by much of its
+    contrast (max 0.2; 0.10 seen), but not many (mean 0.012; 0.0040
+    seen); the JAX package's composition, where the ground's near cluster
+    hides far boxes, is not what is held here."""
     p = _pair(textured)
-    (jnear, jcache, _), (tnear, tcache, _) = _farfield_both(p)
-    assert tuple(tcache.shape) == tuple(jcache.shape)
-    np.testing.assert_allclose(tcache.numpy(), np.asarray(jcache),
-                               atol=LOOKUP_ATOL)
-    kcand, rmax, jpack, tpack = _packs(p, jnear, tnear)
-    splay, spin = _angles(p.te.n_pad, p.samples)
-    want, got = _frames(p, jpack, tpack, jcache, tcache, rmax, p.te.ng,
-                        (p.jo, p.to), splay, spin)
+    (jnear, _, _), (tnear, tcache, tsphere) = _farfield_both(p)
+    assert tuple(tcache.shape) == (
+        (p.tsp.quad_table.shape[0] + WIDTH * WIDTH // 2, 16) if textured
+        else (WIDTH // 2, WIDTH, 16))
+    fine = 2 * WIDTH  # 64 x 128 pixels: the most these 8192 rays engage
+    _, tcache, fsphere = TP._farfield_plan(
+        p.tsp, p.te, p.tdev, p.omms, POS, LS, p.samples, BG,
+        dataclasses.replace(tcfg.get_config(), farfield_cache_width=fine))
+    assert fsphere[1] == tsphere[1]
+    kcand, rmax, _, tpack = _packs(p, jnear, tnear)
+    dense = TP._pack_fused(
+        p.tsp.mm_flat, p.tsp.slot_center_cl, p.tsp.slot_radius_cl,
+        p.tsp.half_center, p.tsp.half_radius, p.to, p.tpos, p.tls,
+        g=p.te.g, kcand=p.tsp.num_clusters, rmax=p.tsp.num_clusters,
+        cull_sigmas=4.0, tri_cl=p.tsp.slot_tri_cl)
+    splay, spin = (torch.tensor(a) for a in _angles(p.te.n_pad, p.samples))
+    geo = dict(samples=p.samples, background=BG, ng=p.te.ng, g=p.te.g,
+               nrb=p.te.nrb, rb_size=p.te.rb_size,
+               textured=p.tsp.textured, tex_only=p.tsp.tex_only)
+    args = (p.tsp.attr_table, p.tdev, p.tsp.quad_table, p.to, p.tpos, p.tls,
+            splay, spin)
+    got = TP._trace_shade_angles(
+        tpack[1], tpack[0], *args, rmax=rmax, cache=tcache,
+        cache_shape=(fine // 2, fine), far_sphere=fsphere, **geo).numpy()
+    want = TP._trace_shade_angles(dense[1], dense[0], *args,
+                                  rmax=p.tsp.num_clusters, **geo).numpy()
     assert np.isfinite(got).all() and got.shape == (64, 3)
-    np.testing.assert_allclose(got, want, atol=MEANS_ATOL)
+    gap = np.abs(got - want)
+    assert gap.max() <= 0.2 and gap.mean() <= 0.012, (gap.max(), gap.mean())
 
 
 @pytest.mark.parametrize("textured", [False, True],
                          ids=["untextured", "textured"])
 def test_sky_expectation_matches_jax(pinned, textured):
+    """Both packages' expectation over the port's cache."""
     p = _pair(textured)
-    (_, jcache, _), (_, tcache, _) = _farfield_both(p)
+    _, (_, tcache, _) = _farfield_both(p)
     ch, cw = WIDTH // 2, WIDTH
     off = tcache.shape[0] - ch * cw if textured else 0
     want = np.asarray(JP._sky_expectation(
-        jcache, p.jo, p.jls, nq_splay=16, nq_spin=8, cache_shape=(ch, cw),
-        row_offset=off))
+        jnp.asarray(tcache.numpy()), p.jo, p.jls, nq_splay=16, nq_spin=8,
+        cache_shape=(ch, cw), row_offset=off))
     got = TP._sky_expectation(tcache, p.to, p.tls, 16, 8, (ch, cw),
                               off).numpy()
     assert got.shape == (64, 3)
@@ -321,10 +364,14 @@ def test_sky_expectation_matches_jax(pinned, textured):
 
 
 def test_sky_plan_and_means_match_jax(pinned):
+    """Both packages' sky plan over the port's cache, and their frames on
+    it with every near hit kept (the port's far-field sphere at an infinite
+    radius, the JAX package's composition)."""
     jcfg.set_config(_configs(sky_split=True)[0])
     tcfg.set_config(_configs(sky_split=True)[1])
     p = _pair()
-    (jnear, jcache, _), (tnear, tcache, _) = _farfield_both(p)
+    (jnear, _, _), (tnear, tcache, (centre, _)) = _farfield_both(p)
+    jcache = jnp.asarray(tcache.numpy())
     kcand, rmax, jpack, tpack = _packs(p, jnear, tnear)
     jsky = JP._sky_build(p.jsp, p.je, p.jo, p.jls, p.samples, kcand, rmax,
                          jcache, jpack[0], jpack[1])
@@ -343,7 +390,8 @@ def test_sky_plan_and_means_match_jax(pinned):
     splay, spin = _angles(tngl, p.samples, seed=4)
     want, got = _frames(p, (jrc, jpm), (trc, tpm), jcache, tcache, rmax,
                         tngl, (jo, to), splay, spin,
-                        sky=(jmeans, jscatter, tmeans, tscatter))
+                        sky=(jmeans, jscatter, tmeans, tscatter),
+                        far_sphere=(centre, math.inf))
     assert got.shape == (64, 3) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=MEANS_ATOL)
 

@@ -69,7 +69,7 @@ def _cache_inputs(split="far"):
     scene = ttesting.make_big_scene(n_boxes=200, seed=11)
     omms = ommatidia_to_array(ttesting.make_sphere_eye(64, 4.0))
     c = ttesting.cache_trace_inputs(scene, omms, POS, "cpu", WIDTH,
-                                    all_far=(split == "all"))
+                                    split=split)
     assert c.far.sum() == (16 if split == "far" else 32)
     return (*(x.numpy() for x in (c.counts, c.ids, c.dmin, c.payload,
                                   c.rays)), c.kw)

@@ -79,7 +79,7 @@ def _cache_inputs(all_far=True):
     omms = ommatidia_to_array(ttesting.make_sphere_eye(64, 4.0))
     return ttesting.cache_trace_inputs(
         scene, omms, np.array([0.0, 2.0, 0.0], np.float32), "cpu", 64,
-        all_far=all_far)
+        split="all" if all_far else "far")
 
 
 def test_reject_rule_on_cache_inputs_rejects_padding_and_most_misses():

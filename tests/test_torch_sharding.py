@@ -27,6 +27,7 @@ and K1 and K3 in interpret mode at precision "highest".
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -356,7 +357,15 @@ def test_sharded_statistical_agreement_with_jax(pinned):
 def test_sharded_cache_and_sky_match_jax(pinned):
     """tests/test_sharding.py:239: the far-field cache (64 wide) and the
     sky split on 200 boxes, 64 ommatidia at 4 degrees, 128 samples over
-    (4, 2); both packages' mesh sky plans engage."""
+    (4, 2); both packages' mesh sky plans engage.  The port's cache shows
+    everything beyond its far-field sphere, the JAX package's the far
+    clusters alone (tests/test_torch_farfield.py), so the JAX package's
+    memo is given the port's cache before its mesh frame: both sky plans
+    are built from it, and the port's shards, combined with every near hit
+    kept (its far-field sphere at an infinite radius, the JAX package's
+    composition), are held to the JAX mesh frame.  The port's own frame,
+    at its real D, is its shards combined, held to its mesh plan traced
+    whole on the same angles."""
     jcfg.set_config(dataclasses.replace(
         jcfg.get_config(), farfield="auto", farfield_cache_width=64,
         sky_split=True, big_table_bf16_bytes=0))
@@ -367,14 +376,32 @@ def test_sharded_cache_and_sky_match_jax(pinned):
     ts = ttesting.make_big_scene(n_boxes=200, seed=11)
     omms = ommatidia_to_array(jtesting.make_sphere_eye(64,
                                                        acceptance_deg=4.0))
-    want, got, _ = _jax_vs_port(js, ts, omms, np.array([0.0, 2.0, 0.0],
-                                                       np.float32),
-                                jax.random.PRNGKey(7), 128, 3,
-                                {"omm": 4, "sample": 2})
-    for splan in (JP.scene_plan(js), TP.scene_plan(ts, "cpu")):
+    pos, samples, bg = np.array([0.0, 2.0, 0.0], np.float32), 128, 3
+    jsp, tsp = JP.scene_plan(js), TP.scene_plan(ts, "cpu")
+    _, tcache, (centre, d) = TP._farfield_plan(
+        tsp, TP.eye_plan(omms, samples), ts.device_triangles("cpu"), omms,
+        pos, LS, samples, bg, tcfg.get_config())
+    assert JP._farfield_plan(jsp, JP.eye_plan(omms, samples),
+                             js.device_triangles(), omms, pos, LS, samples,
+                             bg, None, jcfg.get_config())[0]
+    assert len(jsp.cache_store) == 1
+    for key in jsp.cache_store:
+        jsp.cache_store[key] = jnp.asarray(tcache.numpy())
+    want, _, plan = _jax_vs_port(js, ts, omms, pos, jax.random.PRNGKey(7),
+                                 samples, bg, {"omm": 4, "sample": 2})
+    assert len(jsp.cache_store) == 1, "the JAX mesh must read the port's cache"
+    for splan in (jsp, tsp):
         assert [v for v in splan.sky_store.values() if v is not None], \
             "the mesh sky plan must engage"
+    assert plan.kw["far_sphere"][1] == d
+    every_hit = dataclasses.replace(
+        plan, kw=dict(plan.kw, far_sphere=(centre, math.inf)))
+    got = W.combine_in_process(every_hit, {"omm": 4, "sample": 2}).numpy()
     np.testing.assert_allclose(got, want, atol=LIT_ATOL)
+    got = W.combine_in_process(plan, {"omm": 4, "sample": 2}).numpy()
+    whole = TP._trace_shade_angles(**plan.kw)[plan.inv_valid].numpy()
+    np.testing.assert_allclose(got, whole, atol=LIT_ATOL)
+    assert np.abs(got - want).max() > 0.0
 
 
 # ------------------------------------------------- routes in one process
