@@ -17,13 +17,15 @@ cameras at 640 x 480 and the brute-force oracle; then bursts, pose
 batches, the eye tools and the viewer; then the bench scene written as a
 .blend and the eight examples on it; then the sharded path over ranks;
 then the render modes (affine rays, the sphere refine, backend "xla");
-then the planning refine at the pose sweep's shapes.
+then the planning refine at the pose sweep's shapes; then the unlit
+shading kernel at the benchmark's three steady unlit cells' shapes.
 Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
-     (csrc/microbench_k.cu) and the planning refine (csrc/refine_mask.cu)
-     with nvcc for sm_90a, one process per source, started together;
+     (csrc/microbench_k.cu), the planning refine (csrc/refine_mask.cu)
+     and the unlit shading (csrc/shade_means.cu) with nvcc for sm_90a,
+     one process per source, started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
      and the near-clusters pack of the cache frame), and K3 against its
      twin on the first lit frame's own shadow table and rays, which the
@@ -128,12 +130,24 @@ Phases, each failing loudly:
      and keys bit-equal to the twin, each pose's kernel time in both forms
      and the twin's (CUDA events), the bound (REFINE_*_OPS, slot tables
      read once), and each pose's widths-and-pack plan through the kernel
-     and through the twin.
-Every counted path reports the refine's launches with the kernels'; the
-lit path's first frame (and a frame after a corrective replan) refines,
-its other frames never.
+     and through the twin;
+ 15. the unlit shading and means (csrc/shade_means.cu) at the shapes of
+     the benchmark's steady cells ofstad-1000.steady-s3200,
+     natural-1000.steady-s3200 and natural-acute-10k.steady-s320, each
+     built from its configuration and traffic files by the benchmark's
+     own generators and system (the arena exists only there): a counted
+     path of SHADE_FRAMES frames through render_frame (one shading and
+     one K1 launch a frame), the last frame's shading inputs through the
+     kernel and the twin (max 1e-4, mean 1e-6), the kernel's device time
+     (torch.profiler), its wrapper's and the twin's (CUDA events), and
+     its bytes bound.
+Every counted path reports the refine's and the shading's launches with
+the kernels'; the lit path's first frame (and a frame after a corrective
+replan) refines, its other frames never; every unlit means frame of
+paths a-c launches the shading kernel once, lit frames never.
 The last lines are the kernel table (each kernel's launches, error, time,
-plain time and bound; the refine's launches are its sweep path's; a
+plain time and bound; the refine's launches are its sweep path's, the
+shading's those of every counted path; a
 kernel timed under its bound fails the run), the card and {"ok": true,
 "device": ...}.
 """
@@ -190,6 +204,20 @@ K6_SOURCE = "compound_ray_tpu_torch/csrc/microbench_k.cu"
 REFINE_REPLACES = ("no Pallas counterpart (XLA-fused chain at "
                    "compound_ray_tpu/eye/pipeline.py:486)")
 REFINE_SOURCE = "compound_ray_tpu_torch/csrc/refine_mask.cu"
+# phase 15: the frame core's unlit shading and means, which replaces no
+# Pallas kernel (XLA fused the eager chain); it runs at the shapes of the
+# benchmark's three steady unlit cells, built by the benchmark's own
+# scene, eye and system code from its configuration and traffic files
+SHADE_REPLACES = ("no Pallas counterpart (XLA-fused shading at "
+                  "compound_ray_tpu/eye/pipeline.py:1191-1545)")
+SHADE_SOURCE = "compound_ray_tpu_torch/csrc/shade_means.cu"
+SHADE_CELLS = (("ofstad-1000", "steady-s3200"),
+               ("natural-1000", "steady-s3200"),
+               ("natural-acute-10k", "steady-s320"))
+SHADE_FRAMES = 8  # the counted path's frames per cell
+SHADE_REPS = 20
+SHADE_SEED = 2**31 + 19
+SHADE_MAX_ABS, SHADE_MEAN_ABS = 1e-4, 1e-6
 REFINE_POSES = 8
 REFINE_VIEWS = 16
 REFINE_SAMPLES = 100
@@ -305,7 +333,8 @@ XLA_SAMPLES = (100, 3200)
 XLA_ATOL = 1e-5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
-           ("microbench_k", K6_SOURCE), ("refine_mask", REFINE_SOURCE))
+           ("microbench_k", K6_SOURCE), ("refine_mask", REFINE_SOURCE),
+           ("shade_means", SHADE_SOURCE))
 # bounds: NVIDIA's H100 SXM data sheet (dense): f32 outside the tensor cores,
 # bf16 on them, and device memory
 PEAK_F32 = 67e12
@@ -355,7 +384,7 @@ def _pose(cam):
 
 
 def build_kernels():
-    """Phase 2: the five sources through nvcc at once; prints what ptxas
+    """Phase 2: the seven sources through nvcc at once; prints what ptxas
     says."""
     from compound_ray_tpu_torch.trace import _build
 
@@ -367,6 +396,7 @@ def build_kernels():
     _build.probe_step_lib()
     _build.microbench_k_lib()
     _build.refine_mask_lib()
+    _build.shade_means_lib()
     wall = time.perf_counter() - t0
     for name, src in SOURCES:
         secs, log = _build.build_info[name]
@@ -671,7 +701,8 @@ def _report(tag, res):
 
 def _counters() -> dict:
     """{kernel: (module, name of its launch count)} for K1 (k1a: its
-    8-feature affine form) to K6 and the planning refine."""
+    8-feature affine form) to K6, the planning refine and the unlit
+    shading."""
     from compound_ray_tpu_torch.eye import pipeline
     from compound_ray_tpu_torch.tools import microbench_k, probe_step
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
@@ -683,7 +714,8 @@ def _counters() -> dict:
             "k4": (probe_step, "probe_launches"),
             "k5": (probe_step, "probe3d_launches"),
             "k6": (microbench_k, "dot_bench_launches"),
-            "refine": (pipeline, "refine_launches")}
+            "refine": (pipeline, "refine_launches"),
+            "shade": (pipeline, "shade_launches")}
 
 
 def _path(r, name, run, phase: int = 5):
@@ -935,7 +967,8 @@ def small_lit_card_vs_cpu(device):
 
 def frame_vs_twins(r, cam, cache: bool):
     """Phase 6: the renderer's last frame against the same frame (same
-    generator seed) rendered through the twins on the card.  With the cache
+    generator seed) rendered through the twins (K1's and the shading's) on
+    the card.  With the cache
     on, the cache is rendered anew through K2's twin and dropped after."""
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.trace.cluster_tracer import (
@@ -946,7 +979,8 @@ def frame_vs_twins(r, cam, cache: bool):
     splan = P.scene_plan(r.scene, r.device)
     splan.cache_store.clear()
     twin = _render(r, cam, cam.rng_frame - 1, tracer=packed_tracer_reference,
-                   cache_tracer=cluster_tracer_reference)
+                   cache_tracer=cluster_tracer_reference,
+                   shader=P.shade_means_reference)
     if cache and not splan.cache_store:
         raise AssertionError("the twin frame did not use the cache")
     splan.cache_store.clear()
@@ -2412,9 +2446,9 @@ def _example_outputs(name: str, ret) -> dict:
 
 def blend_checks(r, cam, frames, shots) -> dict:
     """Phase 11's checks, after its path: each frame against the same
-    frame (same seed) through the twins (K1's, and K2's for the cache),
-    the lit frame against the unlit one and the frame through the K1 and
-    K3 twins, and each camera image against the oracle's."""
+    frame (same seed) through the twins (K1's, the shading's, and K2's for
+    the cache), the lit frame against the unlit one and the frame through
+    the K1 and K3 twins, and each camera image against the oracle's."""
     from compound_ray_tpu_torch.cameras.raygen import render_camera_image
     from compound_ray_tpu_torch.eye import pipeline as P
     from compound_ray_tpu_torch.trace.cluster_tracer import (
@@ -2437,7 +2471,8 @@ def blend_checks(r, cam, frames, shots) -> dict:
         r.set_current_eye_samples_per_ommatidium(int(s))
         splan.cache_store.clear()
         twin = _render(r, cam, f["seed"], tracer=packed_tracer_reference,
-                       cache_tracer=cluster_tracer_reference)
+                       cache_tracer=cluster_tracer_reference,
+                       shader=P.shade_means_reference)
         if f["cache"] != bool(splan.cache_store):
             raise AssertionError(f"{key}: the twin frame's cache differs")
         splan.cache_store.clear()
@@ -2822,9 +2857,11 @@ def nccl_one_rank(r, cam, tmp: str):
         runs, n = _path(r, "sharded path A (one NCCL rank)", lambda: [
             _events_ms(sharded) for _ in range(1 + SHARD_TIMED)], phase=12)
         if {k: v for k, v in n.items() if k != "refine"} != dict(
-                k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0, k6=0):
+                k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0, k6=0,
+                shade=1 + SHARD_TIMED):
             raise AssertionError(f"phase 12 A's path launched {n}, not K1 "
-                                 f"{1 + SHARD_TIMED} times and K2 once")
+                                 f"and the shading {1 + SHARD_TIMED} times "
+                                 f"and K2 once")
         got = runs[0][0]
         dense = _render_out(r, cam, seed)
         if not torch.equal(got, dense):
@@ -3543,6 +3580,164 @@ def refine_phase(card: str) -> dict:
     return out
 
 
+def _kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device ms of the kernels whose name holds `name` over `reps`
+    calls of fn (torch.profiler's CUDA activity): the kernel alone, without
+    the wrapper's host time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    if len(us) != reps:
+        raise AssertionError(f"the profiler saw {len(us)} {name} launches "
+                             f"of {reps}")
+    return sum(us) / len(us) * 1e-3
+
+
+def _shade_work(kw, out, rays) -> dict:
+    """Bytes the unlit shading needs on these inputs, each read once: t
+    and the direction of every ray, u, v and slot of every hit, the
+    distinct attribute rows and quads the rays' colours take, the group
+    counts, a cache frame's per-ommatidium origins, and the means."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+    from compound_ray_tpu_torch.trace.shade import texture_quad_coords_c
+
+    ng, g, rg_pad, samples = kw["ng"], kw["g"], kw["rg_pad"], kw["samples"]
+    n_pad, cache, attr = ng * g, kw["cache"], kw["attr_table"]
+
+    def planes(x):
+        return x.reshape(ng, rg_pad)[:, :g * samples].reshape(n_pad, samples)
+
+    t = planes(out[0])
+    dx, dy, dz = (planes(rays[c]) for c in range(3))
+    hit = (t < 1e30) & torch.repeat_interleave(kw["row_counts"] > 0,
+                                               g)[:, None]
+    if cache is not None:
+        hit = hit & P._inside_far_sphere(t, kw["origins"], dx, dy, dz,
+                                         kw["far_sphere"])
+    hit = hit.reshape(-1)
+    row = torch.clamp(planes(out[3]).reshape(-1).long(), 0,
+                      attr.shape[0] - 1)[hit]
+    quads = []
+    if kw["textured"]:
+        cu, cv, texid, _ = P._attrs_from_rows(
+            attr[row], planes(out[1]).reshape(-1)[hit],
+            planes(out[2]).reshape(-1)[hit], kw["tex_only"],
+            attr.shape[1] == P.ATTR_COMPS_FLAT)
+        idx = texture_quad_coords_c(kw["scene_dev"], torch.clamp(texid, min=0),
+                                    cu, cv)[0]
+        quads.append(idx[texid >= 0])
+    if cache is not None:
+        ch, cw = kw["cache_shape"]
+        miss = ~hit
+        idx = P._equirect_coords_c(ch, cw, dx.reshape(-1)[miss],
+                                   dy.reshape(-1)[miss],
+                                   dz.reshape(-1)[miss])[0]
+        quads.append(idx + cache.reshape(-1, 16).shape[0] - ch * cw)
+    n_quads = (int(torch.unique(torch.cat(quads)).numel()) if quads
+               else 0)
+    nbytes = (t.numel() * 16 + int(hit.sum()) * 12
+              + int(torch.unique(row).numel()) * attr.shape[1] * 4
+              + n_quads * 64 + ng * 4
+              + (n_pad * 16 + 12 if cache is not None else 0)
+              + n_pad * kw["frames"] * 12)
+    return dict(nbytes=nbytes, hits=int(hit.sum()), rays=t.numel(),
+                quads=n_quads)
+
+
+def shade_phase(card: str) -> list:
+    """Phase 15: the frame core's unlit shading and means
+    (csrc/shade_means.cu) at the shapes of the benchmark's three steady
+    unlit cells (SHADE_CELLS), each built by the benchmark's own scene,
+    eye and system code at SHADE_SEED.  Per cell: a counted path of
+    SHADE_FRAMES frames through render_frame (one shading launch and one
+    K1 launch a frame, no other kernel), the last frame's shading inputs
+    through the kernel and the twin (SHADE_MAX_ABS, SHADE_MEAN_ABS), the
+    kernel's device time (the profiler, over SHADE_REPS launches), its
+    wrapper's and the twin's (CUDA events), and the bytes bound
+    (_shade_work).  Returns one result dict per cell."""
+    from benchmark import scene as bench_scene
+    from benchmark.system import System
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark")
+    results = []
+    for config, traffic_name in SHADE_CELLS:
+        t0 = time.perf_counter()
+        name = f"{config}.{traffic_name}"
+        with open(os.path.join(root, "configs", config + ".json")) as f:
+            cfg = json.load(f)
+        with open(os.path.join(root, "traffic", traffic_name + ".json")) as f:
+            traffic = json.load(f)
+        system = System(cfg, traffic, bench_scene.build_scene(cfg),
+                        bench_scene.build_eye(cfg), SHADE_SEED,
+                        torch.device("cuda"))
+        system.view(tuple(float(v) for v in cfg["pose"]["position"]
+                          + cfg["pose"]["rotation"]))  # plans, cache
+        run, calls, frame_ms = P.run_shade_means, [], []
+
+        def record(*a, **k):
+            calls.append((a, k))
+            return run(*a, **k)
+
+        def frames():
+            for _ in range(SHADE_FRAMES):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                system.view()
+                end.record()
+                torch.cuda.synchronize()
+                frame_ms.append(start.elapsed_time(end))
+
+        P.run_shade_means = record
+        try:
+            _, n = _path(system.renderer, name, frames, phase=15)
+        finally:
+            P.run_shade_means = run
+        if not (n["shade"] == n["k1"] == SHADE_FRAMES == len(calls)
+                and n["k2"] == n["k3"] == n["refine"] == 0):
+            raise AssertionError(f"{name}: {SHADE_FRAMES} frames launched "
+                                 f"{n}")
+        a, k = calls[-1]
+        got = run(*a, **k)
+        want = P.shade_means_reference(*a, **k)
+        err = (got - want).abs()
+        res = dict(cell=name, g=k["g"], samples=k["samples"],
+                   rg_pad=k["rg_pad"], cache=k["cache"] is not None,
+                   textured=k["textured"],
+                   max_abs_err=float(err.max()),
+                   mean_abs_err=float(err.mean()), launches=n["shade"],
+                   frame_ms=float(np.median(frame_ms)))
+        if not (res["max_abs_err"] <= SHADE_MAX_ABS
+                and res["mean_abs_err"] <= SHADE_MEAN_ABS):
+            raise AssertionError(f"shading kernel vs twin: {res}")
+        res["ms"] = _kernel_ms(lambda: run(*a, **k), "shade_means_kernel",
+                               SHADE_REPS)
+        res["wrapper_ms"] = time_ms(lambda: run(*a, **k), reps=SHADE_REPS,
+                                    warmup=3)
+        res["plain_ms"] = time_ms(
+            lambda: P.shade_means_reference(*a, **k), reps=3)
+        work = _shade_work(k, *a)
+        res.update(work)
+        res.update({key: v for key, v in _bound(0.0, work["nbytes"]).items()
+                    if key in ("bound_ms", "bound_by")})
+        print(f"phase 15: shading kernel at {name}'s shapes ({card}): "
+              f"{json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+        results.append(res)
+        system.close()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -3591,12 +3786,21 @@ def main() -> int:
 
     splan = P.scene_plan(r.scene, r.device)
     launches = dict.fromkeys(_counters(), 0)
+    last = {}  # the last counted path's launches
 
     def count(res_n):
         res, n = res_n
         for k, v in n.items():
             launches[k] += v
+        last.update(n)
         return res, n["k1"], n["k2"], n["k3"]
+
+    def shaded(path, frames):
+        """Every unlit means frame of a path shades through the kernel."""
+        if last["shade"] != frames:
+            raise AssertionError(f"the {path} path launched the shading "
+                                 f"kernel {last['shade']} times in {frames} "
+                                 f"frames")
 
     # path a: the far field off, 100 and 3200 samples
     _set_config(farfield="off")
@@ -3604,6 +3808,7 @@ def main() -> int:
         s: frames(r, s) for s in SAMPLES}))
     if a != len(SAMPLES) * (WARMUP + TIMED) or b != 0 or c != 0:
         raise AssertionError(f"farfield=off path launched K1 {a}, K2 {b}")
+    shaded("farfield=off", a)
     for s in SAMPLES:
         _report(f"farfield=off, {s} samples", res_off[s])
     err_off = frame_vs_twins(r, cam, cache=False)
@@ -3617,6 +3822,7 @@ def main() -> int:
         r, SAMPLES[-1], first_builds_cache=True)))
     if a != 1 + WARMUP + TIMED or b != 1 or c != 0:
         raise AssertionError(f"farfield=auto path launched K1 {a}, K2 {b}")
+    shaded("farfield=auto", a)
     _report(f"farfield=auto, {SAMPLES[-1]} samples", res_ff)
     use_cache = len(splan.cache_store) == 1
     print(f"phase 5: farfield=auto: use_cache {use_cache}, clusters in "
@@ -3645,6 +3851,7 @@ def main() -> int:
         r, SAMPLES[-1], first_builds_cache=True)))
     if a != 1 + WARMUP + TIMED or b != 1 or c != 0:
         raise AssertionError(f"sky-split path launched K1 {a}, K2 {b}")
+    shaded("sky split", a)
     _report(f"sky split, {SAMPLES[-1]} samples", res_sky)
     _set_config()
     dense_cache_frame = _render(r, cam, cam.rng_frame - 1)
@@ -3661,6 +3868,7 @@ def main() -> int:
     n_lit = 1 + WARMUP + TIMED
     if not (a == n_lit + 1 + res_lit["replans"] and b == 0 and c == n_lit):
         raise AssertionError(f"lit path launched K1 {a}, K2 {b}, K3 {c}")
+    shaded("lit", 0)
     print(f"phase 5: lit, {SAMPLES[-1]} samples: first frame (builds the "
           f"shadow plan) {res_lit['first_frame_ms']:.3f} ms; frame ms (CUDA "
           f"events) {res_lit['frame_ms']}, mean "
@@ -3741,6 +3949,8 @@ def main() -> int:
     refine = refine_phase(card)
     # the refine's launches are its sweep path's, not the whole run's
     launches["refine"] = refine["launches"]
+    shades = shade_phase(card)
+    launches["shade"] += sum(res["launches"] for res in shades)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -3766,7 +3976,8 @@ def main() -> int:
               K6_REPLACES, "k6", k6),
         entry("Planning refine (key form, per pose of the sweep)",
               REFINE_SOURCE, REFINE_REPLACES, "refine", refine),
-    ]
+    ] + [entry(f"Unlit shading and means ({res['cell']})", SHADE_SOURCE,
+               SHADE_REPLACES, "shade", res) for res in shades]
     # a time under its bound means the compiler dropped work the kernel must
     # keep, or the bound counts work the kernel does not need; K1 and K3
     # skip products that their staged tests do not need, so they are held to
@@ -3777,7 +3988,9 @@ def main() -> int:
                               ("K1 affine", modes["k1a"]), ("K2", k2),
                               ("K2 image", k2i), ("K3", k3),
                               ("K4", k45["k4"]), ("K5", k45["k5"]),
-                              ("K6", k6), ("refine", refine))
+                              ("K6", k6), ("refine", refine),
+                              *((f"shade {res['cell']}", res)
+                                for res in shades))
              for bound in [res.get("staged_bound_ms", res["bound_ms"])]
              if res["ms"] < bound]
     if under:

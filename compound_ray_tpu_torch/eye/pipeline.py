@@ -18,7 +18,11 @@ Per frame:
   3. _trace_shade_angles: world rays -> K1 (trace/mm_tracer.py) -> winner
      attributes -> texture -> GGX direct light with shadow rays on K3 when
      lit -> miss shading or the far-field cache -> per-ommatidium mean,
-     returned in the original ommatidium order.
+     returned in the original ommatidium order.  An unlit means frame
+     shades and reduces in one launch (run_shade_means:
+     csrc/shade_means.cu on CUDA tensors, its twin shade_means_reference,
+     the eager _shade_planes and the mean, on the CPU); lit frames and raw
+     samples shade in _shade_planes.
 A burst (render_means_frames) plans once and renders F frames at the
 pose, stacked on the sample axis into one frame core or one frame core
 each; raw samples (render_samples) are the frame core's samples before
@@ -47,11 +51,14 @@ cr.plan.build.* span (widths, pack, cache, sky, shadow) only where a memo
 misses and builds, cr.refine around each refine kernel launch, and cr.core
 around _trace_shade_angles with cr.core.rays, cr.core.shade and
 cr.core.lit inside it, and cr.core.farfield (the far-field sphere's hit
-test and the cache lookups) inside cr.core.shade.
+test and the cache lookups) inside cr.core.shade; an unlit means frame's
+shading launch is cr.shade, inside cr.core.shade and, on a cache frame,
+inside cr.core.farfield, since the one kernel does the far field's work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -72,8 +79,11 @@ from compound_ray_tpu_torch.eye.sampling import (
 )
 from compound_ray_tpu_torch.spans import span, spanned
 from compound_ray_tpu_torch.trace.attrs import (
+    ATTR_COMPS,
     ATTR_COMPS_FLAT,
+    ATTR_COMPS_TEX,
     KERNEL_LEAF,
+    OUT_COMPS,
     build_attr_table,
 )
 from compound_ray_tpu_torch.trace.cluster_tracer import (
@@ -115,6 +125,9 @@ from compound_ray_tpu_torch.trace.shade import (
 _REFINE_CHUNK_ELEMS = 1 << 23
 # refine kernel launches by run_refine (the kernel only, never the twin)
 refine_launches = 0
+# shading kernel launches by run_shade_means (the kernel only, never the
+# twin)
+shade_launches = 0
 
 # Inflation of the per-group hit-bound spheres the shadow plan is built
 # from (compound_ray_tpu/eye/pipeline.py:86-101): the probe samples one
@@ -956,7 +969,7 @@ def _omm_world_origins(omms_p, position, local_space):
 
 def _gen_ray_features(omms_p, position, local_space, splay, spin,
                       samples: int, ng: int, g: int, nrb: int, rb_size: int,
-                      affine: bool = False):
+                      affine: bool = False, origins=None):
     """Sample angles -> world rays -> K1's planar features
     (compound_ray_tpu/eye/pipeline.py:1057).
 
@@ -965,9 +978,11 @@ def _gen_ray_features(omms_p, position, local_space, splay, spin,
     0 x 4] when `affine` (the origin and tmin live in the
     transform_payload_affine'd payload, so the moment and origin features
     are not built).  Each group's ray block is edge-padded (the last real
-    ray repeated) so padded rays stay finite."""
-    (ox, oy, oz), tmin_w, (ax, ay, az), _ = _omm_world_origins(
-        omms_p, position, local_space)
+    ray repeated) so padded rays stay finite.  origins is
+    _omm_world_origins' result where the caller has it already."""
+    if origins is None:
+        origins = _omm_world_origins(omms_p, position, local_space)
+    (ox, oy, oz), tmin_w, (ax, ay, az), _ = origins
     L = local_space
     rdx, rdy, rdz = cone_offset_components(
         ax[:, None], ay[:, None], az[:, None], splay, spin)  # (Np, S)
@@ -1025,20 +1040,19 @@ def _neg_origins(omms_p, position, local_space, dx, dy, dz):
             -(oz[:, None] + tmin * dz))
 
 
-def _inside_far_sphere(t, omms_p, position, local_space, dx, dy, dz,
-                       far_sphere):
+def _inside_far_sphere(t, origins, dx, dy, dz, far_sphere):
     """(Np, S) bool: the hit points o' + t d of K1's t (Np, S) lie within
-    the far-field sphere far_sphere = (centre (3,), D).  Each ray starts
-    inside it (D exceeds the eye's extent), so the first hit lies inside
-    iff some triangle is hit before the ray leaves the sphere; a first hit
-    beyond it belongs to the cache, which shows the first surface past D
-    from the centre.  Misses (t = inf) come out False."""
+    the far-field sphere far_sphere = (centre (3,), D), with o and tmin
+    from origins, _omm_world_origins' result.  Each ray starts inside it
+    (D exceeds the eye's extent), so the first hit lies inside iff some
+    triangle is hit before the ray leaves the sphere; a first hit beyond
+    it belongs to the cache, which shows the first surface past D from the
+    centre.  Misses (t = inf) come out False."""
     if far_sphere is None:
         raise ValueError("a frame with the far-field cache needs its "
                          "far_sphere (centre, D)")
     centre, d_far = far_sphere
-    (ox, oy, oz), tmin_w, _, _ = _omm_world_origins(omms_p, position,
-                                                    local_space)
+    (ox, oy, oz), tmin_w, _, _ = origins
     tt = t + tmin_w[:, None]
     px = torch.addcmul((ox - centre[0])[:, None], tt, dx)
     py = torch.addcmul((oy - centre[1])[:, None], tt, dy)
@@ -1174,6 +1188,218 @@ def scatter_sky(means, sky_means, sky_scatter):
     return full[:n0]
 
 
+def _shade_planes(out, dx, dy, dz, row_counts, attr_table, scene_dev,
+                  quad_table, origins, background: int, ng: int, g: int,
+                  rg_pad: int, samples: int, textured: bool, tex_only: bool,
+                  cache=None, cache_shape: Tuple[int, int] = (0, 0),
+                  far_sphere=None, lit=None):
+    """The frame core's eager shading of K1's (8, R) rows `out`
+    (compound_ray_tpu/eye/pipeline.py:1191-1517): (rr, gg, bb, audit), each
+    plane (Np, S) in permuted ommatidium order.  dx, dy, dz are the rays'
+    (Np, S) unit directions, origins _omm_world_origins' result (read on a
+    cache frame).  Winner attributes, texture, then `lit` (hit, rr, gg, bb)
+    -> (rr, gg, bb, audit) where the frame is lit, then the far-field cache
+    or the miss shader where nothing is hit; audit is None unless `lit`
+    gives one.  _trace_shade_angles' other arguments keep their meaning."""
+    n_pad = ng * g
+    rg = g * samples
+    audit = None
+    t_f, cu_f, cv_f, texid_f, rgb_f = resolve_kernel_hits(
+        out, attr_table, tex_only)
+
+    def unpad(x):
+        return x.reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
+
+    t = unpad(t_f)
+    # groups with empty payloads are misses whatever their rows hold
+    group_live = torch.repeat_interleave(row_counts > 0, g)[:, None]
+    hit = (t < 1e30) & group_live
+    if cache is not None:
+        with span("cr.core.farfield"):
+            hit = hit & _inside_far_sphere(t, origins, dx, dy, dz,
+                                           far_sphere)
+    if tex_only:
+        rr = gg = bb = torch.zeros_like(t)
+    else:
+        rr, gg, bb = (unpad(c) for c in rgb_f)
+    if textured:
+        texid = unpad(texid_f)
+        tex_idx, tfx, tfy = texture_quad_coords_c(
+            scene_dev, torch.clamp(texid.reshape(-1), min=0),
+            unpad(cu_f).reshape(-1), unpad(cv_f).reshape(-1))
+    if textured and cache is not None:
+        # one gather from the combined table: texture quads for textured
+        # hits, cache quads for misses
+        with span("cr.core.farfield"):
+            ch, cw = cache_shape
+            c_idx, cfx, cfy = _equirect_coords_c(
+                ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
+            sel_tex = (hit & (texid >= 0)).reshape(-1)
+            idx = torch.where(sel_tex, tex_idx,
+                              cache.shape[0] - ch * cw + c_idx)
+            qr, qg, qb = quad_bilinear_c(
+                cache[idx], torch.where(sel_tex, tfx, cfx),
+                torch.where(sel_tex, tfy, cfy))
+        # hits on untextured triangles keep their interpolated colour
+        keep = hit & (texid < 0)
+        rr = torch.where(keep, rr, qr.reshape(n_pad, samples))
+        gg = torch.where(keep, gg, qg.reshape(n_pad, samples))
+        bb = torch.where(keep, bb, qb.reshape(n_pad, samples))
+    else:
+        if textured:
+            qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
+            sel = (texid >= 0) & hit
+            rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
+            gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
+            bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
+        if lit is not None:
+            rr, gg, bb, audit = lit(hit, rr, gg, bb)
+        if cache is not None:
+            # the cache already holds the miss shader where nothing is hit
+            with span("cr.core.farfield"):
+                c_idx, cfx, cfy = _equirect_coords_c(
+                    cache.shape[0], cache.shape[1], dx.reshape(-1),
+                    dy.reshape(-1), dz.reshape(-1))
+                mr, mg, mb = quad_bilinear_c(
+                    cache.reshape(-1, 16)[c_idx], cfx, cfy)
+        else:
+            mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1),
+                                      dz.reshape(-1), background)
+        rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
+        gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
+        bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
+    return rr, gg, bb, audit
+
+
+def _plane_means(planes, frames: int):
+    """(Np, F, 3): each (ommatidium, frame)'s mean of (Np, S) colour
+    planes over its S // F contiguous samples."""
+    n_pad, samples = planes[0].shape
+    return torch.stack([c.reshape(n_pad, frames, samples // frames)
+                        .mean(dim=2) for c in planes], dim=-1)
+
+
+def shade_means_reference(out, rays, row_counts, attr_table, scene_dev,
+                          quad_table, origins, background: int, ng: int,
+                          g: int, rg_pad: int, samples: int, frames: int,
+                          textured: bool, tex_only: bool, cache=None,
+                          cache_shape: Tuple[int, int] = (0, 0),
+                          far_sphere=None):
+    """run_shade_means' plain torch twin: the directions from rows 0-2 of
+    K1's rays, _shade_planes, then each (ommatidium, frame)'s mean over
+    its samples // frames contiguous samples."""
+    n_pad, rg = ng * g, g * samples
+    dx, dy, dz = (rays[c].reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
+                  for c in range(3))
+    planes = _shade_planes(
+        out, dx, dy, dz, row_counts, attr_table, scene_dev, quad_table,
+        origins, background, ng, g, rg_pad, samples, textured, tex_only,
+        cache=cache, cache_shape=cache_shape, far_sphere=far_sphere)[:3]
+    return _plane_means(planes, frames)
+
+
+_TEX_KEYS = ("tex_offset", "tex_width", "tex_height", "tex_wrap_s",
+             "tex_wrap_t", "tex_filter")
+
+
+def run_shade_means(out, rays, row_counts, attr_table, scene_dev,
+                    quad_table, origins, background: int, ng: int, g: int,
+                    rg_pad: int, samples: int, frames: int, textured: bool,
+                    tex_only: bool, cache=None,
+                    cache_shape: Tuple[int, int] = (0, 0), far_sphere=None):
+    """The unlit frame's shading and means from K1's (8, R) rows `out` and
+    its (F, R) rays: (Np, frames, 3), each (ommatidium, frame)'s mean over
+    its samples // frames contiguous samples, in permuted order.  origins
+    is _omm_world_origins' result (read on a cache frame); the rest is
+    _trace_shade_angles'.  CUDA tensors launch csrc/shade_means.cu once on
+    the current stream (or raise): each sample's colour equals the twin's
+    on the same card, and only the mean's order of summation differs; CPU
+    tensors take shade_means_reference."""
+    global shade_launches
+    dev = out.device
+    args = (out, rays, row_counts, attr_table, scene_dev, quad_table,
+            origins, background, ng, g, rg_pad, samples, frames, textured,
+            tex_only)
+    if dev.type == "cpu":
+        return shade_means_reference(*args, cache=cache,
+                                     cache_shape=cache_shape,
+                                     far_sphere=far_sphere)
+    if dev.type != "cuda":
+        raise ValueError(f"run_shade_means takes CPU or CUDA tensors, not "
+                         f"{dev.type}")
+    r, n_pad = ng * rg_pad, ng * g
+    if samples % frames or g * samples > rg_pad:
+        raise ValueError(f"{frames} frames of {samples} samples do not fit "
+                         f"g={g} in blocks of {rg_pad}")
+    want = [("out", out, torch.float32, (OUT_COMPS, r)),
+            ("rays", rays, torch.float32, (rays.shape[0], r)),
+            ("row_counts", row_counts, torch.int32, (ng,)),
+            ("attr_table", attr_table, torch.float32,
+             (attr_table.shape[0], attr_table.shape[1]))]
+    quads, cache_row, ch, cw, d2 = None, 0, 0, 0, 0.0
+    tex = [scene_dev[k] if textured else None for k in _TEX_KEYS]
+    orig = [None] * 5
+    if textured:
+        want += [(k, scene_dev[k], torch.int32, (scene_dev[k].shape[0],))
+                 for k in _TEX_KEYS]
+        quads = quad_table
+    if cache is not None:
+        centre, d_far = far_sphere
+        (ox, oy, oz), tmin_w, _, _ = origins
+        want += [(k, x, torch.float32, (n_pad,)) for k, x in
+                 (("ox", ox), ("oy", oy), ("oz", oz), ("tmin", tmin_w))]
+        want.append(("centre", centre, torch.float32, (3,)))
+        orig = [ox, oy, oz, tmin_w, centre]
+        d2 = float(d_far) * float(d_far)  # the twin's r2 <= D * D, in f32
+        ch, cw = cache_shape
+        quads = cache.reshape(-1, 16)
+        cache_row = quads.shape[0] - ch * cw
+        if cache_row != (quad_table.shape[0] if textured else 0):
+            raise ValueError(f"cache {tuple(cache.shape)} is not the "
+                             f"{'texture quads and ' if textured else ''}"
+                             f"{ch} x {cw} cache quads")
+    if quads is not None:
+        want.append(("quads", quads, torch.float32, (quads.shape[0], 16)))
+    for name, x, dtype, shape in want:
+        if x.dtype != dtype or x.device != dev:
+            raise TypeError(f"{name} must be {dtype} on {dev}, not "
+                            f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if rays.shape[0] < 3 or attr_table.shape[1] not in (
+            ATTR_COMPS_TEX, ATTR_COMPS_FLAT, ATTR_COMPS) or (
+                tex_only != (attr_table.shape[1] == ATTR_COMPS_TEX)):
+        raise ValueError(f"rays {tuple(rays.shape)} or attributes "
+                         f"{tuple(attr_table.shape)} (tex_only {tex_only}) "
+                         f"are not the shading's")
+    if quads is not None and quads.data_ptr() % 16:
+        raise ValueError("the quad table must be 16-byte aligned")
+    means = torch.empty((n_pad, frames, 3), dtype=torch.float32, device=dev)
+
+    def ptr(x):
+        return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+    from compound_ray_tpu_torch.trace import _build
+
+    lib = _build.shade_means_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("cr.shade"):
+            err = lib.cr_shade_means(
+                ptr(out), ptr(rays), r, ptr(row_counts), ptr(attr_table),
+                attr_table.shape[0], attr_table.shape[1], *map(ptr, tex),
+                ptr(quads), cache_row, ch, cw, *map(ptr, orig), d2,
+                background, n_pad, g, frames, samples // frames, rg_pad,
+                int(textured), int(cache is not None), ptr(means),
+                ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"shading launch failed: CUDA error {err}")
+    shade_launches += 1
+    return means
+
+
 @spanned("cr.core")
 def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         quad_table, omms_p, position, local_space, splay,
@@ -1186,7 +1412,7 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                         slot_tri=None, shading_rows=None, shadow=None,
                         shadow_audit: bool = False, shadow_tracer=None,
                         want_samples: bool = False, frames: int = 1,
-                        affine: bool = False):
+                        affine: bool = False, shader=None):
     """Angle-parameterised frame core: trace + shade + reduce
     (compound_ray_tpu/eye/pipeline.py:1134, branches :1191-1545).  Returns
     (Np, 3) means in permuted order, or (means, audit) for a lit frame with
@@ -1195,10 +1421,13 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     `samples` is then F * S, column f * S + s of splay and spin is frame
     f's sample s, and the means are (Np, F, 3), each frame's the same
     contiguous S-column reduction a single frame makes.  `tracer` defaults to
-    run_packed_tracer (K1) and `shadow_tracer` to run_rows_occlusion (K3);
-    the chip check passes the twins to render through them.  affine: the
-    pack was built with _pack_fused(affine=True), so the rays are
-    [d, 1, 0 x 4] and K1 runs its 8-feature form (:1167-1219).
+    run_packed_tracer (K1), `shadow_tracer` to run_rows_occlusion (K3) and
+    `shader`, the unlit means frame's shading and mean, to run_shade_means
+    (csrc/shade_means.cu on CUDA tensors); the chip check passes the twins
+    to render through them.  Lit frames and raw samples shade in eager
+    torch (_shade_planes).  affine: the pack was built with
+    _pack_fused(affine=True), so the rays are [d, 1, 0 x 4] and K1 runs its
+    8-feature form (:1167-1219).
 
     lights (L, 7) on the frame's device turns on GGX direct light with
     shadow rays (_lit_epilogue), which needs slot_tri, shading_rows and the
@@ -1216,94 +1445,45 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     and sky_scatter (Np,) are the sky split's base means and the group
     each row's mean replaces (rows pointing past Ng0 are dropped;
     :1537-1542)."""
-    n_pad = omms_p.shape[0]
-    rg = g * samples
-    rg_pad = nrb * rb_size
     with span("cr.core.rays"):
+        origins = _omm_world_origins(omms_p, position, local_space)
         rays, (dx, dy, dz) = _gen_ray_features(
             omms_p, position, local_space, splay, spin, samples=samples,
-            ng=ng, g=g, nrb=nrb, rb_size=rb_size, affine=affine)
+            ng=ng, g=g, nrb=nrb, rb_size=rb_size, affine=affine,
+            origins=origins)
     trace = run_packed_tracer if tracer is None else tracer
     out = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
                 rmax=rmax, ray_feats=rays.shape[0])
-    with span("cr.core.shade"):
-        t_f, cu_f, cv_f, texid_f, rgb_f = resolve_kernel_hits(
-            out, attr_table, tex_only)
-
-        def unpad(x):
-            return x.reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
-
-        t = unpad(t_f)
-        # groups with empty payloads are misses whatever their rows hold
-        group_live = torch.repeat_interleave(row_counts > 0, g)[:, None]
-        hit = (t < 1e30) & group_live
-        if cache is not None:
-            with span("cr.core.farfield"):
-                hit = hit & _inside_far_sphere(
-                    t, omms_p, position, local_space, dx, dy, dz,
-                    far_sphere)
-        if tex_only:
-            rr = gg = bb = torch.zeros_like(t)
-        else:
-            rr, gg, bb = (unpad(c) for c in rgb_f)
-        if textured:
-            texid = unpad(texid_f)
-            tex_idx, tfx, tfy = texture_quad_coords_c(
-                scene_dev, torch.clamp(texid.reshape(-1), min=0),
-                unpad(cu_f).reshape(-1), unpad(cv_f).reshape(-1))
-        if textured and cache is not None:
-            # one gather from the combined table: texture quads for textured
-            # hits, cache quads for misses
-            with span("cr.core.farfield"):
-                ch, cw = cache_shape
-                c_idx, cfx, cfy = _equirect_coords_c(
-                    ch, cw, dx.reshape(-1), dy.reshape(-1), dz.reshape(-1))
-                sel_tex = (hit & (texid >= 0)).reshape(-1)
-                idx = torch.where(sel_tex, tex_idx,
-                                  cache.shape[0] - ch * cw + c_idx)
-                qr, qg, qb = quad_bilinear_c(
-                    cache[idx], torch.where(sel_tex, tfx, cfx),
-                    torch.where(sel_tex, tfy, cfy))
-            # hits on untextured triangles keep their interpolated colour
-            keep = hit & (texid < 0)
-            rr = torch.where(keep, rr, qr.reshape(n_pad, samples))
-            gg = torch.where(keep, gg, qg.reshape(n_pad, samples))
-            bb = torch.where(keep, bb, qb.reshape(n_pad, samples))
-        else:
-            if textured:
-                qr, qg, qb = quad_bilinear_c(quad_table[tex_idx], tfx, tfy)
-                sel = (texid >= 0) & hit
-                rr = torch.where(sel, qr.reshape(n_pad, samples), rr)
-                gg = torch.where(sel, qg.reshape(n_pad, samples), gg)
-                bb = torch.where(sel, qb.reshape(n_pad, samples), bb)
-            if lights is not None:
+    geo = dict(row_counts=row_counts, attr_table=attr_table,
+               scene_dev=scene_dev, quad_table=quad_table, origins=origins,
+               background=background, ng=ng, g=g, rg_pad=nrb * rb_size,
+               samples=samples, textured=textured, tex_only=tex_only,
+               cache=cache, cache_shape=cache_shape, far_sphere=far_sphere)
+    if lights is None and not want_samples:
+        shade = run_shade_means if shader is None else shader
+        # on a cache frame the one launch also does the far field's work
+        with span("cr.core.shade"), (
+                span("cr.core.farfield") if cache is not None
+                else contextlib.nullcontext()):
+            means = shade(out, rays, frames=frames, **geo)
+    else:
+        lit = None
+        if lights is not None:
+            def lit(hit, rr, gg, bb):
                 with span("cr.core.lit"):
-                    rr, gg, bb, audit = _lit_epilogue(
+                    return _lit_epilogue(
                         out, hit, rr, gg, bb, dx, dy, dz,
                         _neg_origins(omms_p, position, local_space, dx, dy,
                                      dz),
                         scene_dev, shading_rows, slot_tri, lights, shadow,
                         samples, ng, g, nrb, rb_size, shadow_audit,
                         shadow_tracer)
-            if cache is not None:
-                # the cache already holds the miss shader where nothing is hit
-                with span("cr.core.farfield"):
-                    c_idx, cfx, cfy = _equirect_coords_c(
-                        cache.shape[0], cache.shape[1], dx.reshape(-1),
-                        dy.reshape(-1), dz.reshape(-1))
-                    mr, mg, mb = quad_bilinear_c(
-                        cache.reshape(-1, 16)[c_idx], cfx, cfy)
-            else:
-                mr, mg, mb = miss_color_c(dx.reshape(-1), dy.reshape(-1),
-                                          dz.reshape(-1), background)
-            rr = torch.where(hit, rr, mr.reshape(n_pad, samples))
-            gg = torch.where(hit, gg, mg.reshape(n_pad, samples))
-            bb = torch.where(hit, bb, mb.reshape(n_pad, samples))
-    if want_samples:
-        return torch.stack([rr, gg, bb], dim=-1)
-    means = torch.stack([c.reshape(n_pad, frames, samples // frames)
-                         .mean(dim=2) for c in (rr, gg, bb)],
-                        dim=-1)  # (Np, F, 3)
+        with span("cr.core.shade"):
+            rr, gg, bb, audit = _shade_planes(out, dx, dy, dz, lit=lit,
+                                              **geo)
+        if want_samples:
+            return torch.stack([rr, gg, bb], dim=-1)
+        means = _plane_means((rr, gg, bb), frames)
     if sky_means is not None:
         means = scatter_sky(means, sky_means, sky_scatter)
     if frames == 1:
@@ -2225,7 +2405,7 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
                  omms_np: np.ndarray, position, local_space,
                  generator: torch.Generator, samples: int, background: int,
                  lights=None, shadow_audit: bool = False, tracer=None,
-                 cache_tracer=None, shadow_tracer=None):
+                 cache_tracer=None, shadow_tracer=None, shader=None):
     """One frame: (N, 3) mean radiance per ommatidium in the original
     ommatidium order (compound_ray_tpu/eye/pipeline.py:2676,
     render_means_pallas, planned by _plan_frame).  The frame runs on the
@@ -2238,14 +2418,15 @@ def render_means(scene_flat, scene_dev: Dict[str, Any],
     first build at a pose probes this frame's own rays (one more K1
     launch).  With shadow_audit a lit frame returns (means, audit), audit
     = [out-of-shaft hits, hits, per-group out-of-shaft hits] (int64 on the
-    device).  `tracer`, `cache_tracer` and `shadow_tracer` replace K1, K2
-    and K3 (the chip check renders through the twins with them)."""
+    device).  `tracer`, `cache_tracer`, `shadow_tracer` and `shader`
+    replace K1, K2, K3 and the unlit shading kernel (the chip check
+    renders through the twins with them)."""
     kw, inv_valid = _plan_frame(
         scene_flat, scene_dev, omms_np, position, local_space, generator,
         samples, background, lights=lights, tracer=tracer,
         cache_tracer=cache_tracer, shadow_tracer=shadow_tracer)
     audit_on = lights is not None and shadow_audit
-    out = _trace_shade_angles(shadow_audit=audit_on, **kw)
+    out = _trace_shade_angles(shadow_audit=audit_on, shader=shader, **kw)
     if audit_on:
         means_p, audit = out
         return means_p[inv_valid], audit
@@ -2299,18 +2480,20 @@ def render_means_frames(scene_flat, scene_dev: Dict[str, Any],
                         omms_np: np.ndarray, position, local_space,
                         generators, samples: int, background: int,
                         lights=None, tracer=None, cache_tracer=None,
-                        shadow_tracer=None) -> torch.Tensor:
+                        shadow_tracer=None, shader=None) -> torch.Tensor:
     """(F, N, 3) means of F consecutive frames at one pose, frame f drawn
     from generators[f] (compound_ray_tpu/eye/pipeline.py:2854,
     render_means_pallas_frames): planned once by _plan_frame from frame 0,
     then stacked when 1 < F * S <= STACK_BURST_MAX_SAMPLES (one K1 launch;
     lit, one K3 launch), else scanned (F of each).  Frame f equals
     render_means(generators[f]) on the same plan.  No frame is audited
-    against its shadow shafts.  The tracers are render_means'."""
+    against its shadow shafts.  The tracers and the shader are
+    render_means'."""
     kw, inv_valid = _plan_frame(
         scene_flat, scene_dev, omms_np, position, local_space, generators[0],
         samples, background, lights=lights, tracer=tracer,
         cache_tracer=cache_tracer, shadow_tracer=shadow_tracer)
+    kw["shader"] = shader
     stacked = 1 < len(generators) * samples <= STACK_BURST_MAX_SAMPLES
     burst = _render_frames_stacked if stacked else _render_frames_scanned
     return burst(kw, _frame_angles(kw, generators, samples))[:, inv_valid]

@@ -237,6 +237,65 @@ def make_textured_quad_scene(tex_size: int = 8,
     return scene
 
 
+def add_textured_quads(scene):
+    """Two textured quads (a near one at z = -4 and a far one at z = -40)
+    on a checker texture, appended to a FlatScene of either package."""
+    quads = [((-1.0, 1.0, -4.0), (1.0, 3.0, -4.0)),
+             ((-12.0, 0.0, -40.0), (12.0, 12.0, -40.0))]
+    p0, p1, p2, uv = [], [], [], []
+    for (x0, y0, z), (x1, y1, _) in quads:
+        a, b = np.array([x0, y0, z]), np.array([x1, y0, z])
+        c, d = np.array([x1, y1, z]), np.array([x0, y1, z])
+        p0 += [a, a]
+        p1 += [b, c]
+        p2 += [c, d]
+        uv += [([0, 0], [1, 0], [1, 1]), ([0, 0], [1, 1], [0, 1])]
+    p0, p1, p2 = (np.array(v, np.float32) for v in (p0, p1, p2))
+    uv = np.array(uv, np.float32)
+    nt = len(p0)
+    z3 = np.zeros((nt, 3), np.float32)
+    z4 = np.zeros((nt, 4), np.float32)
+    cat = np.concatenate
+    scene.v0 = cat([scene.v0, p0])
+    scene.e1 = cat([scene.e1, p1 - p0])
+    scene.e2 = cat([scene.e2, p2 - p0])
+    scene.n0, scene.n1, scene.n2 = (cat([n, z3]) for n in
+                                    (scene.n0, scene.n1, scene.n2))
+    scene.has_normals = cat([scene.has_normals, np.zeros(nt, bool)])
+    scene.uv0, scene.uv1, scene.uv2 = (cat([u, uv[:, i]]) for i, u in
+                                       enumerate((scene.uv0, scene.uv1,
+                                                  scene.uv2)))
+    scene.has_uv = cat([scene.has_uv, np.ones(nt, bool)])
+    scene.c0, scene.c1, scene.c2 = (cat([c, z4]) for c in
+                                    (scene.c0, scene.c1, scene.c2))
+    scene.has_color = cat([scene.has_color, np.zeros(nt, bool)])
+    m = scene.mat_base_color.shape[0]
+    scene.mat_id = cat([scene.mat_id, np.full(nt, m, np.int32)])
+    scene.mat_base_color = cat([scene.mat_base_color,
+                                np.ones((1, 4), np.float32)])
+    scene.mat_metallic = cat([scene.mat_metallic, np.zeros(1, np.float32)])
+    scene.mat_roughness = cat([scene.mat_roughness,
+                               np.full(1, 0.5, np.float32)])
+    scene.mat_tex = cat([scene.mat_tex, np.zeros(1, np.int32)])
+    scene.mat_mr_tex = cat([scene.mat_mr_tex, np.full(1, -1, np.int32)])
+    scene.mat_normal_tex = cat([scene.mat_normal_tex,
+                                np.full(1, -1, np.int32)])
+    yy, xx = np.mgrid[0:8, 0:8]
+    checker = ((xx + yy) % 2).astype(np.float32)
+    tex = np.stack([checker, 1.0 - checker, np.full_like(checker, 0.5),
+                    np.ones_like(checker)], axis=-1)
+    scene.tex_data = tex.reshape(-1, 4)
+    scene.tex_offset = np.array([0], np.int32)
+    scene.tex_width = scene.tex_height = np.array([8], np.int32)
+    scene.tex_wrap_s = scene.tex_wrap_t = np.array([0], np.int32)
+    scene.tex_filter = np.array([1], np.int32)
+    pts = cat([p0, p1, p2])
+    scene.aabb_min = np.minimum(scene.aabb_min, pts.min(axis=0))
+    scene.aabb_max = np.maximum(scene.aabb_max, pts.max(axis=0))
+    scene._device_cache = None
+    return scene
+
+
 def make_mixed_flat_scene(tex_size: int = 8,
                           background: str = "black") -> FlatScene:
     """A textured floor quad + an UNtextured coloured box (two materials,
@@ -530,6 +589,49 @@ def frame_means(scene: FlatScene, f: SimpleNamespace) -> np.ndarray:
         sky_means=f.sky_means,
         sky_scatter=f.sky_scatter, affine=f.affine)
     return means[f.inv].cpu().numpy()
+
+
+def shade_inputs(scene: FlatScene, f: SimpleNamespace, frames: int = 1,
+                 seed: int = 1, tracer=None):
+    """The unlit shading's inputs in a frame_pack frame, as
+    _trace_shade_angles hands them to run_shade_means: (out, rays, dirs,
+    kw) with K1's (8, R) rows (or `tracer`'s), its rays, the (Np, S)
+    direction planes and the remaining keywords.  frames > 1 stacks that
+    many frames on the sample axis as a stacked burst does (frame 0's
+    angles are f's, the others drawn with numpy from `seed`), in one ray
+    block per group."""
+    ep = f.eplan
+    samples, nrb, rb_size = f.samples, ep.nrb, ep.rb_size
+    splay, spin = f.splay, f.spin
+    if frames > 1:
+        rng = np.random.default_rng(seed)
+        sd = f.omms_p[:, 6].cpu().numpy() / P.FWHM_SD_RATIO
+        shape = (f.omms_p.shape[0], (frames - 1) * samples)
+        dev = splay.device
+        splay = torch.cat([splay, torch.tensor(
+            rng.standard_normal(shape) * sd[:, None], dtype=torch.float32,
+            device=dev)], dim=1)
+        spin = torch.cat([spin, torch.tensor(
+            rng.uniform(size=shape) * np.pi, dtype=torch.float32,
+            device=dev)], dim=1)
+        samples *= frames
+        nrb, rb_size = 1, P._ceil_to(ep.g * samples, P.MM_BATCH_RAYS)
+    origins = P._omm_world_origins(f.omms_p, f.pos, f.ls)
+    rays, dirs = P._gen_ray_features(
+        f.omms_p, f.pos, f.ls, splay, spin, samples=samples, ng=f.ng,
+        g=ep.g, nrb=nrb, rb_size=rb_size, affine=f.affine, origins=origins)
+    trace = P.run_packed_tracer if tracer is None else tracer
+    out = trace(f.row_counts, f.packed_mm, rays, ng=f.ng, nrb=nrb,
+                rb_size=rb_size, rmax=f.rmax, ray_feats=rays.shape[0])
+    kw = dict(row_counts=f.row_counts, attr_table=f.splan.attr_table,
+              scene_dev=scene.device_triangles(f.pos.device),
+              quad_table=f.splan.quad_table, origins=origins,
+              background=miss_id(scene.background_shader), ng=f.ng, g=ep.g,
+              rg_pad=nrb * rb_size, samples=samples, frames=frames,
+              textured=f.splan.textured, tex_only=f.splan.tex_only,
+              cache=f.cache, cache_shape=f.cache_shape,
+              far_sphere=f.far_sphere)
+    return out, rays, dirs, kw
 
 
 def hit_agreement(ref, got, row_counts, rg: int):

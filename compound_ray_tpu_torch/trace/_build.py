@@ -138,6 +138,14 @@ def refine_mask_lib() -> ctypes.CDLL:
                   _P])
 
 
+def shade_means_lib() -> ctypes.CDLL:
+    """The frame core's unlit shading and means (csrc/shade_means.cu)."""
+    return _load("shade_means", "cr_shade_means",
+                 [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _P, _P, _P, _P,
+                  _P, _P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P,
+                  ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P])
+
+
 def probe_step_lib() -> ctypes.CDLL:
     """The K4 and K5 library (csrc/probe_step.cu)."""
     return _load("probe_step", "cr_probe_step",

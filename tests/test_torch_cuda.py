@@ -18,7 +18,10 @@ The dot bench (K6): within 1e-5 of the sum of |terms| in both precisions.
 The planning refine (csrc/refine_mask.cu) writes every product, sum and
 division as its twin (_refine_mask) rounds it: its row counts and pack
 keys equal the twin's on the card bit for bit, and so do the plans built
-through it, at the pose sweep cell's scene and poses.
+through it, at the pose sweep cell's scene and poses.  The unlit shading
+(csrc/shade_means.cu) rounds every sample's colour as its twin
+(shade_means_reference) does, so only the mean's order of summation
+differs: means within 1e-4, and 1e-6 on average.
 """
 
 import functools
@@ -35,6 +38,7 @@ from compound_ray_tpu_torch.tools import probe_step as PS
 from compound_ray_tpu_torch.trace import cluster_tracer as CT
 from compound_ray_tpu_torch.trace import mm_tracer as TM
 from compound_ray_tpu_torch.trace.lighting import default_lights
+from compound_ray_tpu_torch.trace.shade import miss_id
 
 SLOT_AGREE = 0.999
 T_RTOL = 1e-5
@@ -998,3 +1002,123 @@ def test_plans_through_the_refine_kernel_equal_the_twin_path(cuda_device,
         assert rmax_k == rmax_t
         assert torch.equal(rc_k, rc_t)
         assert torch.equal(pm_k, pm_t)
+
+
+def _wrap_texture_scene():
+    """Two textures with nearest and linear filtering under clamp and
+    mirror addressing."""
+    scene = testing.make_two_texture_scene()
+    scene.tex_wrap_s = np.array([1, 2], np.int32)
+    scene.tex_wrap_t = np.array([2, 1], np.int32)
+    scene.tex_filter = np.array([0, 1], np.int32)
+    scene._device_cache = None
+    return scene
+
+
+def _big_field():
+    return testing.make_big_scene(200, seed=11)
+
+
+# name -> (scene, (ommatidia, degrees), samples, pose, frame_pack keywords,
+# frames of a stacked burst)
+SHADE_CASES = {
+    "textured-flat": (testing.make_mixed_flat_scene, (48, 6.0), 96,
+                      (0.0, 5.0, 0.0), {}, 1),
+    "tex-only-wraps": (_wrap_texture_scene, (48, 8.0), 64, (0.0, 5.0, 0.0),
+                       {}, 1),
+    "tex-only-g1-320": (testing.make_two_texture_scene, (64, 8.0), 320,
+                        (0.0, 5.0, 0.0), {}, 1),
+    "flat-white-g8": (lambda: testing.make_box_scene("white", colored=False),
+                      (64, 6.0), 16, (0.0, 2.0, 3.0), {}, 1),
+    "vertex-default-bg": (
+        lambda: testing.make_box_scene("default_background"), (64, 6.0), 64,
+        (0.0, 2.0, 3.0), {}, 1),
+    "vertex-simple-sky": (testing.make_box_scene, (64, 6.0), 3200,
+                          (0.0, 2.0, 3.0), {}, 1),
+    "burst-4": (testing.make_mixed_flat_scene, (48, 6.0), 100,
+                (0.0, 5.0, 0.0), {}, 4),
+    "cache": (_big_field, (64, 4.0), 128, (0.0, 2.0, 0.0),
+              {"cache_width": 64}, 1),
+    "cache-textured": (lambda: testing.add_textured_quads(_big_field()),
+                       (64, 4.0), 128, (0.0, 2.0, 0.0), {"cache_width": 64},
+                       1),
+    "cache-sky": (_big_field, (64, 4.0), 128, (0.0, 2.0, 0.0),
+                  {"cache_width": 64, "sky": True}, 1),
+}
+SHADE_MAX_ABS = 1e-4
+SHADE_MEAN_ABS = 1e-6
+
+
+def _shade_case(name, device):
+    make, (n, deg), samples, pos, extra, frames = SHADE_CASES[name]
+    scene = make()
+    omms = ommatidia_to_array(testing.make_sphere_eye(n, deg))
+    f = testing.frame_pack(scene, omms, samples, pos, device, seed=3,
+                           **extra)
+    return scene, f, frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SHADE_CASES))
+def test_shade_kernel_matches_twin(cuda_device, name):
+    """csrc/shade_means.cu against shade_means_reference on the same K1
+    rows and rays, one launch each: every sample's colour is the twin's,
+    so the means differ only by the order of summation."""
+    scene, f, frames = _shade_case(name, cuda_device)
+    out, rays, _, kw = testing.shade_inputs(scene, f, frames=frames)
+    before = P.shade_launches
+    got = P.run_shade_means(out, rays, **kw)
+    torch.cuda.synchronize()
+    assert P.shade_launches == before + 1
+    want = P.shade_means_reference(out, rays, **kw)
+    assert got.shape == want.shape == (f.omms_p.shape[0], frames, 3)
+    err = (got - want).abs()
+    assert err.max().item() <= SHADE_MAX_ABS, err.max().item()
+    assert err.mean().item() <= SHADE_MEAN_ABS, err.mean().item()
+    if name == "tex-only-g1-320":
+        assert (kw["g"], kw["rg_pad"]) == (1, 512)
+    if name == "flat-white-g8":
+        assert kw["g"] == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cache-sky", "textured-flat"])
+def test_frames_shade_once_through_the_kernel(cuda_device, name):
+    """A frame core on the card shades through the kernel, one launch a
+    frame, the sky split's scatter applied after it; the same frame
+    through the twin (shader=shade_means_reference) launches none and
+    agrees; lit frames and raw samples never launch the kernel."""
+    scene, f, _ = _shade_case(name, cuda_device)
+    ep = f.eplan
+    args = dict(packed_mm=f.packed_mm, row_counts=f.row_counts,
+                attr_table=f.splan.attr_table,
+                scene_dev=scene.device_triangles(cuda_device),
+                quad_table=f.splan.quad_table, omms_p=f.omms_p,
+                position=f.pos, local_space=f.ls, splay=f.splay,
+                spin=f.spin, samples=f.samples,
+                background=miss_id(scene.background_shader),
+                ng=f.ng, g=ep.g, nrb=ep.nrb, rb_size=ep.rb_size,
+                rmax=f.rmax, textured=f.splan.textured,
+                tex_only=f.splan.tex_only, cache=f.cache,
+                cache_shape=f.cache_shape, far_sphere=f.far_sphere,
+                sky_means=f.sky_means, sky_scatter=f.sky_scatter)
+    before = P.shade_launches
+    got = P._trace_shade_angles(**args)
+    torch.cuda.synchronize()
+    assert P.shade_launches == before + 1
+    want = P._trace_shade_angles(shader=P.shade_means_reference, **args)
+    raw = P._trace_shade_angles(want_samples=True, **args)
+    torch.cuda.synchronize()
+    assert P.shade_launches == before + 1
+    assert got.shape == want.shape == (
+        (f.sky_means.shape[0] if f.sky_means is not None
+         else f.omms_p.shape[0]), 3)
+    err = (got - want).abs()
+    assert err.max().item() <= SHADE_MAX_ABS
+    assert err.mean().item() <= SHADE_MEAN_ABS
+    assert raw.shape == (f.omms_p.shape[0], f.samples, 3)
+    if name == "textured-flat":
+        testing.lit_frame_means(
+            scene, f, default_lights(scene.aabb_min, scene.aabb_max))
+        torch.cuda.synchronize()
+        assert P.shade_launches == before + 1

@@ -76,71 +76,13 @@ def pinned(monkeypatch):
     jcfg.set_config(old)
 
 
-def _add_textured_quads(scene):
-    """Two textured quads (a near one at z = -4 and a far one at z = -40)
-    on a checker texture, appended to a FlatScene of either package."""
-    quads = [((-1.0, 1.0, -4.0), (1.0, 3.0, -4.0)),
-             ((-12.0, 0.0, -40.0), (12.0, 12.0, -40.0))]
-    p0, p1, p2, uv = [], [], [], []
-    for (x0, y0, z), (x1, y1, _) in quads:
-        a, b = np.array([x0, y0, z]), np.array([x1, y0, z])
-        c, d = np.array([x1, y1, z]), np.array([x0, y1, z])
-        p0 += [a, a]
-        p1 += [b, c]
-        p2 += [c, d]
-        uv += [([0, 0], [1, 0], [1, 1]), ([0, 0], [1, 1], [0, 1])]
-    p0, p1, p2 = (np.array(v, np.float32) for v in (p0, p1, p2))
-    uv = np.array(uv, np.float32)
-    nt = len(p0)
-    z3 = np.zeros((nt, 3), np.float32)
-    z4 = np.zeros((nt, 4), np.float32)
-    cat = np.concatenate
-    scene.v0 = cat([scene.v0, p0])
-    scene.e1 = cat([scene.e1, p1 - p0])
-    scene.e2 = cat([scene.e2, p2 - p0])
-    scene.n0, scene.n1, scene.n2 = (cat([n, z3]) for n in
-                                    (scene.n0, scene.n1, scene.n2))
-    scene.has_normals = cat([scene.has_normals, np.zeros(nt, bool)])
-    scene.uv0, scene.uv1, scene.uv2 = (cat([u, uv[:, i]]) for i, u in
-                                       enumerate((scene.uv0, scene.uv1,
-                                                  scene.uv2)))
-    scene.has_uv = cat([scene.has_uv, np.ones(nt, bool)])
-    scene.c0, scene.c1, scene.c2 = (cat([c, z4]) for c in
-                                    (scene.c0, scene.c1, scene.c2))
-    scene.has_color = cat([scene.has_color, np.zeros(nt, bool)])
-    m = scene.mat_base_color.shape[0]
-    scene.mat_id = cat([scene.mat_id, np.full(nt, m, np.int32)])
-    scene.mat_base_color = cat([scene.mat_base_color,
-                                np.ones((1, 4), np.float32)])
-    scene.mat_metallic = cat([scene.mat_metallic, np.zeros(1, np.float32)])
-    scene.mat_roughness = cat([scene.mat_roughness,
-                               np.full(1, 0.5, np.float32)])
-    scene.mat_tex = cat([scene.mat_tex, np.zeros(1, np.int32)])
-    scene.mat_mr_tex = cat([scene.mat_mr_tex, np.full(1, -1, np.int32)])
-    scene.mat_normal_tex = cat([scene.mat_normal_tex,
-                                np.full(1, -1, np.int32)])
-    yy, xx = np.mgrid[0:8, 0:8]
-    checker = ((xx + yy) % 2).astype(np.float32)
-    tex = np.stack([checker, 1.0 - checker, np.full_like(checker, 0.5),
-                    np.ones_like(checker)], axis=-1)
-    scene.tex_data = tex.reshape(-1, 4)
-    scene.tex_offset = np.array([0], np.int32)
-    scene.tex_width = scene.tex_height = np.array([8], np.int32)
-    scene.tex_wrap_s = scene.tex_wrap_t = np.array([0], np.int32)
-    scene.tex_filter = np.array([1], np.int32)
-    pts = cat([p0, p1, p2])
-    scene.aabb_min = np.minimum(scene.aabb_min, pts.min(axis=0))
-    scene.aabb_max = np.maximum(scene.aabb_max, pts.max(axis=0))
-    scene._device_cache = None
-    return scene
-
-
 def _pair(textured=False, samples=SAMPLES):
     """Both packages' scene, plans and permuted eye at the test pose."""
     js = jtesting.make_big_scene(n_boxes=200, seed=11)
     ts = ttesting.make_big_scene(n_boxes=200, seed=11)
     if textured:
-        js, ts = _add_textured_quads(js), _add_textured_quads(ts)
+        js = ttesting.add_textured_quads(js)
+        ts = ttesting.add_textured_quads(ts)
     omms = ommatidia_to_array(jtesting.make_sphere_eye(64, 4.0))
     jsp, tsp = JP.scene_plan(js), TP.scene_plan(ts, "cpu")
     assert tsp.num_clusters == jsp.num_clusters == 32
