@@ -124,13 +124,13 @@ Phases, each failing loudly:
      sweep's shapes (testing.natural_sweep: 100 samples, two ommatidia a
      group, the exact refine): counted as a path, REFINE_VIEWS new sweep
      poses through render_frame, each view's refine launches equal to the
-     chunks of its widths and pack passes (2 at one chunk a pass); then at
-     the configuration's pose and REFINE_POSES seeded sweep poses, chunk
-     by chunk as the widths and the pack call it: row counts (both forms)
-     and keys bit-equal to the twin, each pose's kernel time in both forms
-     and the twin's (CUDA events), the bound (REFINE_*_OPS, slot tables
-     read once), and each pose's widths-and-pack plan through the kernel
-     and through the twin;
+     chunks of its one planning pass (1 at one chunk); then at the
+     configuration's pose and REFINE_POSES seeded sweep poses, chunk by
+     chunk as the pack calls it: row counts and keys bit-equal to the
+     twin, each pose's kernel time and the twin's (CUDA events), the bound
+     (REFINE_*_OPS, slot tables read once), and each pose's one-pass plan
+     (it measures its widths and packs) through the kernel and through
+     the twin;
  15. the unlit shading and means (csrc/shade_means.cu) at the shapes of
      the benchmark's steady cells ofstad-1000.steady-s3200,
      natural-1000.steady-s3200 and natural-acute-10k.steady-s320, each
@@ -441,12 +441,9 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool,
         splan, eplan, r.scene.device_triangles(dev), omms, pos_np, ls_np,
         samples, miss_id(r.scene.background_shader), get_config())
     d = 0.0 if sphere is None else sphere[1]
-    kcand, rmax = P._plan_widths(
-        splan, eplan, omms_p, pos, ls,
-        (eplan.sig, samples, sig, near is not None, d), near)
-    rc, pmm = P._packed_plan(splan, eplan, omms_p, pos, ls, sig, samples,
-                             kcand, rmax, near_mask=near, d_thresh=d,
-                             affine=affine)
+    rc, pmm, kcand, rmax = P._packed_plan(splan, eplan, omms_p, pos, ls,
+                                          sig, samples, near_mask=near,
+                                          d_thresh=d, affine=affine)
     gen = torch.Generator(device=dev).manual_seed(12345)
     splay, spin = sample_angles_ns(gen, omms_p[:, 6] / P.FWHM_SD_RATIO,
                                    samples)
@@ -2040,7 +2037,8 @@ def pose_batch(r, cam) -> dict:
     # the packs the bench eye's steady frames left in the store (phases
     # 5-10 at 1, 100 and 3200 samples): (samples, cache, shape, MB)
     res = dict(bench_packs=[
-        [k[1], bool(k[5]), list(v[1].shape), round(_nbytes(*v) / 2**20, 1)]
+        [k[1], bool(k[3]), list(v[1].shape),
+         round(P._pack_nbytes(v) / 2**20, 1)]
         for k, v in splan.packed_store.items()])
     rng = np.random.default_rng(0)
     base = np.asarray(cam.position, np.float64)
@@ -2095,7 +2093,7 @@ def pose_batch(r, cam) -> dict:
         """(allocated, the pack LRU's tensors, the eye plans' device
         copies) in MB."""
         torch.cuda.synchronize()
-        packs = sum(_nbytes(*v) for v in splan.packed_store.values())
+        packs = sum(map(P._pack_nbytes, splan.packed_store.values()))
         eyes = sum(_nbytes(*t) for e in P._eye_plans.values()
                    for t in e._dev.values())
         return [round(x / 2**20, 1) for x in (
@@ -2133,7 +2131,7 @@ def pose_batch(r, cam) -> dict:
 
     def record(*a, **k):
         out = real(*a, **k)
-        built.append(_nbytes(*out))
+        built.append(P._pack_nbytes(out))
         return out
 
     ga = [(tuple(p), np.eye(3)) for p in base[None, :]
@@ -3316,7 +3314,7 @@ def modes_checks(r, cam) -> dict:
         splan = P.scene_plan(r.scene, r.device)
         rc = [v[0] for k, v in splan.packed_store.items()
               if k[-2] == mode and k[1] == s and k[2] == sig and not k[-1]
-              and not k[5]]
+              and not k[3]]
         rows[mode] = dict(total=int(rc[-1].sum().item()),
                           max=int(rc[-1].max().item()))
     d_still = float(np.abs(still["sphere"] - still["exact"]).max())
@@ -3396,10 +3394,10 @@ def _sweep_renderer(scene, omms, samples: int):
 
 def refine_sweep_path(r, poses) -> list:
     """Phase 14's counted path: one render_frame at each pose, every pose
-    new to the renderer's memos, so each view plans its widths and its
-    pack.  Each view's refine launches must equal the chunks of those two
-    passes (_refine_chunks' ranges): 2 at one chunk a pass.  Returns
-    (launches, [chunks of each pass]) per view."""
+    new to the renderer's memos, so each view packs anew.  Each view's
+    refine launches must equal the chunks of its one planning pass
+    (_refine_chunks' ranges): 1 at one chunk.  Returns (launches, [chunks
+    of each pass]) per view."""
     from compound_ray_tpu_torch.eye import pipeline as P
 
     chunking, passes, per_view = P._refine_chunks, [], []
@@ -3421,7 +3419,7 @@ def refine_sweep_path(r, poses) -> list:
     finally:
         P._refine_chunks = chunking
     for n, chunks in per_view:
-        if len(chunks) != 2 or n != sum(chunks):
+        if len(chunks) != 1 or n != sum(chunks):
             raise AssertionError(f"a sweep view launched the refine {n} "
                                  f"times over passes of {chunks} chunks")
     return per_view
@@ -3454,15 +3452,14 @@ def refine_phase(card: str) -> dict:
     sweep's shapes (100 samples, two ommatidia a group, the exact refine).
     First the counted path, REFINE_VIEWS views of the sweep through
     render_frame (refine_sweep_path).  Then, chunk by chunk as
-    _plan_widths and _packed_plan call it, at the configuration's pose and
-    REFINE_POSES seeded poses: the kernel against its twin (row counts
-    equal in both forms, keys bit for bit); its time per pose in each form
-    and the twin's (CUDA events over every chunk of the pose; the
-    wrapper's forms include its per-ommatidium rows), the kernel's
-    launches alone on precomputed rows, its bound, and each pose's plan
-    (widths, then the pack, fresh memos) through the kernel and through
-    the twin.  Returns the bare kernel's key-form result for the kernel
-    table, with the path's refine launches."""
+    _packed_plan calls it, at the configuration's pose and REFINE_POSES
+    seeded poses: the kernel against its twin (row counts equal, keys bit
+    for bit); its time per pose and the twin's (CUDA events over every
+    chunk of the pose; the wrapper's time includes its per-ommatidium
+    rows), the kernel's launches alone on precomputed rows, its bound,
+    and each pose's one-pass plan (fresh store and hints) through the
+    kernel and through the twin.  Returns the bare kernel's result for
+    the kernel table, with the path's refine launches."""
     from compound_ray_tpu_torch import testing
     from compound_ray_tpu_torch.config import get_config
     from compound_ray_tpu_torch.eye import pipeline as P
@@ -3480,12 +3477,12 @@ def refine_phase(card: str) -> dict:
     if not (path_n["refine"] == sum(v[0] for v in per_view)
             and path_n["k1"] == len(views) and path_n["k3"] == 0):
         raise AssertionError(f"the sweep path launched {path_n}")
-    one = [v[0] for v in per_view if v[1] == [1, 1]]
+    one = [v[0] for v in per_view if v[1] == [1]]
     print(f"phase 14: pose sweep, {len(views)} views through render_frame "
           f"({card}): refine launches by view "
           f"{[v[0] for v in per_view]}, chunks by pass "
-          f"{[v[1] for v in per_view]}; {len(one)} views at one chunk a "
-          f"pass, {sum(one)} launches")
+          f"{[v[1] for v in per_view]}; {len(one)} views at one chunk, "
+          f"{sum(one)} launches")
     splan = P.scene_plan(scene, "cuda")
     eplan = P.eye_plan(omms, REFINE_SAMPLES)
     g, sig = eplan.g, get_config().cull_sigmas
@@ -3506,12 +3503,10 @@ def refine_phase(card: str) -> dict:
                    splan.slot_center_cl, splan.slot_radius_cl, g, sig, tri)
                   for a, b in P._refine_chunks(ids.shape[0], g, kcand)]
         for args in chunks:
-            rows_c, _ = P.run_refine(*args, keys=False)
             rows_k, key = P.run_refine(*args)
             torch.cuda.synchronize()
             want_rows, want_key = P.refine_reference(*args)
-            if not (torch.equal(rows_c, want_rows)
-                    and torch.equal(rows_k, want_rows)
+            if not (torch.equal(rows_k, want_rows)
                     and torch.equal(key, want_key)):
                 bad = int((key != want_key).sum())
                 raise AssertionError(
@@ -3521,11 +3516,8 @@ def refine_phase(card: str) -> dict:
         work["flop"] += w["flop"]
         work["bytes"] += w["bytes"]
         res = dict(kcand=kcand, chunks=len(chunks), groups=ids.shape[0])
-        for tag, fn in (
-                ("counts_ms", lambda: [P.run_refine(*a, keys=False)
-                                       for a in chunks]),
-                ("key_ms", lambda: [P.run_refine(*a) for a in chunks])):
-            res[tag] = time_ms(fn, reps=REFINE_REPS)
+        res["key_ms"] = time_ms(lambda: [P.run_refine(*a) for a in chunks],
+                                reps=REFINE_REPS)
         # the kernel alone: its launches on precomputed member rows
         bare = []
         for a in chunks:
@@ -3542,15 +3534,11 @@ def refine_phase(card: str) -> dict:
         res.update({k: v for k, v in _bound(w["flop"], w["bytes"]).items()
                     if k in ("bound_ms", "bound_by")})
 
-        def plan(tag):  # widths, then the pack, with fresh memos
-            splan.kmax_cache.clear()
+        def plan(tag):  # the one pass, with a fresh store and hints
             splan.packed_store.clear()
             eplan.kmax_hint, eplan.rmax_hint = 8, 1
-            kc, rm = P._plan_widths(splan, eplan, omms_p, pos, ls,
-                                    (eplan.sig, tag, pos_np.tobytes()))
             return P._packed_plan(splan, eplan, omms_p, pos, ls,
-                                  (pos_np.tobytes(), tag), REFINE_SAMPLES,
-                                  kc, rm)
+                                  (pos_np.tobytes(), tag), REFINE_SAMPLES)
 
         kernel = P.run_refine
         res["plan_ms"] = _events_ms(lambda: plan("kernel"))[1]
@@ -3565,7 +3553,6 @@ def refine_phase(card: str) -> dict:
         poses=n, g=g, max_abs_err=0.0,  # keys bit-equal, or the phase raised
         ms=float(np.mean([p["kernel_ms"] for p in per_pose])),
         key_ms=float(np.mean([p["key_ms"] for p in per_pose])),
-        counts_ms=float(np.mean([p["counts_ms"] for p in per_pose])),
         plain_ms=float(np.mean([p["plain_ms"] for p in per_pose])),
         **_bound(work["flop"] / n, work["bytes"] // n),
         plan_ms=float(np.mean([p["plan_ms"] for p in per_pose])),
@@ -3575,7 +3562,7 @@ def refine_phase(card: str) -> dict:
           f"({N_OMM} ommatidia x {REFINE_SAMPLES} samples, g {g}, exact; "
           f"{card}), per pose: {json.dumps(per_pose)}")
     print(f"phase 14: refine, mean of {n} poses: {json.dumps(out)} "
-          f"(rows equal in both forms and keys bit for bit at every chunk; "
+          f"(rows equal and keys bit for bit at every chunk; "
           f"{time.perf_counter() - t0:.1f} s)")
     return out
 
@@ -3974,7 +3961,7 @@ def main() -> int:
               k45["k5"]),
         entry("K6 skinny-K dot bench (K %d, N %d, %s)" % K6_ENTRY, K6_SOURCE,
               K6_REPLACES, "k6", k6),
-        entry("Planning refine (key form, per pose of the sweep)",
+        entry("Planning refine (per pose of the sweep)",
               REFINE_SOURCE, REFINE_REPLACES, "refine", refine),
     ] + [entry(f"Unlit shading and means ({res['cell']})", SHADE_SOURCE,
                SHADE_REPLACES, "shade", res) for res in shades]

@@ -93,7 +93,7 @@ class RenderConfig:
     # the leaking groups replan with guaranteed candidate-extent shadow
     # bounds (compound_ray_tpu/config.py:107); below it the leak only warns
     shadow_leak_tolerance: float = 2e-3
-    # groups per chunk of the shadow plan's probe refine and per-light pack
+    # groups per chunk of the shadow plan's per-light refine and pack
     # (compound_ray_tpu/config.py:138): peak plan-time memory scales with it
     shadow_pack_chunk: int = 128
 

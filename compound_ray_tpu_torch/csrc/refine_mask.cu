@@ -22,9 +22,9 @@
 //   radius  (C, 128) f32         their radii, -1 on padding slots
 //   tri     (C, 128, 9) f32      [v0 | e1 | e2] per slot (exact refine)
 //   rows    (NG,) int32          out: ceil(refined slots / 128)
-//   key     (NG, kcand * 128)    out, optional: the member-minimum
-//           f32                  apex-to-centre distance of each refined
-//                                slot, +inf elsewhere
+//   key     (NG, kcand * 128)    out: the member-minimum apex-to-centre
+//           f32                  distance of each refined slot, +inf
+//                                elsewhere
 // A (group, slot) pair is refined iff its shortlist entry is live, its
 // radius is >= 0 and some member ommatidium's cone passes: the
 // cone-vs-sphere test (apex inside the sphere, or the angle to its centre
@@ -49,11 +49,10 @@
 //   * one block per group, its threads strided over the group's kcand *
 //     128 slots, a warp on 32 neighbouring slots of one cluster (coalesced
 //     slot reads and key writes); the group's member cones sit in shared
-//     memory, and the refined-slot count is reduced inside the block, so
-//     the counts form writes 4 B per group and no (NG, kc) array at all;
+//     memory, and the refined-slot count is reduced inside the block;
 //   * no work where the answer is known: slots past the group's live
-//     shortlist or with a negative radius are not tested (the key form
-//     writes +inf for them), the triangle test runs only where the sphere
+//     shortlist or with a negative radius are not tested (their key is
+//     +inf), the triangle test runs only where the sphere
 //     test and the dmax bound pass, and only until one member has refined
 //     the slot.  Every member's distance is still taken, since the key is
 //     the minimum over all members, as the twin's;
@@ -203,7 +202,7 @@ refine_kernel(const float* __restrict__ omm, const int* __restrict__ ids,
   // cand < counts[grp] marks a live shortlist entry
   const int live = min(max(counts[grp], 0), kcand) * kLeaf;
   const int* gids = ids + static_cast<size_t>(grp) * ids_stride;
-  float* gkey = key == nullptr ? nullptr : key + static_cast<size_t>(grp) * kc;
+  float* gkey = key + static_cast<size_t>(grp) * kc;
   const float inf = __int_as_float(0x7f800000);
   int refined = 0;
   for (int k = threadIdx.x; k < live; k += kThreads) {
@@ -240,11 +239,9 @@ refine_kernel(const float* __restrict__ omm, const int* __restrict__ ids,
       }
     }
     refined += hit;
-    if (gkey != nullptr) gkey[k] = hit ? dmin : inf;
+    gkey[k] = hit ? dmin : inf;
   }
-  if (gkey != nullptr) {
-    for (int k = live + threadIdx.x; k < kc; k += kThreads) gkey[k] = inf;
-  }
+  for (int k = live + threadIdx.x; k < kc; k += kThreads) gkey[k] = inf;
 
   for (int off = 16; off > 0; off >>= 1) {
     refined += __shfl_down_sync(0xffffffffu, refined, off);
@@ -264,7 +261,7 @@ refine_kernel(const float* __restrict__ omm, const int* __restrict__ ids,
 // Launches the refine on `stream` and returns a CUDA error code (0 =
 // launched).  ng groups of g ommatidia (1 <= g <= 32), kcand shortlist
 // entries each; exact != 0 runs the triangle test on `tri`; has_dmax != 0
-// applies the omm rows' dmax; key may be null (the counts form).
+// applies the omm rows' dmax.
 extern "C" int cr_refine_mask(const float* omm, const int* ids,
                               int ids_stride, const int* counts,
                               const float* center, const float* radius,
@@ -272,7 +269,7 @@ extern "C" int cr_refine_mask(const float* omm, const int* ids,
                               int exact, int has_dmax, int* rows, float* key,
                               void* stream) {
   if (ng <= 0 || g < 1 || g > kMaxG || kcand < 1 || ids_stride < kcand ||
-      (exact && tri == nullptr) ||
+      (exact && tri == nullptr) || key == nullptr ||
       static_cast<long long>(kcand) * kLeaf > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

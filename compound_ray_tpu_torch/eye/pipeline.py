@@ -4,13 +4,13 @@ shading (compound_ray_tpu/eye/pipeline.py in torch).
 Per frame:
   1. plan (memoised): scene tables (scene_plan), the eye's group layout
      (eye_plan), the far-field split and its radiance cache (_farfield_plan
-     -> _render_cache on K2, trace/cluster_tracer.py), the kernel widths at
-     this pose (_plan_widths) and the pose's packed payload (_packed_plan ->
-     _pack_fused: cone cull -> near clusters -> cluster shortlist ->
-     per-triangle refine (run_refine: csrc/refine_mask.cu on CUDA
-     tensors, its twin _refine_mask on the CPU) -> payload pack); with the
-     sky split on, the compacted live groups and the sky groups' cache
-     expectation (_sky_build);
+     -> _render_cache on K2, trace/cluster_tracer.py) and the pose's packed
+     payload at the widths it measures (_packed_plan -> _pack_fused: cone
+     cull -> near clusters -> cluster shortlist -> per-triangle refine
+     (run_refine: csrc/refine_mask.cu on CUDA tensors, its twin
+     _refine_mask on the CPU) -> payload pack); with the sky split on, the
+     compacted live groups and the sky groups' cache expectation
+     (_sky_build);
   2. draw (N, S) cone-jitter angles from the caller's torch.Generator;
      a lit frame then takes its memoised shadow plan (_shadow_plan: a K1
      probe of the first frame's hit points at the pose, per-light occluder
@@ -47,8 +47,8 @@ each shard with _trace_shade_angles.
 
 Under a profiler the layers record spans (spans.py): cr.plan around
 _plan_frame with cr.plan.farfield and cr.plan.angles inside it, a
-cr.plan.build.* span (widths, pack, cache, sky, shadow) only where a memo
-misses and builds, cr.refine around each refine kernel launch, and cr.core
+cr.plan.build.* span (pack, cache, sky, shadow) only where a memo misses
+and builds, cr.refine around each refine kernel launch, and cr.core
 around _trace_shade_angles with cr.core.rays, cr.core.shade and
 cr.core.lit inside it, and cr.core.farfield (the far-field sphere's hit
 test and the cache lookups) inside cr.core.shade; an unlit means frame's
@@ -177,10 +177,11 @@ class ScenePlan:
     # their device copies: the camera image culls its tiles against them
     sphere_center: torch.Tensor
     sphere_radius: torch.Tensor
-    kmax_cache: Dict = field(default_factory=dict)  # pose -> (kcand, rmax)
     packed_store: Dict = field(default_factory=dict)  # bounded LRU of packs
     cache_store: Dict = field(default_factory=dict)  # viewpoint -> cache
     sky_store: Dict = field(default_factory=dict)  # pose -> sky plan, LRU
+    # (eye sig, samples, quantum) -> the sky split's live-group high-water
+    sky_ngl: Dict = field(default_factory=dict)
     slot_tri: torch.Tensor = None  # (S,) int32 slot -> triangle id, -1 pad
     # (T, 18 | 26) build_shading_rows of the scene, built by the first lit
     # frame
@@ -332,8 +333,8 @@ def eye_plan(ommatidia: np.ndarray, samples: int,
     of ranks (parallel/sharding.py).  Padding replicates the last
     ommatidium in the scan order; padded outputs are dropped by inv_valid.
     Memoised in an LRU of EYE_PLAN_STORE_SIZE plans (the JAX memo has no
-    bound); a plan built again has the same signature, so the width and
-    pack memos keyed by it still serve it.  Plans that pad differently have
+    bound); a plan built again has the same signature, so the pack memo
+    keyed by it still serves it.  Plans that pad differently have
     different signatures, so no pose memo serves one plan's pack to
     another."""
     h = hashlib.blake2b(np.ascontiguousarray(ommatidia).tobytes(),
@@ -609,32 +610,29 @@ def _refine_mask(omms_p, position, local_space, ids, cl_counts, center_cl,
 
 def refine_reference(omms_p, position, local_space, ids, cl_counts,
                      center_cl, radius_cl, g: int, cull_sigmas: float,
-                     tri_cl, dmax=None, keys: bool = True):
+                     tri_cl, dmax=None):
     """run_refine's plain torch twin: _refine_mask, then the refined rows
-    per group and, with keys, the pack's sort key."""
+    per group and the pack's sort key."""
     mask, dist, _ = _refine_mask(omms_p, position, local_space, ids,
                                  cl_counts, center_cl, radius_cl, g,
                                  cull_sigmas, tri_cl, dmax=dmax)
-    key = torch.where(mask, dist, torch.inf) if keys else None
-    return _rows(mask.sum(dim=-1)), key
+    return _rows(mask.sum(dim=-1)), torch.where(mask, dist, torch.inf)
 
 
 def run_refine(omms_p, position, local_space, ids, cl_counts, center_cl,
-               radius_cl, g: int, cull_sigmas: float, tri_cl, dmax=None,
-               keys: bool = True):
+               radius_cl, g: int, cull_sigmas: float, tri_cl, dmax=None):
     """The per-triangle refine of a run of whole groups, _refine_mask's
-    arguments: (rows (NG,) int32, key (NG, kcand*128) f32 or None).  rows
-    is _rows of the refined slots per group; key (keys=True, the pack's
-    form) is where(mask, dist, inf) of _refine_mask's mask and distance,
-    None with keys=False (the widths' form).  CUDA tensors launch
-    csrc/refine_mask.cu once on the current stream (or raise), and equal
-    the twin bit for bit on the same card; CPU tensors take
-    refine_reference."""
+    arguments: (rows (NG,) int32, key (NG, kcand*128) f32).  rows is _rows
+    of the refined slots per group; key, the pack's sort key, is
+    where(mask, dist, inf) of _refine_mask's mask and distance.  CUDA
+    tensors launch csrc/refine_mask.cu once on the current stream (or
+    raise), and equal the twin bit for bit on the same card; CPU tensors
+    take refine_reference."""
     dev = ids.device
     if dev.type == "cpu":
         return refine_reference(omms_p, position, local_space, ids,
                                 cl_counts, center_cl, radius_cl, g,
-                                cull_sigmas, tri_cl, dmax=dmax, keys=keys)
+                                cull_sigmas, tri_cl, dmax=dmax)
     if dev.type != "cuda":
         raise ValueError(f"run_refine takes CPU or CUDA tensors, not "
                          f"{dev.type}")
@@ -664,8 +662,8 @@ def run_refine(omms_p, position, local_space, ids, cl_counts, center_cl,
         raise ValueError(f"g={g}: the refine kernel takes 1 to 32 "
                          f"ommatidia per group")
     rows = torch.empty(ng, dtype=torch.int32, device=dev)
-    key = (torch.empty((ng, kcand * KERNEL_LEAF), dtype=torch.float32,
-                       device=dev) if keys else None)
+    key = torch.empty((ng, kcand * KERNEL_LEAF), dtype=torch.float32,
+                      device=dev)
     cones = _refine_cones(omms_p, position, local_space, cull_sigmas,
                           tri_cl is not None, dmax)
     _launch_refine(cones, ids, cl_counts, center_cl, radius_cl, tri_cl, g,
@@ -676,7 +674,7 @@ def run_refine(omms_p, position, local_space, ids, cl_counts, center_cl,
 def _launch_refine(cones, ids, cl_counts, center_cl, radius_cl, tri_cl,
                    g: int, has_dmax: bool, rows, key) -> None:
     """One launch of csrc/refine_mask.cu on run_refine's checked inputs and
-    _refine_cones' rows, writing rows and (unless None) key."""
+    _refine_cones' rows, writing rows and key."""
     global refine_launches
     from compound_ray_tpu_torch.trace import _build
 
@@ -694,7 +692,7 @@ def _launch_refine(cones, ids, cl_counts, center_cl, radius_cl, tri_cl,
                 ctypes.c_void_p(0 if tri_cl is None else tri_cl.data_ptr()),
                 ids.shape[0], g, ids.shape[1], int(tri_cl is not None),
                 int(has_dmax), ctypes.c_void_p(rows.data_ptr()),
-                ctypes.c_void_p(0 if key is None else key.data_ptr()),
+                ctypes.c_void_p(key.data_ptr()),
                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"refine launch failed: CUDA error {err}")
@@ -715,86 +713,94 @@ def _rows(refined):
     return ((refined + KERNEL_LEAF - 1) // KERNEL_LEAF).to(torch.int32)
 
 
-def _refine_counts(omms_p, position, local_space, half_center, half_radius,
-                   center_cl, radius_cl, g: int, kcand: int,
-                   cull_sigmas: float, tri_cl, near_mask=None):
-    """Packed payload rows per group at this pose
-    (compound_ray_tpu/eye/pipeline.py:660), over the near clusters only
-    when near_mask (C,) is given."""
-    gmask, counts, dmin_all = _cull_groups(
-        omms_p, position, local_space, half_center, half_radius,
-        cull_sigmas, g)
-    gmask, counts = _near_counts(gmask, counts, near_mask)
-    ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
-    cl_counts = torch.clamp(counts, max=kcand)
-    parts = []
-    for g0, g1 in _refine_chunks(ids.shape[0], g, kcand):
-        rows, _ = run_refine(
-            omms_p[g0 * g:g1 * g], position, local_space, ids[g0:g1],
-            cl_counts[g0:g1], center_cl, radius_cl, g, cull_sigmas,
-            tri_cl=tri_cl, keys=False)
-        parts.append(rows)
-    return torch.cat(parts)
+def _refine_sorted(omms_p, position, local_space, ids, cl_counts, center_cl,
+                   radius_cl, g: int, cull_sigmas: float, tri_cl,
+                   pad_slot: int, dmax=None):
+    """One chunk's refine (run_refine's arguments), its refined slots
+    nearest first: (rows (n,) int32, the same rows read to the host, slots
+    (n, r*128) int32) with r the chunk's most rows.  A group's columns
+    past its refined slots hold pad_slot, and no group refines past r*128
+    slots, so the cut drops padding only."""
+    rows, key = run_refine(omms_p, position, local_space, ids, cl_counts,
+                           center_cl, radius_cl, g, cull_sigmas,
+                           tri_cl=tri_cl, dmax=dmax)
+    sk, order = torch.sort(key, dim=-1, stable=True)
+    rows_np = rows.cpu().numpy()
+    w = int(rows_np.max()) * KERNEL_LEAF
+    ss = _refine_slots(ids).gather(-1, order[:, :w])
+    slots = torch.where(torch.isfinite(sk[:, :w]), ss, pad_slot)
+    return rows, rows_np, slots.to(torch.int32)
+
+
+def _gather_payload(mm_flat, slots):
+    """(n, r, 16, 512) payload blocks of (n, r*128) packed slot ids, each
+    slot's feature columns as K1 reads them."""
+    n, r = slots.shape[0], slots.shape[1] // KERNEL_LEAF
+    return (mm_flat[slots].reshape(n, r, KERNEL_LEAF, MM_BLOCKS, MM_FEATS)
+            .permute(0, 1, 4, 3, 2).reshape(n, r, MM_FEATS, MM_COLS))
 
 
 def _refine_pack(omms_p, position, local_space, ids, cl_counts, center_cl,
-                 radius_cl, mm_flat, g: int, kcand: int, rmax: int,
-                 cull_sigmas: float, tri_cl, dmax=None):
+                 radius_cl, mm_flat, g: int, rmin: int, cull_sigmas: float,
+                 tri_cl):
     """Refine + compact: the surviving triangles' feature columns, nearest
     first, as per-group (rmax, 16, 512) payload blocks
-    (compound_ray_tpu/eye/pipeline.py:681).  Returns (row_counts (NG,)
-    int32, packed_mm (NG, rmax, 16, 512)).  Padding columns point at the
-    all-zero PAD rows of mm_flat.  Equal distances may pack in another
-    order than the JAX package's unstable co-sort; the slot sets agree.
-    dmax (Np,) bounds the refine as in _refine_mask (the shadow pack)."""
-    ng = ids.shape[0]
+    (compound_ray_tpu/eye/pipeline.py:681).  rmax is the most rows any
+    group refines, rounded up to 2, no less than rmin and no more than the
+    shortlist's width (the rounding of compound_ray_tpu/eye/pipeline.py:
+    1552).  Returns (row_counts (NG,) int32, packed_mm (NG, rmax, 16,
+    512)).  Padding columns point at the all-zero PAD rows of mm_flat.
+    Equal distances may pack in another order than the JAX package's
+    unstable co-sort; the slot sets agree.  Between the refine and the
+    gather each chunk keeps only its sorted slot ids, 1/64 of the payload
+    they become."""
+    ng, kcand = ids.shape
     pad_slot = mm_flat.shape[0] - 1
-    row_counts = torch.empty(ng, dtype=torch.int32, device=ids.device)
+    chunks = _refine_chunks(ng, g, kcand)
+    parts = [_refine_sorted(
+        omms_p[g0 * g:g1 * g], position, local_space, ids[g0:g1],
+        cl_counts[g0:g1], center_cl, radius_cl, g, cull_sigmas, tri_cl,
+        pad_slot) for g0, g1 in chunks]
+    r_needed = max(slots.shape[1] for _, _, slots in parts) // KERNEL_LEAF
+    rmax = min(max(rmin, _ceil_to(max(r_needed, 1), 2)), kcand)
     packed_mm = torch.empty((ng, rmax, MM_FEATS, MM_COLS),
                             dtype=torch.float32, device=ids.device)
-    for g0, g1 in _refine_chunks(ng, g, kcand):
-        rows, key = run_refine(
-            omms_p[g0 * g:g1 * g], position, local_space, ids[g0:g1],
-            cl_counts[g0:g1], center_cl, radius_cl, g, cull_sigmas,
-            tri_cl=tri_cl,
-            dmax=None if dmax is None else dmax[g0 * g:g1 * g])
-        # the tracer loops row_counts[g] rows of an rmax block: never more
-        row_counts[g0:g1] = torch.clamp(rows, max=rmax)
-        sk, order = torch.sort(key, dim=-1, stable=True)
-        sk = sk[:, :rmax * KERNEL_LEAF]
-        ss = _refine_slots(ids[g0:g1]).gather(
-            -1, order[:, :rmax * KERNEL_LEAF])
-        packed_slot = torch.where(torch.isfinite(sk), ss, pad_slot)
-        gathered = mm_flat[packed_slot]  # (G, rmax*128, 64)
-        packed_mm[g0:g1] = (
-            gathered.reshape(g1 - g0, rmax, KERNEL_LEAF, MM_BLOCKS, MM_FEATS)
-            .permute(0, 1, 4, 3, 2)
-            .reshape(g1 - g0, rmax, MM_FEATS, MM_COLS))
-    return row_counts, packed_mm
+    for (g0, g1), (_, _, slots) in zip(chunks, parts):
+        packed_mm[g0:g1] = _gather_payload(mm_flat, F.pad(
+            slots, (0, rmax * KERNEL_LEAF - slots.shape[1]), value=pad_slot))
+    return torch.cat([rows for rows, _, _ in parts]), packed_mm
 
 
 def _pack_fused(mm_flat, slot_center_cl, slot_radius_cl, half_center,
                 half_radius, omms_p, position, local_space, g: int,
-                kcand: int, rmax: int, cull_sigmas: float, tri_cl,
+                kmin: int, rmin: int, cull_sigmas: float, tri_cl,
                 near_mask=None, affine: bool = False):
     """Pose-dependent plan: cull -> shortlist -> triangle refine -> packed
-    per-group payload (compound_ray_tpu/eye/pipeline.py:906).  With the
-    far-field cache on, near_mask (C,) bool keeps only the near clusters:
-    the cache serves the far ones.  tri_cl None refines on the triangle
-    spheres alone (refine_mode "sphere").  affine (g == 1 only) folds each
-    group's ray origin and tmin into its payload (transform_payload_affine,
-    :955-963), for [d, 1, 0 x 4] rays.  Depends only on (scene, eye, pose,
-    widths, far-field split, the two modes), not on the RNG or the sample
-    count.  Returns (row_counts, packed_mm)."""
+    per-group payload (compound_ray_tpu/eye/pipeline.py:906), at the
+    widths it measures: kcand, the most clusters a group keeps after the
+    cull rounded up to 8, no less than kmin and no more than the C
+    clusters; rmax as _refine_pack measures it, no less than rmin.  The
+    cull's maximum comes to the host once, and the refine's rows once a
+    chunk.  With the far-field cache on, near_mask (C,) bool keeps only
+    the near clusters: the cache serves the far ones.  tri_cl None refines
+    on the triangle spheres alone (refine_mode "sphere").  affine (g == 1
+    only) folds each group's ray origin and tmin into its payload
+    (transform_payload_affine, :955-963), for [d, 1, 0 x 4] rays.  Depends
+    only on (scene, eye, pose, far-field split, the two modes), not on the
+    RNG or the sample count: the shortlist and the refine's sort are
+    stable, so the floors change the padding only.  Returns (row_counts,
+    packed_mm, kcand, rmax)."""
     gmask, counts, dmin_all = _cull_groups(
         omms_p, position, local_space, half_center, half_radius,
         cull_sigmas, g)
     gmask, counts = _near_counts(gmask, counts, near_mask)
+    k_needed = int(counts.max().item())
+    kcand = min(slot_center_cl.shape[0],
+                max(kmin, _ceil_to(max(k_needed, 1), 8)))
     ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
-    cl_counts = torch.clamp(counts, max=kcand)
     row_counts, packed_mm = _refine_pack(
-        omms_p, position, local_space, ids, cl_counts, slot_center_cl,
-        slot_radius_cl, mm_flat, g, kcand, rmax, cull_sigmas, tri_cl=tri_cl)
+        omms_p, position, local_space, ids, counts, slot_center_cl,
+        slot_radius_cl, mm_flat, g, rmin, cull_sigmas, tri_cl=tri_cl)
     if affine:
         if g != 1:
             raise ValueError(f"affine payloads need one ommatidium per "
@@ -803,77 +809,43 @@ def _pack_fused(mm_flat, slot_center_cl, slot_radius_cl, half_center,
             omms_p, position, local_space)
         packed_mm = transform_payload_affine(
             packed_mm, torch.stack([ox, oy, oz], dim=-1), tmin_w)
-    return row_counts, packed_mm
+    return row_counts, packed_mm, kcand, packed_mm.shape[1]
 
 
-def _plan_widths(splan, eplan, omms_p, position, local_space, cache_key,
-                 near_mask=None):
-    """Kernel widths for a (scene, eye, samples, pose, far-field split):
-    kcand (candidate clusters for the refine) and rmax (payload rows per
-    group), measured exactly with two planning passes over the clusters
-    the pack will trace (near_mask, when the cache is on) and memoised;
-    high-water rounding as in compound_ray_tpu/eye/pipeline.py:1552.  The
-    caller's cache_key must tell far-field splits apart, as the JAX
-    package's width key does with (use_cache, d_thresh) (:1700-1701); the
-    refine mode joins it here.  Affine-ness does not: the fold keeps every
-    row count, so both forms have the same widths, as in the JAX key."""
-    cfg = get_config()
-    sig = cfg.cull_sigmas
-    cache_key = cache_key + (sig, cfg.refine_mode)
-    cached = splan.kmax_cache.get(cache_key)
-    if cached is not None:
-        return cached
-    with span("cr.plan.build.widths"):
-        gmask, counts, _ = _cull_groups(
-            omms_p, position, local_space, splan.half_center,
-            splan.half_radius, sig, eplan.g)
-        _, counts = _near_counts(gmask, counts, near_mask)
-        k_needed = int(counts.max().item())
-        kcand = min(splan.num_clusters,
-                    max(eplan.kmax_hint, _ceil_to(max(k_needed, 1), 8)))
-        row_counts = _refine_counts(
-            omms_p, position, local_space, splan.half_center,
-            splan.half_radius, splan.slot_center_cl, splan.slot_radius_cl,
-            eplan.g, kcand, sig, tri_cl=_refine_tri_cl(splan, cfg),
-            near_mask=near_mask)
-        r_needed = int(row_counts.max().item())
-    rmax = min(max(eplan.rmax_hint, _ceil_to(max(r_needed, 1), 2)), kcand)
-    eplan.kmax_hint = kcand  # high-water: nearby poses reuse the widths
-    eplan.rmax_hint = rmax
-    splan.kmax_cache[cache_key] = (kcand, rmax)
-    return kcand, rmax
-
-
-def _packed_key(eplan, samples, pose_sig, kcand, rmax, use_cache: bool,
-                d_thresh: float, cfg, affine: bool = False):
-    """packed_store key (compound_ray_tpu/eye/pipeline.py:1625): the
-    far-field split, the refine mode and affine-ness are part of it, so a
-    dense pack and a near-masked pack at one pose, an exact and a sphere
-    refine, or an affine and a plain payload are never served for each
-    other."""
-    return (eplan.sig, samples, pose_sig, kcand, rmax, use_cache, d_thresh,
+def _packed_key(eplan, samples, pose_sig, use_cache: bool, d_thresh: float,
+                cfg, affine: bool = False):
+    """packed_store key (compound_ray_tpu/eye/pipeline.py:1625, without the
+    widths, which the pack measures): the far-field split, the refine mode
+    and affine-ness are part of it, so a dense pack and a near-masked pack
+    at one pose, an exact and a sphere refine, or an affine and a plain
+    payload are never served for each other."""
+    return (eplan.sig, samples, pose_sig, use_cache, d_thresh,
             cfg.cull_sigmas, cfg.refine_mode, affine)
 
 
 def _pack_nbytes(pack) -> int:
-    """Device bytes of a (row_counts, packed_mm) pack."""
-    return sum(t.numel() * t.element_size() for t in pack)
+    """Device bytes of a (row_counts, packed_mm, kcand, rmax) pack."""
+    return sum(t.numel() * t.element_size() for t in pack[:2])
 
 
 def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
-                 samples, kcand, rmax, near_mask=None, d_thresh=0.0,
+                 samples, near_mask=None, d_thresh=0.0,
                  affine: bool = False):
     """Memoised _pack_fused with a bounded LRU
     (compound_ray_tpu/eye/pipeline.py:1594): a fixed-pose sequence of
     frames pays the refine and pack once.  near_mask and d_thresh describe
     the far-field split (None and 0.0 with the cache off), affine the
-    payload's form (_pack_fused).  The store keeps
+    payload's form (_pack_fused).  A build packs at no less than the eye
+    plan's width hints and raises them to its widths, high-water marks as
+    in the JAX package (:1584-1585), so a pose packed again after its
+    eviction has the same rows at the widest widths seen.  The store keeps
     at most config.packed_store_size packs and config.packed_store_bytes
     bytes: the oldest go until a new pack fits, and a pack larger than the
-    byte bound serves its frame without being kept."""
+    byte bound serves its frame without being kept.  Returns (row_counts,
+    packed_mm, kcand, rmax)."""
     cfg = get_config()
-    pk = _packed_key(eplan, samples, pose_sig, kcand, rmax,
-                     near_mask is not None, d_thresh, cfg, affine)
+    pk = _packed_key(eplan, samples, pose_sig, near_mask is not None,
+                     d_thresh, cfg, affine)
     hit = splan.packed_store.get(pk)
     if hit is not None:
         splan.packed_store[pk] = splan.packed_store.pop(pk)  # LRU refresh
@@ -882,9 +854,11 @@ def _packed_plan(splan, eplan, omms_p, position, local_space, pose_sig,
         out = _pack_fused(
             splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
             splan.half_center, splan.half_radius, omms_p, position,
-            local_space, g=eplan.g, kcand=kcand, rmax=rmax,
-            cull_sigmas=cfg.cull_sigmas, tri_cl=_refine_tri_cl(splan, cfg),
-            near_mask=near_mask, affine=affine)
+            local_space, g=eplan.g, kmin=eplan.kmax_hint,
+            rmin=eplan.rmax_hint, cull_sigmas=cfg.cull_sigmas,
+            tri_cl=_refine_tri_cl(splan, cfg), near_mask=near_mask,
+            affine=affine)
+    eplan.kmax_hint, eplan.rmax_hint = out[2], out[3]
     size = _pack_nbytes(out)
     if size > cfg.packed_store_bytes:
         return out
@@ -1893,11 +1867,11 @@ def _sky_build(splan, eplan, omms_p, local_space, samples: int, kcand: int,
     live = np.flatnonzero(rc_np > 0)
     if live.size > 0.9 * ng:
         return None
-    hint_key = ("sky_ngl", eplan.sig, samples, ng_quantum)
+    hint_key = (eplan.sig, samples, ng_quantum)
     ngl = max(_ceil_to(max(int(live.size), 1), ng_quantum),
-              splan.kmax_cache.get(hint_key, 0))
+              splan.sky_ngl.get(hint_key, 0))
     ngl = _ceil_to(min(ngl, ng), ng_quantum)
-    splan.kmax_cache[hint_key] = ngl
+    splan.sky_ngl[hint_key] = ngl
     pad = ngl - live.size
     gather = np.concatenate([live, np.zeros(pad, np.int64)])
     scatter = np.concatenate([live, np.full(pad, ng, np.int64)])
@@ -2032,11 +2006,12 @@ def _light_frame(device):
             torch.eye(3, dtype=torch.float32, device=device))
 
 
-def _shadow_cull(splan, cg, rg_sph, light_pos, cull_sigmas: float,
-                 kcand: int):
+def _shadow_cull(splan, cg, rg_sph, light_pos, cull_sigmas: float):
     """One light's shafts over all groups: pseudo-ommatidia, the cone cull
     distance-bounded at the sphere's far side, and the nearest-first
-    shortlist.  Returns (ps, dmax, counts (NG,), ids (NG, kcand))."""
+    shortlist as wide as the widest shaft needs, its cluster count read to
+    the host and rounded up to 8 (compound_ray_tpu/eye/pipeline.py:2144).
+    Returns (ps, dmax, counts (NG,), ids (NG, kcand))."""
     ps, dm = _shadow_pseudo_omms(cg, rg_sph, light_pos,
                                  FWHM_SD_RATIO / cull_sigmas)
     zero3, eye3 = _light_frame(cg.device)
@@ -2044,51 +2019,24 @@ def _shadow_cull(splan, cg, rg_sph, light_pos, cull_sigmas: float,
                                       splan.half_radius, cull_sigmas, 1)
     gmask = gmask & (dmin_all <= dm[:, None])
     counts = gmask.sum(dim=-1).to(torch.int32)
+    kcand = min(splan.num_clusters,
+                _ceil_to(max(int(counts.max().item()), 1), 8))
     ids = _shortlist_sorted(gmask, dmin_all, kcand)[0][:, :kcand]
     return ps, dm, counts, ids
 
 
-def _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas: float,
-                         kcand_probe: int, probe_chunk: int, tri_cl):
-    """Per light, the shafts' widths on given per-group bound spheres
-    (compound_ray_tpu/eye/pipeline.py:2144): the most clusters (kc_need)
-    and refined payload rows (rows_need) any group's shaft needs, both
-    (L,) tensors, returned with (cg, rg_sph).  The refine runs in group
-    chunks (probe_chunk groups at most), exact when tri_cl is given."""
-    zero3, eye3 = _light_frame(cg.device)
-    kc_list, row_list = [], []
-    for li in range(lights.shape[0]):
-        ps, dm, counts, ids = _shadow_cull(splan, cg, rg_sph,
-                                           lights[li, 4:7], cull_sigmas,
-                                           kcand_probe)
-        cl = torch.clamp(counts, max=kcand_probe)
-        row_max = []
-        for g0, g1 in _refine_chunks(ps.shape[0], 1, kcand_probe,
-                                     max_groups=probe_chunk):
-            rows, _ = run_refine(
-                ps[g0:g1], zero3, eye3, ids[g0:g1], cl[g0:g1],
-                splan.slot_center_cl, splan.slot_radius_cl, 1, cull_sigmas,
-                tri_cl=tri_cl, dmax=dm[g0:g1], keys=False)
-            row_max.append(rows.max())
-        kc_list.append(counts.max())
-        row_list.append(torch.stack(row_max).max())
-    return torch.stack(kc_list), torch.stack(row_list), cg, rg_sph
-
-
 def _shadow_probe(packed_mm, row_counts, omms_p, position, local_space,
-                  splay, spin, lights, splan, samples: int, ng: int, g: int,
-                  nrb: int, rb_size: int, rmax: int, cull_sigmas: float,
-                  kcand_probe: int, probe_chunk: int, tri_cl, tracer=None,
+                  splay, spin, samples: int, ng: int, g: int, nrb: int,
+                  rb_size: int, rmax: int, tracer=None,
                   affine: bool = False):
     """The shadow plan's probe (compound_ray_tpu/eye/pipeline.py:2084):
     trace the frame's primary rays once (K1, or `tracer`; its 8-feature
-    form on an affine pack), bound each group's hit points, inflate the
-    bounds (SHADOW_BOUND_INFLATE) and measure the shafts' widths on them.
-    The JAX probe draws its angles from the frame's key (:2099-2100), so it
-    traces exactly the first lit frame's rays; here the caller passes that
-    frame's splay and spin.  As there, every lane of a live group counts,
-    ray-block padding included.  Returns _shadow_probe_widths' (kc_need,
-    rows_need, cg, rg_sph)."""
+    form on an affine pack), bound each group's hit points and inflate the
+    bounds (SHADOW_BOUND_INFLATE).  The JAX probe draws its angles from
+    the frame's key (:2099-2100), so it traces exactly the first lit
+    frame's rays; here the caller passes that frame's splay and spin.  As
+    there, every lane of a live group counts, ray-block padding included.
+    Returns the bound spheres (cg (NG, 3), rg_sph (NG,))."""
     rays, (dx, dy, dz) = _gen_ray_features(
         omms_p, position, local_space, splay, spin, samples=samples, ng=ng,
         g=g, nrb=nrb, rb_size=rb_size, affine=affine)
@@ -2108,32 +2056,35 @@ def _shadow_probe(packed_mm, row_counts, omms_p, position, local_space,
     pyf = -repad(neg_o[1]) + t_c * repad(dy)
     pzf = -repad(neg_o[2]) + t_c * repad(dz)
     cg, rg_sph = _hit_bound_spheres(hit_f, pxf, pyf, pzf, ng, rg_pad)
-    rg_sph = torch.where(rg_sph >= 0.0,
-                         rg_sph * SHADOW_BOUND_INFLATE + 1e-2, rg_sph)
-    return _shadow_probe_widths(cg, rg_sph, lights, splan, cull_sigmas,
-                                kcand_probe, probe_chunk, tri_cl)
+    return cg, torch.where(rg_sph >= 0.0,
+                           rg_sph * SHADOW_BOUND_INFLATE + 1e-2, rg_sph)
 
 
-def _shadow_pack_one(cg, rg_sph, light_pos, splan, kcand_s: int,
-                     rmax_s: int, cull_sigmas: float, tri_cl):
-    """One light's occluder payload for a run of groups
-    (compound_ray_tpu/eye/pipeline.py:2028): cull, shortlist, refine with
-    dmax and pack as the primary payload is packed, then fold the light in
-    as the shared ray origin with tmin 0 (transform_payload_affine) and
-    keep feature rows 0-7.  Returns (rc_s (n,) int32, packed_s (n, rmax_s,
-    8, 512)), a transient the caller flattens."""
-    ps, dm, counts, ids = _shadow_cull(splan, cg, rg_sph, light_pos,
-                                       cull_sigmas, kcand_s)
-    zero3, eye3 = _light_frame(cg.device)
-    rc_s, packed_s = _refine_pack(
-        ps, zero3, eye3, ids, torch.clamp(counts, max=kcand_s),
-        splan.slot_center_cl, splan.slot_radius_cl, splan.mm_flat, 1,
-        kcand_s, rmax_s, cull_sigmas, tri_cl=tri_cl, dmax=dm)
-    n = packed_s.shape[0]
+def _shadow_rows(ps, dm, ids, counts, light_pos, splan, cull_sigmas: float,
+                 tri_cl):
+    """One light's occluder rows for a run of groups, slices of its
+    _shadow_cull (compound_ray_tpu/eye/pipeline.py:2028): refine with dmax
+    and pack as the primary payload is packed, at the run's own most rows,
+    fold the light in as the shared ray origin with tmin 0
+    (transform_payload_affine) and keep feature rows 0-7.  Returns (rows
+    (n,) on the host, the live rows (sum(rows), 8, 512) group-major, None
+    where no group has one)."""
+    zero3, eye3 = _light_frame(ps.device)
+    _, rows_np, slots = _refine_sorted(
+        ps, zero3, eye3, ids, counts, splan.slot_center_cl,
+        splan.slot_radius_cl, 1, cull_sigmas, tri_cl,
+        splan.mm_flat.shape[0] - 1, dmax=dm)
+    r = slots.shape[1] // KERNEL_LEAF
+    if r == 0:
+        return rows_np, None
+    n = slots.shape[0]
     packed_s = transform_payload_affine(
-        packed_s, light_pos[None, :].expand(n, 3),
-        torch.zeros(n, dtype=torch.float32, device=cg.device))
-    return rc_s, packed_s[:, :, 0:SHADOW_FEATS, :]
+        _gather_payload(splan.mm_flat, slots),
+        light_pos[None, :].expand(n, 3),
+        torch.zeros(n, dtype=torch.float32, device=ps.device))
+    src = np.concatenate([gl * r + np.arange(rows_np[gl]) for gl in range(n)])
+    return rows_np, packed_s[:, :, 0:SHADOW_FEATS, :].reshape(
+        -1, SHADOW_FEATS, MM_COLS)[torch.as_tensor(src, device=ps.device)]
 
 
 def _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg,
@@ -2157,9 +2108,10 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     (counts (L, NG) int32, r2v (TB,) int32, flag (TB,) int32, flat_rows
     (TB, 8, 512) f32, sph (NG, 4) [centre, radius]).
 
-    Per light, each group's shaft is exact-refined and packed from the
-    probed (or, in a corrective mode, guaranteed) bound spheres, and the
-    live rows of the transient dense pack go into one table sorted by
+    Per light, each group's shaft is culled, exact-refined and packed
+    from the probed (or, in a corrective mode, guaranteed) bound spheres,
+    and the live rows of each chunk's transient dense pack go into one
+    table sorted by
     virtual group light * NG + group: flag 2 marks a group's first row, 1
     a live row, 0 padding; TB is padded to a multiple of 64 and padding
     rows inherit the last live group.  With shards > 1 (the mesh plan of
@@ -2169,10 +2121,11 @@ def _shadow_plan(splan, eplan, omms_p, position, local_space, pose_sig,
     multiple of 64, and its r2v holds shard-local virtual groups light *
     NG_local + g_local, so a shard's rows, r2v and flag are a plain slice.
     The probe stays global: one K1 launch over every sample of the frame.
-    Chunked over each shard's groups at shadow_pack_chunk: an unchunked
-    dense pack at 256 clusters takes several GB.  Row counts come to the
-    host once per chunk; a plan in splan.shadow_store is served as it
-    is."""
+    Chunked over each shard's groups at shadow_pack_chunk, and no wider
+    than a refine of every cluster fits in a chunk: an unchunked dense
+    pack at 256 clusters takes several GB.  Each light's cull maximum
+    comes to the host once and the row counts once per chunk; a plan in
+    splan.shadow_store is served as it is."""
     cfg = get_config()
     sk = _shadow_key(splan, eplan, samples, pose_sig, lights_np, cfg, shards,
                      affine)
@@ -2195,16 +2148,13 @@ def _shadow_build(splan, eplan, omms_p, position, local_space,
                   packed_mm, row_counts, rmax: int, tracer, shards: int,
                   affine: bool):
     """_shadow_plan's tuple built anew: the probe (or the guaranteed
-    bounds), then each light's shafts packed chunk by chunk."""
+    bounds), then each light's cull and its shafts packed chunk by
+    chunk."""
     cfg = get_config()
     dev = packed_mm.device
     lights = torch.as_tensor(lights_np, device=dev)
-    # probe every cluster: a narrower probe would under-measure the rows
-    # and the pack's rmax would drop the farthest occluders
-    kcand_probe = splan.num_clusters
     ng = eplan.ng
     sig = cfg.cull_sigmas
-    chunk = cfg.shadow_pack_chunk
     tri_cl = _refine_tri_cl(splan, cfg)
     unsound = splan.shadow_unsound_groups
     if splan.shadow_sound_all or unsound:
@@ -2212,13 +2162,11 @@ def _shadow_build(splan, eplan, omms_p, position, local_space,
             packed_mm, splan.slot_center_cl.reshape(-1, 3),
             splan.slot_radius_cl.reshape(-1))
     if splan.shadow_sound_all:
-        kc_need, rows_need, cg, rg_sph = _shadow_probe_widths(
-            cg_s, rg_s, lights, splan, sig, kcand_probe, chunk, tri_cl)
+        cg, rg_sph = cg_s, rg_s
     else:
-        kc_need, rows_need, cg, rg_sph = _shadow_probe(
+        cg, rg_sph = _shadow_probe(
             packed_mm, row_counts, omms_p, position, local_space, splay,
-            spin, lights, splan, samples, ng, eplan.g, eplan.nrb,
-            eplan.rb_size, rmax, sig, kcand_probe, chunk, tri_cl,
+            spin, samples, ng, eplan.g, eplan.nrb, eplan.rb_size, rmax,
             tracer=tracer, affine=affine)
         if unsound:
             um = np.zeros(ng, bool)
@@ -2226,38 +2174,26 @@ def _shadow_build(splan, eplan, omms_p, position, local_space,
             um_d = torch.as_tensor(um, device=dev)
             cg = torch.where(um_d[:, None], cg_s, cg)
             rg_sph = torch.where(um_d, rg_s, rg_sph)
-            # re-measure on the hybrid spheres so rmax covers the fattened
-            # shafts
-            kc_need, rows_need, _, _ = _shadow_probe_widths(
-                cg, rg_sph, lights, splan, sig, kcand_probe, chunk, tri_cl)
-    kc = int(kc_need.max().item())
-    rw_all = rows_need.cpu().numpy()
-    shadow_kmax = min(splan.num_clusters, _ceil_to(max(kc, 1), 8))
     n_lights = lights_np.shape[0]
     ngl = ng // shards
+    # chunk bounds that fit a shortlist of every cluster: no light's
+    # shafts need more
+    chunks = _refine_chunks(ngl, 1, splan.num_clusters,
+                            max_groups=cfg.shadow_pack_chunk)
     cnts_np = np.zeros((n_lights, ng), np.int64)
     parts = [[] for _ in range(shards)]  # each shard's live rows, in order
     for li in range(n_lights):
-        rmax_li = min(shadow_kmax, _ceil_to(max(int(rw_all[li]), 1), 2))
+        ps, dm, counts, ids = _shadow_cull(splan, cg, rg_sph,
+                                           lights[li, 4:7], sig)
         for k in range(shards):
-            for lo, hi in _refine_chunks(ngl, 1, shadow_kmax,
-                                         max_groups=chunk):
+            for lo, hi in chunks:
                 lo, hi = k * ngl + lo, k * ngl + hi
-                rc_s, packed_s = _shadow_pack_one(
-                    cg[lo:hi], rg_sph[lo:hi], lights[li, 4:7], splan,
-                    shadow_kmax, rmax_li, sig, tri_cl)
-                rc_np = np.minimum(rc_s.cpu().numpy().astype(np.int64),
-                                   rmax_li)
-                cnts_np[li, lo:hi] = rc_np
-                if rc_np.sum():
-                    # the live rows of the chunk's dense transient,
-                    # group-major
-                    src = np.concatenate([gl * rmax_li + np.arange(rc_np[gl])
-                                          for gl in range(hi - lo)])
-                    parts[k].append(packed_s.reshape(
-                        -1, SHADOW_FEATS, MM_COLS)[torch.as_tensor(
-                            src, device=dev)])
-                del packed_s  # the dense transient is freed per chunk
+                rows_np, live = _shadow_rows(
+                    ps[lo:hi], dm[lo:hi], ids[lo:hi], counts[lo:hi],
+                    lights[li, 4:7], splan, sig, tri_cl)
+                cnts_np[li, lo:hi] = rows_np
+                if live is not None:
+                    parts[k].append(live)
     # shard k's counts in its virtual group order light * NG_local + g
     cnt_k = [cnts_np[:, k * ngl:(k + 1) * ngl].reshape(-1)
              for k in range(shards)]
@@ -2299,7 +2235,7 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
                 allow_cache: bool = True, angles=None):
     """Shared frame planning (compound_ray_tpu/eye/pipeline.py:2516-2673,
     without the speculative widths): the far-field split and its cache,
-    the sky plan, the widths and the pose's pack, then frame 0's (Np, S)
+    the sky plan and the pose's pack at its widths, then frame 0's (Np, S)
     angles from `generator` and, for a lit frame, the memoised shadow plan,
     whose first build at a pose probes those angles.  Returns (kw,
     inv_valid): kw holds every _trace_shade_angles argument (frame 0's
@@ -2350,11 +2286,8 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
         if found:
             sky_key = None  # a memoised plan, or memoised not worth it
     if sky is None:
-        kcand, rmax = _plan_widths(
-            splan, eplan, omms_p, pos, ls,
-            (eplan.sig, samples, pose_sig, use_cache, d_thresh), near_mask)
-        row_counts, packed_mm = _packed_plan(
-            splan, eplan, omms_p, pos, ls, pose_sig, samples, kcand, rmax,
+        row_counts, packed_mm, kcand, rmax = _packed_plan(
+            splan, eplan, omms_p, pos, ls, pose_sig, samples,
             near_mask=near_mask, d_thresh=d_thresh, affine=affine)
         if sky_key is not None:
             sky = _sky_build(splan, eplan, omms_p, ls, samples, kcand, rmax,
@@ -2364,8 +2297,8 @@ def _plan_frame(scene_flat, scene_dev: Dict[str, Any], omms_np: np.ndarray,
             if sky is not None:
                 # the compacted plan supersedes the dense pack at this pose
                 splan.packed_store.pop(_packed_key(
-                    eplan, samples, pose_sig, kcand, rmax, True, d_thresh,
-                    cfg, affine), None)
+                    eplan, samples, pose_sig, True, d_thresh, cfg, affine),
+                    None)
     ng, omms_f = eplan.ng, omms_p
     sky_means = sky_scatter = None
     if sky is not None:

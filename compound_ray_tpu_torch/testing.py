@@ -514,7 +514,8 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
                sky: bool = False, affine: bool = False) -> SimpleNamespace:
     """A small frame on `device`: scene and eye plans, the permuted
     ommatidia, the pose (local space = identity), its packed payload at the
-    measured widths, and splay and spin angles for every traced group drawn
+    widths it measures (no narrower than the eye plan's hints, which it
+    raises as a frame's plan does), and splay and spin angles for every traced group drawn
     with numpy from `seed`, so every device traces the same rays.
     cache_width > 0 turns the far-field cache on at that width (it must
     engage): the pack then holds the near clusters only.  sky also splits
@@ -539,17 +540,14 @@ def frame_pack(scene: FlatScene, omms: np.ndarray, samples: int, pos,
             miss_id(scene.background_shader), cfg)
         if near is None:
             raise ValueError("the far-field cache does not engage here")
-    d_thresh = 0.0 if sphere is None else sphere[1]
-    kcand, rmax = P._plan_widths(
-        splan, eplan, omms_p, tpos, tls,
-        (eplan.sig, samples, pos_np.tobytes(), near is not None, d_thresh),
-        near)
-    rc, pmm = P._pack_fused(
+    rc, pmm, kcand, rmax = P._pack_fused(
         splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
         splan.half_center, splan.half_radius, omms_p, tpos, tls, g=eplan.g,
-        kcand=kcand, rmax=rmax, cull_sigmas=get_config().cull_sigmas,
+        kmin=eplan.kmax_hint, rmin=eplan.rmax_hint,
+        cull_sigmas=get_config().cull_sigmas,
         tri_cl=P._refine_tri_cl(splan, get_config()), near_mask=near,
         affine=affine)
+    eplan.kmax_hint, eplan.rmax_hint = kcand, rmax
     ng, omms_f, sky_means, scatter = eplan.ng, omms_p, None, None
     if sky:
         split = P._sky_build(splan, eplan, omms_p, tls, samples, kcand,

@@ -202,12 +202,14 @@ def test_pack_fused_affine_folds_each_groups_origin(pinned, jax_case):
     tplan = _port_plan(case)
     to = torch.tensor(case["omms_p"])
     tpos, tls = torch.tensor(POS), torch.tensor(LS)
-    kw = dict(g=1, kcand=case["kcand"], rmax=case["kw"]["rmax"],
-              cull_sigmas=4.0, tri_cl=tplan.slot_tri_cl)
+    widths = (case["kcand"], case["kw"]["rmax"])
+    kw = dict(g=1, kmin=widths[0], rmin=widths[1], cull_sigmas=4.0,
+              tri_cl=tplan.slot_tri_cl)
     args = (tplan.mm_flat, tplan.slot_center_cl, tplan.slot_radius_cl,
             tplan.half_center, tplan.half_radius, to, tpos, tls)
-    rc0, pm0 = TP._pack_fused(*args, **kw)
-    rc1, pm1 = TP._pack_fused(*args, affine=True, **kw)
+    rc0, pm0, *w0 = TP._pack_fused(*args, **kw)
+    rc1, pm1, *w1 = TP._pack_fused(*args, affine=True, **kw)
+    assert tuple(w0) == tuple(w1) == widths
     (ox, oy, oz), tmin, _, _ = TP._omm_world_origins(to, tpos, tls)
     torch.testing.assert_close(rc1, rc0, rtol=0, atol=0)
     torch.testing.assert_close(pm1, TM.transform_payload_affine(

@@ -911,10 +911,9 @@ def _natural_sweep():
 def test_refine_kernel_equals_twin_on_the_sweep(cuda_device, refine_mode,
                                                 samples, with_dmax):
     """run_refine's kernel against refine_reference on the card, chunk by
-    chunk as the widths and the pack call them, at the natural-1000 cell's
-    pose and 16 sweep poses: row counts equal in both forms and keys bit
-    for bit, one launch per chunk and form.  dmax is a seeded
-    apex-distance bound per ommatidium."""
+    chunk as the pack calls it, at the natural-1000 cell's pose and 16
+    sweep poses: row counts equal and keys bit for bit, one launch per
+    chunk.  dmax is a seeded apex-distance bound per ommatidium."""
     scene, omms, _, poses = _natural_sweep()
     splan = P.scene_plan(scene, cuda_device)
     eplan = P.eye_plan(omms, samples)
@@ -941,17 +940,14 @@ def test_refine_kernel_equals_twin_on_the_sweep(cuda_device, refine_mode,
             args = (omms_p[g0 * g:g1 * g], pos, ls, ids[g0:g1], cl[g0:g1],
                     splan.slot_center_cl, splan.slot_radius_cl, g, 4.0, tri)
             dm = None if dmax is None else dmax[g0 * g:g1 * g]
-            rows_c, none = P.run_refine(*args, dmax=dm, keys=False)
-            rows_k, key = P.run_refine(*args, dmax=dm)
+            rows, key = P.run_refine(*args, dmax=dm)
             torch.cuda.synchronize()
             want_rows, want_key = P.refine_reference(*args, dmax=dm)
-            assert none is None
-            assert torch.equal(rows_c, want_rows)
-            assert torch.equal(rows_k, want_rows)
+            assert torch.equal(rows, want_rows)
             assert torch.equal(key, want_key)
             refined += int(torch.isfinite(key).sum())
             chunks += 1
-    assert P.refine_launches == before + 2 * chunks
+    assert P.refine_launches == before + chunks
     assert refined > 0
 
 
@@ -959,12 +955,12 @@ def test_refine_kernel_equals_twin_on_the_sweep(cuda_device, refine_mode,
 def test_plans_through_the_refine_kernel_equal_the_twin_path(cuda_device,
                                                             monkeypatch):
     """_plan_frame at the natural-1000 cell's 100 samples and render
-    settings, at the configuration's pose and 16 sweep poses, with fresh
-    width and pack memos and the same width hints on both sides: the plan
-    through the kernel (widths, then the pack) and the plan through the
-    twin (run_refine replaced by refine_reference) give equal widths and
-    torch.equal (row_counts, packed_mm); the twin path launches no
-    kernel."""
+    settings, at the configuration's pose and 16 sweep poses, with a fresh
+    pack store and the same width hints on both sides: the plan through
+    the kernel (one pass that measures its widths and packs) and the plan
+    through the twin (run_refine replaced by refine_reference) give equal
+    widths and torch.equal (row_counts, packed_mm); the twin path launches
+    no kernel."""
     from compound_ray_tpu_torch import config
     from compound_ray_tpu_torch.trace.shade import miss_id
 
@@ -977,7 +973,6 @@ def test_plans_through_the_refine_kernel_equal_the_twin_path(cuda_device,
     background = miss_id(scene.background_shader)
 
     def plan(pos, ls, hints):
-        splan.kmax_cache.clear()
         splan.packed_store.clear()
         eplan.kmax_hint, eplan.rmax_hint = hints
         gen = torch.Generator(device=cuda_device).manual_seed(0)

@@ -119,11 +119,12 @@ def _packs(p, jnear, tnear):
         p.jsp.half_center, p.jsp.half_radius, p.jo, p.jpos, p.jls,
         g=p.je.g, kcand=kcand, rmax=rmax, cull_sigmas=4.0,
         near_mask=jnear, use_cache=True, tri_cl=p.jsp.slot_tri_cl)
-    trc, tpm = TP._pack_fused(
+    trc, tpm, *tw = TP._pack_fused(
         p.tsp.mm_flat, p.tsp.slot_center_cl, p.tsp.slot_radius_cl,
         p.tsp.half_center, p.tsp.half_radius, p.to, p.tpos, p.tls,
-        g=p.te.g, kcand=kcand, rmax=rmax, cull_sigmas=4.0,
+        g=p.te.g, kmin=kcand, rmin=rmax, cull_sigmas=4.0,
         tri_cl=p.tsp.slot_tri_cl, near_mask=tnear)
+    assert tuple(tw) == (kcand, rmax)
     np.testing.assert_array_equal(trc.numpy(), np.asarray(jrc))
     return kcand, rmax, (jrc, jpm), (trc, tpm)
 
@@ -270,8 +271,8 @@ def test_trace_shade_angles_with_cache_matches_jax(pinned, textured):
     dense = TP._pack_fused(
         p.tsp.mm_flat, p.tsp.slot_center_cl, p.tsp.slot_radius_cl,
         p.tsp.half_center, p.tsp.half_radius, p.to, p.tpos, p.tls,
-        g=p.te.g, kcand=p.tsp.num_clusters, rmax=p.tsp.num_clusters,
-        cull_sigmas=4.0, tri_cl=p.tsp.slot_tri_cl)
+        g=p.te.g, kmin=p.tsp.num_clusters, rmin=p.tsp.num_clusters,
+        cull_sigmas=4.0, tri_cl=p.tsp.slot_tri_cl)[:2]
     splay, spin = (torch.tensor(a) for a in _angles(p.te.n_pad, p.samples))
     geo = dict(samples=p.samples, background=BG, ng=p.te.ng, g=p.te.g,
                nrb=p.te.nrb, rb_size=p.te.rb_size,
@@ -338,25 +339,29 @@ def test_sky_plan_and_means_match_jax(pinned):
     np.testing.assert_allclose(got, want, atol=MEANS_ATOL)
 
 
-def test_dense_and_cache_packs_never_share_a_key(pinned):
-    """A dense frame and then a cache frame at one pose: two packs, two
-    width entries, and the cache frame traces only the near clusters."""
+def test_dense_and_cache_packs_never_share_a_key(pinned, monkeypatch):
+    """A dense frame and then a cache frame at one pose: two pack builds
+    under keys that differ in the far-field split, and the cache frame
+    traces only the near clusters."""
     p = _pair()
     gen = torch.Generator().manual_seed(1)
     args = (p.ts, p.tdev, p.omms, POS, LS)
+    pack = TP._pack_fused
+    builds = []
+    monkeypatch.setattr(TP, "_pack_fused",
+                        lambda *a, **k: builds.append(1) or pack(*a, **k))
     tcfg.set_config(tcfg.RenderConfig(farfield="off",
                                       farfield_cache_width=WIDTH))
     TP.render_means(*args, gen, p.samples, BG)
     dense = list(p.tsp.packed_store.values())
     tcfg.set_config(_configs()[1])
     TP.render_means(*args, gen, p.samples, BG)
+    assert len(builds) == 2
     assert len(p.tsp.packed_store) == 2 and len(p.tsp.cache_store) == 1
+    assert [k[3] for k in p.tsp.packed_store] == [False, True]  # use_cache
     near_rc = list(p.tsp.packed_store.values())[1][0]
     # the near-masked pack drops the far clusters' rows
     assert (near_rc <= dense[0][0]).all() and (near_rc < dense[0][0]).any()
-    widths = [k for k in p.tsp.kmax_cache if isinstance(k, tuple)
-              and isinstance(k[0], bytes)]  # eye-plan signature first
-    assert len(widths) == 2
 
 
 def _port_renderer(samples, sky_split, cache_width=WIDTH):
@@ -394,7 +399,7 @@ def test_eye_renderer_far_field_matches_direct_frame(pinned):
 def test_eye_renderer_sky_split(pinned, monkeypatch):
     """Sky split on: close to the dense cache frame, sky groups identical
     across seeds, the dense pack evicted, and the memoised pose served
-    without planning widths or packs (tests/test_sky_split.py:143-205)."""
+    without building a pack (tests/test_sky_split.py:143-205)."""
     r = _port_renderer(SAMPLES, sky_split=False)
     r.render_frame()
     dense = r.get_camera_data().copy()
@@ -405,14 +410,14 @@ def test_eye_renderer_sky_split(pinned, monkeypatch):
     splan = r.scene._kernel_plan
     plans = [v for v in splan.sky_store.values() if v is not None]
     assert len(plans) == 1, "the split must engage at this pose"
-    assert not any(k[5] for k in splan.packed_store), (
+    assert not any(k[3] for k in splan.packed_store), (
         "the compacted plan replaces the cache frame's dense pack")
     calls = []
-    monkeypatch.setattr(TP, "_plan_widths",
+    monkeypatch.setattr(TP, "_pack_fused",
                         lambda *a, **k: calls.append(1))
     r.render_frame()
     split2 = r.get_camera_data()
-    assert not calls, "a memoised sky pose needs no width plan"
+    assert not calls, "a memoised sky pose builds no pack"
     scatter = plans[0][3].numpy()
     eplan = TP.eye_plan(r.current_camera().ommatidia, SAMPLES)
     live = np.unique(scatter[scatter < eplan.ng])

@@ -137,12 +137,13 @@ class _Pair:
             self.jsp.half_radius, self.jo, self.jpos, self.jls, g=self.je.g,
             kcand=kc, rmax=self.rmax, cull_sigmas=4.0,
             tri_cl=self.jsp.slot_tri_cl)
-        self.trc, self.tpm = TP._pack_fused(
+        self.trc, self.tpm, *tw = TP._pack_fused(
             self.tsp.mm_flat, self.tsp.slot_center_cl,
             self.tsp.slot_radius_cl, self.tsp.half_center,
             self.tsp.half_radius, self.to, self.tpos, self.tls, g=self.te.g,
-            kcand=kc, rmax=self.rmax, cull_sigmas=4.0,
+            kmin=kc, rmin=self.rmax, cull_sigmas=4.0,
             tri_cl=self.tsp.slot_tri_cl)
+        assert tuple(tw) == (kc, self.rmax)
         self.probe = _angles(self.omms_p, samples, probe_seed)
         self.replan(monkeypatch)
 
@@ -491,7 +492,7 @@ def test_lit_and_cache_frames_do_not_share_plans(monkeypatch):
     assert len(splan.packed_store) == 2 and len(splan.shadow_store) == 1
     assert len(splan.cache_store) == 1, "the lit frame must not add a cache"
     keys = list(splan.packed_store)
-    assert {k[5] for k in keys} == {True, False}  # use_cache
+    assert {k[3] for k in keys} == {True, False}  # use_cache
     np.testing.assert_array_equal(frame(scene, None), cache_frame)
     fresh = ttesting.make_big_scene(200, seed=11)
     np.testing.assert_array_equal(frame(fresh, lights), lit)

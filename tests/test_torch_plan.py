@@ -1,4 +1,5 @@
-"""Port vs JAX: frame planning (scene tables, eye layout, widths, pose pack).
+"""Port vs JAX: frame planning (scene tables, eye layout, pose pack and its
+widths).
 
 Both packages build their tables from the same procedural scene.  The JAX
 package may order clusters by its native median split; these tests pin it
@@ -23,6 +24,7 @@ from compound_ray_tpu.scene.eye_io import ommatidia_to_array  # noqa: E402
 from compound_ray_tpu_torch import config as tcfg  # noqa: E402
 from compound_ray_tpu_torch import testing as ttesting  # noqa: E402
 from compound_ray_tpu_torch.eye import pipeline as TP  # noqa: E402
+from compound_ray_tpu_torch.trace import lighting as TL  # noqa: E402
 
 SAMPLES = 640  # g = 1, rg = 640 -> rb_size 768 (tests/test_pallas_tracer.py)
 POS = np.array([0.0, 2.0, 0.0], np.float32)
@@ -61,18 +63,19 @@ def _widths_and_pack(js, ts, omms):
     jpos, jls = jnp.asarray(POS), jnp.asarray(LS)
     tpos, tls = torch.as_tensor(POS), torch.as_tensor(LS)
     jw = JP._plan_widths(jsp, je, jo, jpos, jls, (je.sig, SAMPLES, b"plan"))
-    tw = TP._plan_widths(tsp, te, to, tpos, tls, (te.sig, SAMPLES, b"plan"))
     kcand, rmax = jw
     jrc, jpm, _, _ = JP._pack_fused(
         jsp.mm_flat, jsp.slot_center_cl, jsp.slot_radius_cl,
         jsp.half_center, jsp.half_radius, jo, jpos, jls, g=je.g,
         kcand=kcand, rmax=rmax, cull_sigmas=4.0, tri_cl=jsp.slot_tri_cl)
-    trc, tpm = TP._pack_fused(
+    # the port's one pass at the fresh eye plan's hints
+    trc, tpm, *tw = TP._pack_fused(
         tsp.mm_flat, tsp.slot_center_cl, tsp.slot_radius_cl,
         tsp.half_center, tsp.half_radius, to, tpos, tls, g=te.g,
-        kcand=kcand, rmax=rmax, cull_sigmas=4.0, tri_cl=tsp.slot_tri_cl)
-    return jw, tw, (np.asarray(jrc), np.asarray(jpm)), (trc.numpy(),
-                                                        tpm.numpy())
+        kmin=te.kmax_hint, rmin=te.rmax_hint, cull_sigmas=4.0,
+        tri_cl=tsp.slot_tri_cl)
+    return tuple(jw), tuple(tw), (np.asarray(jrc), np.asarray(jpm)), (
+        trc.numpy(), tpm.numpy())
 
 
 def _slot_multisets(row_counts, packed):
@@ -137,25 +140,20 @@ def test_packed_store_is_a_bounded_lru(pinned, monkeypatch):
     for y in (1.0, 2.0, 3.0):
         pos = torch.tensor([0.0, y, 0.0])
         sig = (pos.numpy().tobytes(), LS.tobytes())
-        kc, rm = TP._plan_widths(splan, eplan, to, pos, torch.as_tensor(LS),
-                                 (eplan.sig, SAMPLES, sig))
         packs.append(TP._packed_plan(splan, eplan, to, pos,
-                                     torch.as_tensor(LS), sig, SAMPLES, kc,
-                                     rm))
+                                     torch.as_tensor(LS), sig, SAMPLES))
     assert len(splan.packed_store) == 2
     # the newest pose is served from the store, not re-packed
     again = TP._packed_plan(splan, eplan, to, pos, torch.as_tensor(LS), sig,
-                            SAMPLES, kc, rm)
+                            SAMPLES)
     assert again is packs[-1]
 
 
 def _pack_at(splan, eplan, to, y):
     pos = torch.tensor([0.0, y, 0.0])
     sig = (pos.numpy().tobytes(), LS.tobytes())
-    kc, rm = TP._plan_widths(splan, eplan, to, pos, torch.as_tensor(LS),
-                             (eplan.sig, SAMPLES, sig))
     return TP._packed_plan(splan, eplan, to, pos, torch.as_tensor(LS), sig,
-                           SAMPLES, kc, rm)
+                           SAMPLES)
 
 
 def test_packed_store_evicts_by_bytes(pinned, monkeypatch):
@@ -168,7 +166,7 @@ def test_packed_store_evicts_by_bytes(pinned, monkeypatch):
     to, _ = eplan.device_arrays(omms, "cpu")
     first = _pack_at(splan, eplan, to, 1.0)
     size = TP._pack_nbytes(first)
-    assert size == sum(t.numel() * t.element_size() for t in first) > 0
+    assert size == sum(t.numel() * t.element_size() for t in first[:2]) > 0
     splan.packed_store.clear()
     monkeypatch.setattr(tcfg, "_global_config", tcfg.RenderConfig(
         packed_store_size=8, packed_store_bytes=int(2.5 * size)))
@@ -233,21 +231,95 @@ def test_refine_chunks_cover_every_group(monkeypatch):
 
 
 def test_chunked_pack_equals_unchunked(pinned, monkeypatch):
-    """Group chunking only bounds memory: one group per chunk must pack the
-    same payload as a single chunk."""
+    """Group chunking only bounds memory: one group per chunk, each
+    measuring its own rows, must pack the same payload at the same widths
+    as a single chunk."""
     ts = ttesting.make_big_scene(n_boxes=60, seed=5)
     omms = ommatidia_to_array(ttesting.make_sphere_eye(16, 20.0))
     splan = TP.scene_plan(ts, "cpu")
     eplan = TP.eye_plan(omms, SAMPLES)
     to, _ = eplan.device_arrays(omms, "cpu")
     pos, ls = torch.as_tensor(POS), torch.as_tensor(LS)
-    kc, rm = TP._plan_widths(splan, eplan, to, pos, ls,
-                             (eplan.sig, SAMPLES, b"chunk"))
     args = (splan.mm_flat, splan.slot_center_cl, splan.slot_radius_cl,
             splan.half_center, splan.half_radius, to, pos, ls)
-    kw = dict(g=eplan.g, kcand=kc, rmax=rm, cull_sigmas=4.0,
+    kw = dict(g=eplan.g, kmin=8, rmin=1, cull_sigmas=4.0,
               tri_cl=splan.slot_tri_cl)
-    rc1, pm1 = TP._pack_fused(*args, **kw)
+    rc1, pm1, kc1, rm1 = TP._pack_fused(*args, **kw)
     monkeypatch.setattr(TP, "_REFINE_CHUNK_ELEMS", 1)
-    rc2, pm2 = TP._pack_fused(*args, **kw)
+    rc2, pm2, kc2, rm2 = TP._pack_fused(*args, **kw)
+    assert len(TP._refine_chunks(eplan.ng, eplan.g, kc1)) == eplan.ng > 1
+    # the widest group sets rmax, and most groups refine fewer rows
+    assert rm1 == int(rc1.max()) + int(rc1.max()) % 2
+    assert (rc1 < rc1.max()).any()
+    assert (kc1, rm1) == (kc2, rm2)
     assert torch.equal(rc1, rc2) and torch.equal(pm1, pm2)
+
+
+def test_pose_packed_again_after_eviction_keeps_its_rows(pinned,
+                                                         monkeypatch):
+    """With one pack in the store, a pose, a pose that needs wider
+    widths, then the first pose again: the first pose is packed again at
+    the raised widths with the rows and live slots of its first pack, and
+    renders the same frame."""
+    monkeypatch.setattr(tcfg, "_global_config",
+                        tcfg.RenderConfig(farfield="off",
+                                          packed_store_size=1))
+    ts = ttesting.make_big_scene(n_boxes=200, seed=11)
+    omms = ommatidia_to_array(ttesting.make_sphere_eye(64, 4.0))
+    tdev = ts.device_triangles("cpu")
+
+    def frame(pos):
+        kw, inv = TP._plan_frame(ts, tdev, omms, np.array(pos, np.float32),
+                                 LS, torch.Generator().manual_seed(3), 8, 3)
+        return kw, TP._trace_shade_angles(**kw)[inv]
+
+    first, means = frame((0.0, 2.0, 0.0))
+    wide, _ = frame((2.0, 3.0, 2.0))
+    assert wide["rmax"] > first["rmax"]
+    again, means2 = frame((0.0, 2.0, 0.0))
+    assert len(TP.scene_plan(ts, "cpu").packed_store) == 1
+    assert again["packed_mm"] is not first["packed_mm"]  # packed again
+    assert again["rmax"] == wide["rmax"]
+    assert torch.equal(again["row_counts"], first["row_counts"])
+    assert _slot_multisets(again["row_counts"].numpy(),
+                           again["packed_mm"].numpy()) == _slot_multisets(
+        first["row_counts"].numpy(), first["packed_mm"].numpy())
+    r = first["rmax"]
+    assert torch.equal(again["packed_mm"][:, :r], first["packed_mm"])
+    assert not again["packed_mm"][:, r:].any()  # the wider rows are padding
+    assert torch.equal(means2, means)
+
+
+def test_scene_plan_memos_stay_bounded_over_a_pose_sweep(pinned,
+                                                         monkeypatch):
+    """Twenty new poses of one eye, unlit with the far-field cache and the
+    sky split, every fifth lit: every dict on the scene plan stays within
+    its bound (each store's configured size; the sky split's high-water
+    holds one entry per eye, sample count and quantum)."""
+    cfg = tcfg.RenderConfig(farfield="auto", farfield_cache_width=32,
+                            sky_split=True, packed_store_size=3,
+                            shadow_store_size=2)
+    monkeypatch.setattr(tcfg, "_global_config", cfg)
+    ts = ttesting.make_big_scene(n_boxes=200, seed=11)
+    omms = ommatidia_to_array(ttesting.make_sphere_eye(64, 4.0))
+    tdev = ts.device_triangles("cpu")
+    lights = TL.default_lights(ts.aabb_min, ts.aabb_max)
+    for i in range(20):
+        pos = np.array([0.02 * i, 2.0, 0.01 * i], np.float32)
+        lit = i % 5 == 4  # at 8 samples: a small shadow probe
+        TP._plan_frame(ts, tdev, omms, pos, LS,
+                       torch.Generator().manual_seed(i), 8 if lit else 128,
+                       3, lights=lights if lit else None)
+    splan = TP.scene_plan(ts, "cpu")
+    assert any(v is not None for v in splan.sky_store.values())
+    bounds = dict(packed_store=cfg.packed_store_size,
+                  sky_store=cfg.packed_store_size,
+                  shadow_store=cfg.shadow_store_size,
+                  cache_store=TP._CACHE_STORE_MAX + 1, sky_ngl=1)
+    dicts = {f.name: getattr(splan, f.name)
+             for f in dataclasses.fields(splan)
+             if isinstance(getattr(splan, f.name), dict)}
+    assert set(dicts) == set(bounds)
+    assert len(splan.shadow_store) == cfg.shadow_store_size
+    for name, d in dicts.items():
+        assert len(d) <= bounds[name], (name, len(d))

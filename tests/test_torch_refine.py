@@ -1,10 +1,9 @@
 """The planning refine's wrapper (eye/pipeline.py run_refine) on CPU tensors.
 
-On the CPU the wrapper takes its torch twin, _refine_mask, so both of its
-forms must give exactly what the pack and the widths took from the twin
-before the kernel existed: the counts form _rows(mask.sum(-1)), the key
-form where(mask, dist, inf) with the mask and distances of _refine_mask,
-and _refine_slots its slots.  The kernel (csrc/refine_mask.cu) is held to
+On the CPU the wrapper takes its torch twin, _refine_mask, so it must give
+exactly what the pack took from the twin before the kernel existed: the
+rows _rows(mask.sum(-1)), the key where(mask, dist, inf) with the mask and
+distances of _refine_mask, and _refine_slots its slots.  The kernel (csrc/refine_mask.cu) is held to
 the twin on a card in tests/test_torch_cuda.py.
 """
 
@@ -51,12 +50,9 @@ def test_run_refine_on_cpu_is_the_twin(refine_mode, g, with_dmax):
     args = (omms_p, pos, ls, ids, cl, splan.slot_center_cl,
             splan.slot_radius_cl, g, SIGMAS, tri)
     mask, dist, slots = P._refine_mask(*args, dmax=dmax)
-    rows_c, none = P.run_refine(*args, dmax=dmax, keys=False)
-    rows_k, key = P.run_refine(*args, dmax=dmax)
-    assert none is None
-    assert rows_c.dtype == torch.int32
-    assert torch.equal(rows_c, P._rows(mask.sum(dim=-1)))
-    assert torch.equal(rows_k, rows_c)
+    rows, key = P.run_refine(*args, dmax=dmax)
+    assert rows.dtype == torch.int32
+    assert torch.equal(rows, P._rows(mask.sum(dim=-1)))
     assert key.dtype == torch.float32 and key.shape == mask.shape
     assert torch.equal(torch.isfinite(key), mask)
     assert torch.equal(key[mask], dist[mask])

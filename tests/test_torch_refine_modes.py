@@ -123,9 +123,10 @@ def _live_slots(rc, pm):
 
 
 def test_sphere_widths_and_pack_match_jax(pinned):
-    """refine_mode "sphere" in both packages: the same widths at one pose
-    and, per group, the same row count and packed slot set; the exact
-    refine packs no more rows."""
+    """refine_mode "sphere" in both packages: the port's one pass at
+    fresh hints measures the JAX package's widths at one pose and, per
+    group, packs the same row count and slot set at them; the exact refine
+    packs no more rows."""
     js = jtesting.make_big_scene(n_boxes=120, seed=4)
     ts = ttesting.make_big_scene(n_boxes=120, seed=4)
     omms = ommatidia_to_array(jtesting.make_sphere_eye(24, 3.0))
@@ -140,22 +141,24 @@ def test_sphere_widths_and_pack_match_jax(pinned):
     jpos, tpos = jnp.asarray(OPEN_POS), torch.as_tensor(OPEN_POS)
     jls, tls = jnp.asarray(LS), torch.as_tensor(LS)
     jw = JP._plan_widths(jsp, je, jo, jpos, jls, (je.sig, samples, b"sph"))
-    tw = TP._plan_widths(tsp, te, to, tpos, tls, (te.sig, samples, b"sph"))
-    assert tw == tuple(jw)
-    kcand, rmax = tw
+    kcand, rmax = jw
     jrc, jpm, _, _ = JP._pack_fused(
         jsp.mm_flat, jsp.slot_center_cl, jsp.slot_radius_cl,
         jsp.half_center, jsp.half_radius, jo, jpos, jls, g=je.g,
         kcand=kcand, rmax=rmax, cull_sigmas=4.0, tri_cl=None)
     args = (tsp.mm_flat, tsp.slot_center_cl, tsp.slot_radius_cl,
             tsp.half_center, tsp.half_radius, to, tpos, tls)
-    kw = dict(g=te.g, kcand=kcand, rmax=rmax, cull_sigmas=4.0)
-    trc, tpm = TP._pack_fused(*args, tri_cl=None, **kw)
+    trc, tpm, *tw = TP._pack_fused(*args, g=te.g, kmin=te.kmax_hint,
+                                   rmin=te.rmax_hint, cull_sigmas=4.0,
+                                   tri_cl=None)
+    assert tuple(tw) == tuple(jw)
     np.testing.assert_array_equal(trc.numpy(), np.asarray(jrc))
     for a, b in zip(_live_slots(np.asarray(jrc), np.asarray(jpm)),
                     _live_slots(trc.numpy(), tpm.numpy())):
         np.testing.assert_array_equal(b, a)
-    erc, _ = TP._pack_fused(*args, tri_cl=tsp.slot_tri_cl, **kw)
+    erc, _, ek, er = TP._pack_fused(*args, g=te.g, kmin=kcand, rmin=rmax,
+                                    cull_sigmas=4.0, tri_cl=tsp.slot_tri_cl)
+    assert (ek, er) == (kcand, rmax)
     assert (erc <= trc).all()
 
 
@@ -206,7 +209,8 @@ def test_exact_culls_harder_in_arena(pinned):
     scene._kernel_plan = None
     _frames(pinned, scene, omms, pos, 8, 4, ("exact", "sphere"), fresh=False)
     store = TP.scene_plan(scene, "cpu").packed_store
-    rows = {k[-2]: float(rc.float().mean()) for k, (rc, _) in store.items()}
+    rows = {k[-2]: float(rc.float().mean())
+            for k, (rc, *_) in store.items()}
     assert set(rows) == {"exact", "sphere"}
     assert rows["exact"] <= 0.7 * rows["sphere"], rows
 

@@ -131,10 +131,11 @@ def _shard_plans(monkeypatch, shards, ng_multiple=4):
         jsp.mm_flat, jsp.slot_center_cl, jsp.slot_radius_cl,
         jsp.half_center, jsp.half_radius, jo, jpos, jls, g=je.g, kcand=kc,
         rmax=rmax, cull_sigmas=4.0, tri_cl=jsp.slot_tri_cl)
-    trc, tpm = TP._pack_fused(
+    trc, tpm, *tw = TP._pack_fused(
         tsp.mm_flat, tsp.slot_center_cl, tsp.slot_radius_cl,
-        tsp.half_center, tsp.half_radius, to, tpos, tls, g=te.g, kcand=kc,
-        rmax=rmax, cull_sigmas=4.0, tri_cl=tsp.slot_tri_cl)
+        tsp.half_center, tsp.half_radius, to, tpos, tls, g=te.g, kmin=kc,
+        rmin=rmax, cull_sigmas=4.0, tri_cl=tsp.slot_tri_cl)
+    assert tuple(tw) == (kc, rmax)
     splay, spin = _angles(omms[je.perm], samples, 3)
     monkeypatch.setattr(JP, "sample_angles_ns",
                         lambda key, sd, s: (jnp.asarray(splay),
