@@ -18,14 +18,16 @@ batches, the eye tools and the viewer; then the bench scene written as a
 .blend and the eight examples on it; then the sharded path over ranks;
 then the render modes (affine rays, the sphere refine, backend "xla");
 then the planning refine at the pose sweep's shapes; then the unlit
-shading kernel at the benchmark's three steady unlit cells' shapes.
+shading and the ray generation kernels at the benchmark's three steady
+unlit cells' shapes.
 Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
-     (csrc/microbench_k.cu), the planning refine (csrc/refine_mask.cu)
-     and the unlit shading (csrc/shade_means.cu) with nvcc for sm_90a,
-     one process per source, started together;
+     (csrc/microbench_k.cu), the planning refine (csrc/refine_mask.cu),
+     the unlit shading (csrc/shade_means.cu) and ray generation
+     (csrc/ray_features.cu) with nvcc for sm_90a, one process per source,
+     started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
      and the near-clusters pack of the cache frame), and K3 against its
      twin on the first lit frame's own shadow table and rays, which the
@@ -136,15 +138,21 @@ Phases, each failing loudly:
      natural-1000.steady-s3200 and natural-acute-10k.steady-s320, each
      built from its configuration and traffic files by the benchmark's
      own generators and system (the arena exists only there): a counted
-     path of SHADE_FRAMES frames through render_frame (one shading and
-     one K1 launch a frame), the last frame's shading inputs through the
-     kernel and the twin (max 1e-4, mean 1e-6), the kernel's device time
-     (torch.profiler), its wrapper's and the twin's (CUDA events), and
-     its bytes bound.
-Every counted path reports the refine's and the shading's launches with
-the kernels'; the lit path's first frame (and a frame after a corrective
-replan) refines, its other frames never; every unlit means frame of
-paths a-c launches the shading kernel once, lit frames never.
+     path of SHADE_FRAMES frames through render_frame (one shading, one
+     ray generation and one K1 launch a frame), the last frame's shading
+     inputs through the kernel and the twin (max 1e-4, mean 1e-6), the
+     kernel's device time (torch.profiler), its wrapper's and the twin's
+     (CUDA events), and its bytes bound; then the ray generation kernel
+     (csrc/ray_features.cu) on the last frame's angles: rays and origins
+     bit-equal to the twin, its device time over SHADE_REPS launches, its
+     wrapper's and the twin's, and its bytes bound.
+Every counted path reports the refine's, the shading's and ray
+generation's launches with the kernels'; the lit path's first frame (and
+a frame after a corrective replan) refines, its other frames never; every
+unlit means frame of paths a-c launches the shading kernel once, lit
+frames never; every frame core and shadow probe of a counted path
+launches the ray generation kernel once (_RayUsers), and in phase 10 and
+phase 12 B's sections each K1 launch follows one.
 The last lines are the kernel table (each kernel's launches, error, time,
 plain time and bound; the refine's launches are its sweep path's, the
 shading's those of every counted path; a
@@ -218,6 +226,12 @@ SHADE_FRAMES = 8  # the counted path's frames per cell
 SHADE_REPS = 20
 SHADE_SEED = 2**31 + 19
 SHADE_MAX_ABS, SHADE_MEAN_ABS = 1e-4, 1e-6
+# phase 15 too: the frame core's ray generation, which replaces no Pallas
+# kernel (XLA fused the eager chain), at the same cells' shapes: rays and
+# origins bit-equal to the twin's
+RAYGEN_REPLACES = ("no Pallas counterpart (XLA-fused ray generation at "
+                   "compound_ray_tpu/eye/pipeline.py:1036-1100)")
+RAYGEN_SOURCE = "compound_ray_tpu_torch/csrc/ray_features.cu"
 REFINE_POSES = 8
 REFINE_VIEWS = 16
 REFINE_SAMPLES = 100
@@ -334,7 +348,7 @@ XLA_ATOL = 1e-5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE), ("refine_mask", REFINE_SOURCE),
-           ("shade_means", SHADE_SOURCE))
+           ("shade_means", SHADE_SOURCE), ("ray_features", RAYGEN_SOURCE))
 # bounds: NVIDIA's H100 SXM data sheet (dense): f32 outside the tensor cores,
 # bf16 on them, and device memory
 PEAK_F32 = 67e12
@@ -384,7 +398,7 @@ def _pose(cam):
 
 
 def build_kernels():
-    """Phase 2: the seven sources through nvcc at once; prints what ptxas
+    """Phase 2: the eight sources through nvcc at once; prints what ptxas
     says."""
     from compound_ray_tpu_torch.trace import _build
 
@@ -397,6 +411,7 @@ def build_kernels():
     _build.microbench_k_lib()
     _build.refine_mask_lib()
     _build.shade_means_lib()
+    _build.ray_features_lib()
     wall = time.perf_counter() - t0
     for name, src in SOURCES:
         secs, log = _build.build_info[name]
@@ -447,10 +462,10 @@ def kernel_vs_twin(r, cam, samples: int, farfield: str, timed: bool,
     gen = torch.Generator(device=dev).manual_seed(12345)
     splay, spin = sample_angles_ns(gen, omms_p[:, 6] / P.FWHM_SD_RATIO,
                                    samples)
-    rays, _ = P._gen_ray_features(omms_p, pos, ls, splay, spin,
-                                  samples=samples, ng=eplan.ng, g=eplan.g,
-                                  nrb=eplan.nrb, rb_size=eplan.rb_size,
-                                  affine=affine)
+    rays, _ = P.run_ray_features(omms_p, pos, ls, splay, spin,
+                                 samples=samples, ng=eplan.ng, g=eplan.g,
+                                 nrb=eplan.nrb, rb_size=eplan.rb_size,
+                                 affine=affine)
     kw = dict(ng=eplan.ng, nrb=eplan.nrb, rb_size=eplan.rb_size, rmax=rmax,
               ray_feats=rays.shape[0])
     got = run_packed_tracer(rc, pmm, rays, **kw)
@@ -698,8 +713,8 @@ def _report(tag, res):
 
 def _counters() -> dict:
     """{kernel: (module, name of its launch count)} for K1 (k1a: its
-    8-feature affine form) to K6, the planning refine and the unlit
-    shading."""
+    8-feature affine form) to K6, the planning refine, the unlit shading
+    and ray generation."""
     from compound_ray_tpu_torch.eye import pipeline
     from compound_ray_tpu_torch.tools import microbench_k, probe_step
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
@@ -712,19 +727,60 @@ def _counters() -> dict:
             "k5": (probe_step, "probe3d_launches"),
             "k6": (microbench_k, "dot_bench_launches"),
             "refine": (pipeline, "refine_launches"),
-            "shade": (pipeline, "shade_launches")}
+            "shade": (pipeline, "shade_launches"),
+            "raygen": (pipeline, "raygen_launches")}
+
+
+class _RayUsers:
+    """While open, counts the calls of the functions that generate rays
+    (pipeline._trace_shade_angles, also as parallel/sharding.py imported
+    it, and the shadow plan's pipeline._shadow_probe): each must launch
+    the ray generation kernel exactly once."""
+
+    def __enter__(self):
+        from compound_ray_tpu_torch.eye import pipeline
+        from compound_ray_tpu_torch.parallel import sharding
+
+        self.calls = 0
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (pipeline, "_trace_shade_angles"),
+            (sharding, "_trace_shade_angles"),
+            (pipeline, "_shadow_probe"))]
+
+        def counted(fn):
+            def call(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return call
+
+        for mod, name, fn in self.saved:
+            setattr(mod, name, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
 
 
 def _path(r, name, run, phase: int = 5):
     """Run one main path with every launch count set to 0 just before it;
-    returns (its result, {kernel: launches in the path})."""
+    returns (its result, {kernel: launches in the path}).  Every frame
+    core and shadow probe of the path must generate its rays in one
+    launch of the ray generation kernel."""
     counters = _counters()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    res = run()
+    with _RayUsers() as users:
+        res = run()
     n = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     print(f"phase {phase}: {name}: launches " + ", ".join(
-        f"{k.upper()} {v}" for k, v in n.items()))
+        f"{k.upper()} {v}" for k, v in n.items())
+        + f" (frame cores and shadow probes {users.calls})")
+    if n["raygen"] != users.calls:
+        raise AssertionError(f"{name}: {n['raygen']} ray generation "
+                             f"launches for {users.calls} frame cores and "
+                             f"shadow probes")
     return res, n
 
 
@@ -1907,14 +1963,16 @@ def _settle_lit(r, n):
     raise AssertionError("the lit frames kept replanning their shadows")
 
 
-def _tally(keys=("k1", "k2", "k3")) -> dict:
-    """The launch counts of `keys` (by default K1, K2 and K3) now."""
+def _tally(keys=("k1", "k2", "k3", "raygen")) -> dict:
+    """The launch counts of `keys` (by default K1, K2, K3 and ray
+    generation) now."""
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
             if k in keys}
 
 
 def _counted(sections: dict, name: str, fn):
-    """fn()'s result; its K1, K2 and K3 launches go to sections[name]."""
+    """fn()'s result; its K1, K2, K3 and ray generation launches go to
+    sections[name]."""
     before = _tally()
     out = fn()
     sections[name] = {k: v - before[k] for k, v in _tally().items()}
@@ -1922,7 +1980,8 @@ def _counted(sections: dict, name: str, fn):
 
 
 def _sum_launches(parts) -> dict:
-    return {k: sum(p[k] for p in parts) for k in ("k1", "k2", "k3")}
+    return {k: sum(p[k] for p in parts)
+            for k in ("k1", "k2", "k3", "raygen")}
 
 
 def burst_case(r, cam, samples: int, n: int, lit: bool):
@@ -2001,7 +2060,7 @@ def burst_case(r, cam, samples: int, n: int, lit: bool):
     res["launches"] = sections
     total = {k: v - start[k] for k, v in _tally().items()}
     want_k1 = 1 if res["stacked"] else n
-    burst = dict(k1=want_k1, k2=0, k3=want_k1 if lit else 0)
+    burst = dict(k1=want_k1, k2=0, k3=want_k1 if lit else 0, raygen=want_k1)
     if (total != _sum_launches(sections.values())
             or sections["synced frames"] != sections["per-frame loop"]
             or any(sections[b] != burst for b in (
@@ -2263,7 +2322,7 @@ def bursts_phase(r, cam, card: str, count) -> None:
     cases, batch, tools = count(res_n)[0]
     n = res_n[1]
     if not (n["k1"] > 0 and n["k3"] > 0 and n["k4"] == n["k5"] == n["k6"]
-            == 0 and {k: n[k] for k in ("k1", "k2", "k3")}
+            == 0 and {k: n[k] for k in ("k1", "k2", "k3", "raygen")}
             == _sum_launches(sections.values())):
         raise AssertionError(f"phase 10 launched {n}, its sections "
                              f"{sections}")
@@ -2565,7 +2624,7 @@ def blend_phase(card: str, count) -> None:
 
     res_n = _path(None, "the .blend scene and the examples", run, phase=11)
     r, n = count(res_n)[0], res_n[1]
-    if {k: n[k] for k in ("k1", "k2", "k3")} != _sum_launches(
+    if {k: n[k] for k in ("k1", "k2", "k3", "raygen")} != _sum_launches(
             sections.values()) or not (
             n["k1"] > 0 and n["k2"] > 0 and n["k3"] > 0
             and n["k4"] == n["k5"] == n["k6"] == 0):
@@ -2674,16 +2733,19 @@ def _collective_ms(run) -> dict:
 
 
 def _shard_sections_expected(spec: dict) -> dict:
-    """Each phase-12 B section's K1, K2 and K3 launches on one rank: a
-    frame is one K1 launch, the first frame with the far-field cache
-    builds it (one K2), the first lit frame probes its shadow plan (one K1
-    more) and every lit frame traces its shadow rays (one K3); a burst is
-    one K1 launch per frame."""
+    """Each phase-12 B section's K1, K2, K3 and ray generation launches on
+    one rank: a frame is one K1 launch, the first frame with the far-field
+    cache builds it (one K2), the first lit frame probes its shadow plan
+    (one K1 more) and every lit frame traces its shadow rays (one K3); a
+    burst is one K1 launch per frame; each K1 launch traces the rays of
+    one ray generation launch."""
     n = 1 + spec["warmup"] + spec["timed"]
     bursts = (1 + spec["timed"]) * spec["burst"][1]
-    return {"off": dict(k1=n, k2=0, k3=0), "auto": dict(k1=n, k2=1, k3=0),
-            "lit": dict(k1=n + 1, k2=0, k3=n), "raw": dict(k1=n, k2=0, k3=0),
-            "burst": dict(k1=bursts, k2=0, k3=0)}
+    return {"off": dict(k1=n, k2=0, k3=0, raygen=n),
+            "auto": dict(k1=n, k2=1, k3=0, raygen=n),
+            "lit": dict(k1=n + 1, k2=0, k3=n, raygen=n + 1),
+            "raw": dict(k1=n, k2=0, k3=0, raygen=n),
+            "burst": dict(k1=bursts, k2=0, k3=0, raygen=bursts)}
 
 
 def shard_rank_path(spec: dict):
@@ -2856,10 +2918,10 @@ def nccl_one_rank(r, cam, tmp: str):
             _events_ms(sharded) for _ in range(1 + SHARD_TIMED)], phase=12)
         if {k: v for k, v in n.items() if k != "refine"} != dict(
                 k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0, k6=0,
-                shade=1 + SHARD_TIMED):
-            raise AssertionError(f"phase 12 A's path launched {n}, not K1 "
-                                 f"and the shading {1 + SHARD_TIMED} times "
-                                 f"and K2 once")
+                shade=1 + SHARD_TIMED, raygen=1 + SHARD_TIMED):
+            raise AssertionError(f"phase 12 A's path launched {n}, not K1, "
+                                 f"the shading and ray generation "
+                                 f"{1 + SHARD_TIMED} times and K2 once")
         got = runs[0][0]
         dense = _render_out(r, cam, seed)
         if not torch.equal(got, dense):
@@ -3640,6 +3702,39 @@ def _shade_work(kw, out, rays) -> dict:
                 quads=n_quads)
 
 
+def raygen_vs_twin(a, k) -> dict:
+    """The ray generation kernel on one frame core's inputs (run_ray_features'
+    arguments a, k) against ray_features_reference: rays and origins
+    bit-equal, the kernel's device time (the profiler, over SHADE_REPS
+    launches), its wrapper's and the twin's (CUDA events), and the bytes
+    bound: the angles, the ommatidium rows and the pose read once, the
+    rays and the origins written once."""
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    rays, ((ox, oy, oz), tmin) = P.run_ray_features(*a, **k)
+    want, ((wx, wy, wz), wt) = P.ray_features_reference(*a, **k)
+    pairs = [(rays, want), (ox, wx), (oy, wy), (oz, wz), (tmin, wt)]
+    unequal = sum(int((x != y).sum()) for x, y in pairs)
+    n_pad, samples = k["ng"] * k["g"], k["samples"]
+    res = dict(g=k["g"], samples=samples, rg_pad=k["nrb"] * k["rb_size"],
+               feats=rays.shape[0], slots=rays.shape[1],
+               bit_equal=unequal == 0, unequal=unequal,
+               max_abs_err=max(float((x - y).abs().max()) for x, y in pairs))
+    if unequal:
+        raise AssertionError(f"ray generation kernel vs twin: {res}")
+    res["ms"] = _kernel_ms(lambda: P.run_ray_features(*a, **k),
+                           "ray_features_kernel", SHADE_REPS)
+    res["wrapper_ms"] = time_ms(lambda: P.run_ray_features(*a, **k),
+                                reps=SHADE_REPS, warmup=3)
+    res["plain_ms"] = time_ms(lambda: P.ray_features_reference(*a, **k),
+                              reps=3)
+    nbytes = (n_pad * samples * 8 + n_pad * 32 + 48 + _nbytes(rays)
+              + n_pad * 16)
+    res.update({key: v for key, v in _bound(0.0, nbytes).items()
+                if key in ("bound_ms", "bound_by", "bytes")})
+    return res
+
+
 def shade_phase(card: str) -> list:
     """Phase 15: the frame core's unlit shading and means
     (csrc/shade_means.cu) at the shapes of the benchmark's three steady
@@ -3650,7 +3745,10 @@ def shade_phase(card: str) -> list:
     through the kernel and the twin (SHADE_MAX_ABS, SHADE_MEAN_ABS), the
     kernel's device time (the profiler, over SHADE_REPS launches), its
     wrapper's and the twin's (CUDA events), and the bytes bound
-    (_shade_work).  Returns one result dict per cell."""
+    (_shade_work); then the ray generation kernel on the last frame's
+    inputs (raygen_vs_twin; one launch a frame in the path, too).
+    Returns one result dict per cell, the ray generation's under
+    "raygen"."""
     from benchmark import scene as bench_scene
     from benchmark.system import System
     from compound_ray_tpu_torch.eye import pipeline as P
@@ -3671,10 +3769,15 @@ def shade_phase(card: str) -> list:
         system.view(tuple(float(v) for v in cfg["pose"]["position"]
                           + cfg["pose"]["rotation"]))  # plans, cache
         run, calls, frame_ms = P.run_shade_means, [], []
+        run_rays, ray_calls = P.run_ray_features, []
 
         def record(*a, **k):
             calls.append((a, k))
             return run(*a, **k)
+
+        def record_rays(*a, **k):
+            ray_calls.append((a, k))
+            return run_rays(*a, **k)
 
         def frames():
             for _ in range(SHADE_FRAMES):
@@ -3686,12 +3789,13 @@ def shade_phase(card: str) -> list:
                 torch.cuda.synchronize()
                 frame_ms.append(start.elapsed_time(end))
 
-        P.run_shade_means = record
+        P.run_shade_means, P.run_ray_features = record, record_rays
         try:
             _, n = _path(system.renderer, name, frames, phase=15)
         finally:
-            P.run_shade_means = run
-        if not (n["shade"] == n["k1"] == SHADE_FRAMES == len(calls)
+            P.run_shade_means, P.run_ray_features = run, run_rays
+        if not (n["shade"] == n["k1"] == n["raygen"] == SHADE_FRAMES
+                == len(calls) == len(ray_calls)
                 and n["k2"] == n["k3"] == n["refine"] == 0):
             raise AssertionError(f"{name}: {SHADE_FRAMES} frames launched "
                                  f"{n}")
@@ -3720,6 +3824,11 @@ def shade_phase(card: str) -> list:
                     if key in ("bound_ms", "bound_by")})
         print(f"phase 15: shading kernel at {name}'s shapes ({card}): "
               f"{json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+        res["raygen"] = raygen_vs_twin(*ray_calls[-1])
+        res["raygen"].update(cell=name, launches=n["raygen"])
+        print(f"phase 15: ray generation kernel at {name}'s shapes "
+              f"({card}): {json.dumps(res['raygen'])} (rays and origins "
+              f"bit-equal to the twin)")
         results.append(res)
         system.close()
     return results
@@ -3938,6 +4047,7 @@ def main() -> int:
     launches["refine"] = refine["launches"]
     shades = shade_phase(card)
     launches["shade"] += sum(res["launches"] for res in shades)
+    launches["raygen"] += sum(res["raygen"]["launches"] for res in shades)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -3964,7 +4074,9 @@ def main() -> int:
         entry("Planning refine (per pose of the sweep)",
               REFINE_SOURCE, REFINE_REPLACES, "refine", refine),
     ] + [entry(f"Unlit shading and means ({res['cell']})", SHADE_SOURCE,
-               SHADE_REPLACES, "shade", res) for res in shades]
+               SHADE_REPLACES, "shade", res) for res in shades] + [
+        entry(f"Ray generation ({res['cell']})", RAYGEN_SOURCE,
+              RAYGEN_REPLACES, "raygen", res["raygen"]) for res in shades]
     # a time under its bound means the compiler dropped work the kernel must
     # keep, or the bound counts work the kernel does not need; K1 and K3
     # skip products that their staged tests do not need, so they are held to
@@ -3977,6 +4089,8 @@ def main() -> int:
                               ("K4", k45["k4"]), ("K5", k45["k5"]),
                               ("K6", k6), ("refine", refine),
                               *((f"shade {res['cell']}", res)
+                                for res in shades),
+                              *((f"raygen {res['cell']}", res["raygen"])
                                 for res in shades))
              for bound in [res.get("staged_bound_ms", res["bound_ms"])]
              if res["ms"] < bound]

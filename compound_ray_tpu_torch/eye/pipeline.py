@@ -15,10 +15,12 @@ Per frame:
      a lit frame then takes its memoised shadow plan (_shadow_plan: a K1
      probe of the first frame's hit points at the pose, per-light occluder
      shafts, one ragged table of reverse-affine occluder rows);
-  3. _trace_shade_angles: world rays -> K1 (trace/mm_tracer.py) -> winner
-     attributes -> texture -> GGX direct light with shadow rays on K3 when
-     lit -> miss shading or the far-field cache -> per-ommatidium mean,
-     returned in the original ommatidium order.  An unlit means frame
+  3. _trace_shade_angles: world rays in one launch (run_ray_features:
+     csrc/ray_features.cu on CUDA tensors, its twin ray_features_reference
+     on the CPU) -> K1 (trace/mm_tracer.py) -> winner attributes ->
+     texture -> GGX direct light with shadow rays on K3 when lit -> miss
+     shading or the far-field cache -> per-ommatidium mean, returned in the
+     original ommatidium order.  An unlit means frame
      shades and reduces in one launch (run_shade_means:
      csrc/shade_means.cu on CUDA tensors, its twin shade_means_reference,
      the eager _shade_planes and the mean, on the CPU); lit frames and raw
@@ -51,9 +53,10 @@ cr.plan.build.* span (pack, cache, sky, shadow) only where a memo misses
 and builds, cr.refine around each refine kernel launch, and cr.core
 around _trace_shade_angles with cr.core.rays, cr.core.shade and
 cr.core.lit inside it, and cr.core.farfield (the far-field sphere's hit
-test and the cache lookups) inside cr.core.shade; an unlit means frame's
-shading launch is cr.shade, inside cr.core.shade and, on a cache frame,
-inside cr.core.farfield, since the one kernel does the far field's work.
+test and the cache lookups) inside cr.core.shade; the ray generation
+launch is cr.raygen, inside cr.core.rays; an unlit means frame's shading
+launch is cr.shade, inside cr.core.shade and, on a cache frame, inside
+cr.core.farfield, since the one kernel does the far field's work.
 """
 
 from __future__ import annotations
@@ -128,6 +131,9 @@ refine_launches = 0
 # shading kernel launches by run_shade_means (the kernel only, never the
 # twin)
 shade_launches = 0
+# ray generation kernel launches by run_ray_features (the kernel only,
+# never the twin)
+raygen_launches = 0
 
 # Inflation of the per-group hit-bound spheres the shadow plan is built
 # from (compound_ray_tpu/eye/pipeline.py:86-101): the probe samples one
@@ -941,21 +947,13 @@ def _omm_world_origins(omms_p, position, local_space):
     return (ox, oy, oz), focal * axis_len, (ax, ay, az), axis_len
 
 
-def _gen_ray_features(omms_p, position, local_space, splay, spin,
-                      samples: int, ng: int, g: int, nrb: int, rb_size: int,
-                      affine: bool = False, origins=None):
-    """Sample angles -> world rays -> K1's planar features
-    (compound_ray_tpu/eye/pipeline.py:1057).
-
-    Returns (rays, (dx, dy, dz)) with (Np, S) unit world directions; rays
-    is (16, NG*rg_pad) [d, m, -o', 1, 0 x 6], or (8, NG*rg_pad) [d, 1,
-    0 x 4] when `affine` (the origin and tmin live in the
-    transform_payload_affine'd payload, so the moment and origin features
-    are not built).  Each group's ray block is edge-padded (the last real
-    ray repeated) so padded rays stay finite.  origins is
-    _omm_world_origins' result where the caller has it already."""
-    if origins is None:
-        origins = _omm_world_origins(omms_p, position, local_space)
+def ray_features_reference(omms_p, position, local_space, splay, spin,
+                           samples: int, ng: int, g: int, nrb: int,
+                           rb_size: int, affine: bool = False):
+    """run_ray_features' plain torch twin: sample angles -> world rays ->
+    K1's planar features (compound_ray_tpu/eye/pipeline.py:1057), in eager
+    torch."""
+    origins = _omm_world_origins(omms_p, position, local_space)
     (ox, oy, oz), tmin_w, (ax, ay, az), _ = origins
     L = local_space
     rdx, rdy, rdz = cone_offset_components(
@@ -989,7 +987,79 @@ def _gen_ray_features(omms_p, position, local_space, splay, spin,
     rays = torch.stack([c.reshape(ng, rg) for c in comps])  # (F, NG, rg)
     if rg_pad != rg:
         rays = F.pad(rays, (0, rg_pad - rg), mode="replicate")
-    return rays.reshape(n_feats, ng * rg_pad), (dx, dy, dz)
+    return rays.reshape(n_feats, ng * rg_pad), origins[:2]
+
+
+def run_ray_features(omms_p, position, local_space, splay, spin,
+                     samples: int, ng: int, g: int, nrb: int, rb_size: int,
+                     affine: bool = False):
+    """The frame core's ray generation from the drawn (Np, S) angles: (rays,
+    origins).  rays is K1's (16, NG*rg_pad) [d, m, -o', 1, 0 x 6], or (8,
+    NG*rg_pad) [d, 1, 0 x 4] when `affine` (the origin and tmin live in the
+    transform_payload_affine'd payload), with unit world directions d; each
+    group's ray block is edge-padded (the last real ray repeated) so padded
+    rays stay finite.  origins is ((ox, oy, oz), tmin), each (Np,): the
+    per-ommatidium world ray origin and tmin of _omm_world_origins.  CUDA
+    tensors launch csrc/ray_features.cu once on the current stream (or
+    raise), and equal the twin bit for bit on the same card; CPU tensors
+    take ray_features_reference."""
+    global raygen_launches
+    args = (omms_p, position, local_space, splay, spin, samples, ng, g, nrb,
+            rb_size, affine)
+    dev = omms_p.device
+    if dev.type == "cpu":
+        return ray_features_reference(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"run_ray_features takes CPU or CUDA tensors, not "
+                         f"{dev.type}")
+    n_pad, rg_pad = ng * g, nrb * rb_size
+    if g * samples > rg_pad:
+        raise ValueError(f"g={g} x {samples} samples do not fit blocks of "
+                         f"{rg_pad}")
+    omms_p, position, local_space = (
+        x.contiguous() for x in (omms_p, position, local_space))
+    splay, spin = (x if x.stride(1) == 1 else x.contiguous()
+                   for x in (splay, spin))
+    for name, x, shape in (("omms_p", omms_p, (n_pad, 8)),
+                           ("position", position, (3,)),
+                           ("local_space", local_space, (3, 3)),
+                           ("splay", splay, (n_pad, samples)),
+                           ("spin", spin, (n_pad, samples))):
+        if x.dtype != torch.float32 or x.device != dev:
+            raise TypeError(f"{name} must be float32 on {dev}, not "
+                            f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+    feats = RAY_FEATS_AFFINE if affine else RAY_FEATS
+    rays = torch.empty((feats, ng * rg_pad), dtype=torch.float32, device=dev)
+    origins = torch.empty((4, n_pad), dtype=torch.float32, device=dev)
+    from compound_ray_tpu_torch.trace import _build
+
+    lib = _build.ray_features_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("cr.raygen"):
+            err = lib.cr_ray_features(
+                ctypes.c_void_p(omms_p.data_ptr()),
+                ctypes.c_void_p(position.data_ptr()),
+                ctypes.c_void_p(local_space.data_ptr()),
+                ctypes.c_void_p(splay.data_ptr()), splay.stride(0),
+                ctypes.c_void_p(spin.data_ptr()), spin.stride(0), ng, g,
+                samples, rg_pad, feats, ctypes.c_void_p(rays.data_ptr()),
+                ctypes.c_void_p(origins.data_ptr()),
+                ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"ray generation launch failed: CUDA error {err}")
+    raygen_launches += 1
+    return rays, ((origins[0], origins[1], origins[2]), origins[3])
+
+
+def ray_dirs(rays, ng: int, g: int, samples: int, rg_pad: int):
+    """The (Np, S) unit direction planes (dx, dy, dz): rows 0-2 of K1's
+    rays (either form) without the ray-block padding."""
+    n_pad, rg = ng * g, g * samples
+    return tuple(rays[c].reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
+                 for c in range(3))
 
 
 def _repad(x, ng: int, rg: int, rg_pad: int):
@@ -1002,13 +1072,13 @@ def _repad(x, ng: int, rg: int, rg_pad: int):
     return x2.reshape(-1)
 
 
-def _neg_origins(omms_p, position, local_space, dx, dy, dz):
+def _neg_origins(origins, dx, dy, dz):
     """-o' = -(o + tmin d), the tmin-shifted ray origins negated, as (Np, S)
-    planes: the lit branch and the shadow probe rebuild hit points from
-    them (compound_ray_tpu/eye/pipeline.py:1099-1101).  Bit-equal to the
-    rows 6-8 that _gen_ray_features puts into the rays."""
-    (ox, oy, oz), tmin_w, _, _ = _omm_world_origins(omms_p, position,
-                                                    local_space)
+    planes, from run_ray_features' origins and directions: the lit branch
+    and the shadow probe rebuild hit points from them
+    (compound_ray_tpu/eye/pipeline.py:1099-1101).  Bit-equal to the rows
+    6-8 of the 16-feature rays."""
+    (ox, oy, oz), tmin_w = origins[:2]
     tmin = tmin_w[:, None]
     return (-(ox[:, None] + tmin * dx), -(oy[:, None] + tmin * dy),
             -(oz[:, None] + tmin * dz))
@@ -1017,16 +1087,16 @@ def _neg_origins(omms_p, position, local_space, dx, dy, dz):
 def _inside_far_sphere(t, origins, dx, dy, dz, far_sphere):
     """(Np, S) bool: the hit points o' + t d of K1's t (Np, S) lie within
     the far-field sphere far_sphere = (centre (3,), D), with o and tmin
-    from origins, _omm_world_origins' result.  Each ray starts inside it
-    (D exceeds the eye's extent), so the first hit lies inside iff some
-    triangle is hit before the ray leaves the sphere; a first hit beyond
-    it belongs to the cache, which shows the first surface past D from the
-    centre.  Misses (t = inf) come out False."""
+    from origins, run_ray_features' (or _omm_world_origins' result).  Each
+    ray starts inside it (D exceeds the eye's extent), so the first hit
+    lies inside iff some triangle is hit before the ray leaves the sphere;
+    a first hit beyond it belongs to the cache, which shows the first
+    surface past D from the centre.  Misses (t = inf) come out False."""
     if far_sphere is None:
         raise ValueError("a frame with the far-field cache needs its "
                          "far_sphere (centre, D)")
     centre, d_far = far_sphere
-    (ox, oy, oz), tmin_w, _, _ = origins
+    (ox, oy, oz), tmin_w = origins[:2]
     tt = t + tmin_w[:, None]
     px = torch.addcmul((ox - centre[0])[:, None], tt, dx)
     py = torch.addcmul((oy - centre[1])[:, None], tt, dy)
@@ -1170,11 +1240,12 @@ def _shade_planes(out, dx, dy, dz, row_counts, attr_table, scene_dev,
     """The frame core's eager shading of K1's (8, R) rows `out`
     (compound_ray_tpu/eye/pipeline.py:1191-1517): (rr, gg, bb, audit), each
     plane (Np, S) in permuted ommatidium order.  dx, dy, dz are the rays'
-    (Np, S) unit directions, origins _omm_world_origins' result (read on a
-    cache frame).  Winner attributes, texture, then `lit` (hit, rr, gg, bb)
-    -> (rr, gg, bb, audit) where the frame is lit, then the far-field cache
-    or the miss shader where nothing is hit; audit is None unless `lit`
-    gives one.  _trace_shade_angles' other arguments keep their meaning."""
+    (Np, S) unit directions, origins run_ray_features' (or
+    _omm_world_origins' result; read on a cache frame).  Winner
+    attributes, texture, then `lit` (hit, rr, gg, bb) -> (rr, gg, bb,
+    audit) where the frame is lit, then the far-field cache or the miss
+    shader where nothing is hit; audit is None unless `lit` gives one.
+    _trace_shade_angles' other arguments keep their meaning."""
     n_pad = ng * g
     rg = g * samples
     audit = None
@@ -1262,9 +1333,7 @@ def shade_means_reference(out, rays, row_counts, attr_table, scene_dev,
     """run_shade_means' plain torch twin: the directions from rows 0-2 of
     K1's rays, _shade_planes, then each (ommatidium, frame)'s mean over
     its samples // frames contiguous samples."""
-    n_pad, rg = ng * g, g * samples
-    dx, dy, dz = (rays[c].reshape(ng, rg_pad)[:, :rg].reshape(n_pad, samples)
-                  for c in range(3))
+    dx, dy, dz = ray_dirs(rays, ng, g, samples, rg_pad)
     planes = _shade_planes(
         out, dx, dy, dz, row_counts, attr_table, scene_dev, quad_table,
         origins, background, ng, g, rg_pad, samples, textured, tex_only,
@@ -1284,11 +1353,11 @@ def run_shade_means(out, rays, row_counts, attr_table, scene_dev,
     """The unlit frame's shading and means from K1's (8, R) rows `out` and
     its (F, R) rays: (Np, frames, 3), each (ommatidium, frame)'s mean over
     its samples // frames contiguous samples, in permuted order.  origins
-    is _omm_world_origins' result (read on a cache frame); the rest is
-    _trace_shade_angles'.  CUDA tensors launch csrc/shade_means.cu once on
-    the current stream (or raise): each sample's colour equals the twin's
-    on the same card, and only the mean's order of summation differs; CPU
-    tensors take shade_means_reference."""
+    is run_ray_features' (or _omm_world_origins' result; read on a cache
+    frame); the rest is _trace_shade_angles'.  CUDA tensors launch
+    csrc/shade_means.cu once on the current stream (or raise): each
+    sample's colour equals the twin's on the same card, and only the mean's
+    order of summation differs; CPU tensors take shade_means_reference."""
     global shade_launches
     dev = out.device
     args = (out, rays, row_counts, attr_table, scene_dev, quad_table,
@@ -1319,7 +1388,7 @@ def run_shade_means(out, rays, row_counts, attr_table, scene_dev,
         quads = quad_table
     if cache is not None:
         centre, d_far = far_sphere
-        (ox, oy, oz), tmin_w, _, _ = origins
+        (ox, oy, oz), tmin_w = origins[:2]
         want += [(k, x, torch.float32, (n_pad,)) for k, x in
                  (("ox", ox), ("oy", oy), ("oz", oz), ("tmin", tmin_w))]
         want.append(("centre", centre, torch.float32, (3,)))
@@ -1398,10 +1467,11 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     run_packed_tracer (K1), `shadow_tracer` to run_rows_occlusion (K3) and
     `shader`, the unlit means frame's shading and mean, to run_shade_means
     (csrc/shade_means.cu on CUDA tensors); the chip check passes the twins
-    to render through them.  Lit frames and raw samples shade in eager
-    torch (_shade_planes).  affine: the pack was built with
-    _pack_fused(affine=True), so the rays are [d, 1, 0 x 4] and K1 runs its
-    8-feature form (:1167-1219).
+    to render through them.  The rays come from run_ray_features
+    (csrc/ray_features.cu on CUDA tensors); lit frames and raw samples
+    shade in eager torch (_shade_planes) from their rows 0-2.  affine:
+    the pack was built with _pack_fused(affine=True), so the rays are [d,
+    1, 0 x 4] and K1 runs its 8-feature form (:1167-1219).
 
     lights (L, 7) on the frame's device turns on GGX direct light with
     shadow rays (_lit_epilogue), which needs slot_tri, shading_rows and the
@@ -1420,11 +1490,9 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
     each row's mean replaces (rows pointing past Ng0 are dropped;
     :1537-1542)."""
     with span("cr.core.rays"):
-        origins = _omm_world_origins(omms_p, position, local_space)
-        rays, (dx, dy, dz) = _gen_ray_features(
+        rays, origins = run_ray_features(
             omms_p, position, local_space, splay, spin, samples=samples,
-            ng=ng, g=g, nrb=nrb, rb_size=rb_size, affine=affine,
-            origins=origins)
+            ng=ng, g=g, nrb=nrb, rb_size=rb_size, affine=affine)
     trace = run_packed_tracer if tracer is None else tracer
     out = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
                 rmax=rmax, ray_feats=rays.shape[0])
@@ -1441,14 +1509,14 @@ def _trace_shade_angles(packed_mm, row_counts, attr_table, scene_dev,
                 else contextlib.nullcontext()):
             means = shade(out, rays, frames=frames, **geo)
     else:
+        dx, dy, dz = ray_dirs(rays, ng, g, samples, nrb * rb_size)
         lit = None
         if lights is not None:
             def lit(hit, rr, gg, bb):
                 with span("cr.core.lit"):
                     return _lit_epilogue(
                         out, hit, rr, gg, bb, dx, dy, dz,
-                        _neg_origins(omms_p, position, local_space, dx, dy,
-                                     dz),
+                        _neg_origins(origins, dx, dy, dz),
                         scene_dev, shading_rows, slot_tri, lights, shadow,
                         samples, ng, g, nrb, rb_size, shadow_audit,
                         shadow_tracer)
@@ -2037,20 +2105,20 @@ def _shadow_probe(packed_mm, row_counts, omms_p, position, local_space,
     frame's rays; here the caller passes that frame's splay and spin.  As
     there, every lane of a live group counts, ray-block padding included.
     Returns the bound spheres (cg (NG, 3), rg_sph (NG,))."""
-    rays, (dx, dy, dz) = _gen_ray_features(
+    rays, origins = run_ray_features(
         omms_p, position, local_space, splay, spin, samples=samples, ng=ng,
         g=g, nrb=nrb, rb_size=rb_size, affine=affine)
     trace = run_packed_tracer if tracer is None else tracer
     t_f = trace(row_counts, packed_mm, rays, ng=ng, nrb=nrb, rb_size=rb_size,
                 rmax=rmax, ray_feats=rays.shape[0])[0]
-    del rays
     rg, rg_pad = g * samples, nrb * rb_size
+    dx, dy, dz = ray_dirs(rays, ng, g, samples, rg_pad)
 
     def repad(x):
         return _repad(x, ng, rg, rg_pad)
 
     hit_f = (t_f < 1e30) & torch.repeat_interleave(row_counts > 0, rg_pad)
-    neg_o = _neg_origins(omms_p, position, local_space, dx, dy, dz)
+    neg_o = _neg_origins(origins, dx, dy, dz)
     t_c = torch.where(hit_f, t_f, 0.0)
     pxf = -repad(neg_o[0]) + t_c * repad(dx)
     pyf = -repad(neg_o[1]) + t_c * repad(dy)

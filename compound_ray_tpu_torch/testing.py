@@ -614,10 +614,10 @@ def shade_inputs(scene: FlatScene, f: SimpleNamespace, frames: int = 1,
             device=dev)], dim=1)
         samples *= frames
         nrb, rb_size = 1, P._ceil_to(ep.g * samples, P.MM_BATCH_RAYS)
-    origins = P._omm_world_origins(f.omms_p, f.pos, f.ls)
-    rays, dirs = P._gen_ray_features(
+    rays, origins = P.run_ray_features(
         f.omms_p, f.pos, f.ls, splay, spin, samples=samples, ng=f.ng,
-        g=ep.g, nrb=nrb, rb_size=rb_size, affine=f.affine, origins=origins)
+        g=ep.g, nrb=nrb, rb_size=rb_size, affine=f.affine)
+    dirs = P.ray_dirs(rays, f.ng, ep.g, samples, nrb * rb_size)
     trace = P.run_packed_tracer if tracer is None else tracer
     out = trace(f.row_counts, f.packed_mm, rays, ng=f.ng, nrb=nrb,
                 rb_size=rb_size, rmax=f.rmax, ray_feats=rays.shape[0])
@@ -630,6 +630,51 @@ def shade_inputs(scene: FlatScene, f: SimpleNamespace, frames: int = 1,
               cache=f.cache, cache_shape=f.cache_shape,
               far_sphere=f.far_sphere)
     return out, rays, dirs, kw
+
+
+# name -> (ommatidia, g, samples, nrb, rb_size, column step of the angles)
+RAYGEN_CASES = {
+    "g1-s3200": (6, 1, 3200, 13, 256, 1),
+    "g1-s320-pad512": (5, 1, 320, 2, 256, 1),
+    "g2-s100": (6, 2, 100, 1, 256, 1),
+    "g1-s600-3blocks": (3, 1, 600, 3, 256, 1),
+    "burst-3x64": (4, 1, 3 * 64, 1, 256, 1),
+    "sharded-columns": (4, 2, 50, 1, 128, 2),
+    "degenerate-axes": (8, 2, 16, 1, 64, 1),
+}
+
+
+def raygen_inputs(name: str, device, seed: int = 7) -> dict:
+    """run_ray_features' arguments for RAYGEN_CASES[name] on `device`,
+    drawn with numpy from `seed` (so every device generates the same
+    rays): random ommatidium rows, pose and rotation, and (Np, S) angles
+    in the cone jitter's ranges.  A column step of 2 takes every other
+    column of wider angle planes, as a sharded frame slices them;
+    "degenerate-axes" puts axes along +-y and two axes off it whose perp
+    sums to 0 (the reference's test), where perp falls back to +z; a
+    burst's F x S columns are drawn as one plane."""
+    n, g, samples, nrb, rb_size, step = RAYGEN_CASES[name]
+    rng = np.random.default_rng(seed)
+    omms = np.zeros((n, 8), np.float32)
+    omms[:, 0:3] = rng.normal(size=(n, 3)) * 0.1
+    axes = rng.normal(size=(n, 3))
+    if name == "degenerate-axes":
+        axes[:4] = [[0, 1, 0], [0, -2, 0], [1, 0, 1], [-0.5, 3, -0.5]]
+    omms[:, 3:6] = axes * rng.uniform(0.5, 2.0, size=(n, 1))
+    omms[:, 6] = np.radians(rng.uniform(2.0, 10.0, size=n))
+    omms[:, 7] = rng.uniform(0.0, 0.05, size=n)
+    shape = (n, samples * step)
+    splay = rng.standard_normal(shape) * (omms[:, 6:7] / P.FWHM_SD_RATIO)
+    spin = rng.uniform(size=shape) * np.pi
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+
+    def dev(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    return dict(omms_p=dev(omms), position=dev(rng.normal(size=3) * 5),
+                local_space=dev(rot), splay=dev(splay)[:, ::step],
+                spin=dev(spin)[:, ::step], samples=samples, ng=n // g, g=g,
+                nrb=nrb, rb_size=rb_size)
 
 
 def hit_agreement(ref, got, row_counts, rg: int):
@@ -820,12 +865,10 @@ def pack_occlusion_table(f: SimpleNamespace, feats: int = 16, skip=(),
                        torch.as_tensor(j_of_row, device=dev)]
     flag = np.where(j_of_row == 0, 2, 1).astype(np.int32)
     r2v = g_of_row.astype(np.int32)
-    rays, _ = P._gen_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
-                                  samples=f.samples, ng=ep.ng, g=ep.g,
-                                  nrb=ep.nrb, rb_size=ep.rb_size)
+    rays, ((ox, oy, oz), tmin) = P.run_ray_features(
+        f.omms_p, f.pos, f.ls, f.splay, f.spin, samples=f.samples, ng=ep.ng,
+        g=ep.g, nrb=ep.nrb, rb_size=ep.rb_size)
     if feats == 8:
-        (ox, oy, oz), tmin, _, _ = P._omm_world_origins(f.omms_p, f.pos,
-                                                        f.ls)
         gi = torch.as_tensor(g_of_row, device=dev)
         rows = transform_payload_affine(
             rows[:, None], torch.stack([ox, oy, oz], dim=-1)[gi],

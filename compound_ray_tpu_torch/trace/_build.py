@@ -146,6 +146,13 @@ def shade_means_lib() -> ctypes.CDLL:
                   ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P])
 
 
+def ray_features_lib() -> ctypes.CDLL:
+    """The frame core's ray generation (csrc/ray_features.cu)."""
+    return _load("ray_features", "cr_ray_features",
+                 [_P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong,
+                  _I, _I, _I, _I, _I, _P, _P, _P])
+
+
 def probe_step_lib() -> ctypes.CDLL:
     """The K4 and K5 library (csrc/probe_step.cu)."""
     return _load("probe_step", "cr_probe_step",

@@ -21,7 +21,10 @@ keys equal the twin's on the card bit for bit, and so do the plans built
 through it, at the pose sweep cell's scene and poses.  The unlit shading
 (csrc/shade_means.cu) rounds every sample's colour as its twin
 (shade_means_reference) does, so only the mean's order of summation
-differs: means within 1e-4, and 1e-6 on average.
+differs: means within 1e-4, and 1e-6 on average.  Ray generation
+(csrc/ray_features.cu) rounds every product and sum as its twin
+(ray_features_reference) does: its rays and origins equal the twin's bit
+for bit, and so do the frames made from them.
 """
 
 import functools
@@ -63,9 +66,9 @@ def test_k1_matches_twin(cuda_device, accept_deg, samples):
     omms = ommatidia_to_array(testing.make_sphere_eye(16, accept_deg))
     f = testing.frame_pack(scene, omms, samples, (0.0, 2.0, 0.0), cuda_device)
     ep = f.eplan
-    rays, _ = P._gen_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
-                                  samples=samples, ng=ep.ng, g=ep.g,
-                                  nrb=ep.nrb, rb_size=ep.rb_size)
+    rays, _ = P.run_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
+                                 samples=samples, ng=ep.ng, g=ep.g,
+                                 nrb=ep.nrb, rb_size=ep.rb_size)
     kw = dict(ng=ep.ng, nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax)
     before = TM.launches
     got = TM.run_packed_tracer(f.row_counts, f.packed_mm, rays, **kw)
@@ -89,9 +92,9 @@ def _affine_k1_case(device, accept_deg, samples):
                            affine=True)
     ep = f.eplan
     assert ep.g == 1
-    rays, _ = P._gen_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
-                                  samples=samples, ng=ep.ng, g=ep.g,
-                                  nrb=ep.nrb, rb_size=ep.rb_size, affine=True)
+    rays, _ = P.run_ray_features(f.omms_p, f.pos, f.ls, f.splay, f.spin,
+                                 samples=samples, ng=ep.ng, g=ep.g,
+                                 nrb=ep.nrb, rb_size=ep.rb_size, affine=True)
     assert rays.shape[0] == TM.RAY_FEATS_AFFINE
     kw = dict(ng=ep.ng, nrb=ep.nrb, rb_size=ep.rb_size, rmax=f.rmax,
               ray_feats=TM.RAY_FEATS_AFFINE)
@@ -1117,3 +1120,76 @@ def test_frames_shade_once_through_the_kernel(cuda_device, name):
             scene, f, default_lights(scene.aabb_min, scene.aabb_max))
         torch.cuda.synchronize()
         assert P.shade_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("name", list(testing.RAYGEN_CASES))
+def test_raygen_kernel_matches_twin(cuda_device, name, affine):
+    """csrc/ray_features.cu against ray_features_reference on the same
+    angles, one launch: the rays (16 or 8 features, padding included) and
+    the origins rows bit for bit, and the origins equal
+    _omm_world_origins'."""
+    kw = testing.raygen_inputs(name, cuda_device)
+    before = P.raygen_launches
+    rays, ((ox, oy, oz), tmin) = P.run_ray_features(**kw, affine=affine)
+    torch.cuda.synchronize()
+    assert P.raygen_launches == before + 1
+    want, _ = P.ray_features_reference(**kw, affine=affine)
+    assert rays.shape == want.shape == (
+        TM.RAY_FEATS_AFFINE if affine else TM.RAY_FEATS,
+        kw["ng"] * kw["nrb"] * kw["rb_size"])
+    assert torch.equal(rays, want), int((rays != want).sum())
+    (wx, wy, wz), wt, _, _ = P._omm_world_origins(
+        kw["omms_p"], kw["position"], kw["local_space"])
+    for got, ref in ((ox, wx), (oy, wy), (oz, wz), (tmin, wt)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cache", "textured-flat"])
+def test_frames_generate_their_rays_once(cuda_device, name):
+    """A frame core on the card generates its rays in one launch (a lit
+    frame's first at a pose one more, for its shadow probe), and its
+    means, raw samples and lit means equal those of the same frames made
+    from the eager twin's rays, bit for bit."""
+    scene, f, _ = _shade_case(name, cuda_device)
+    ep = f.eplan
+    args = dict(packed_mm=f.packed_mm, row_counts=f.row_counts,
+                attr_table=f.splan.attr_table,
+                scene_dev=scene.device_triangles(cuda_device),
+                quad_table=f.splan.quad_table, omms_p=f.omms_p,
+                position=f.pos, local_space=f.ls, splay=f.splay,
+                spin=f.spin, samples=f.samples,
+                background=miss_id(scene.background_shader),
+                ng=f.ng, g=ep.g, nrb=ep.nrb, rb_size=ep.rb_size,
+                rmax=f.rmax, textured=f.splan.textured,
+                tex_only=f.splan.tex_only, cache=f.cache,
+                cache_shape=f.cache_shape, far_sphere=f.far_sphere)
+    lit = name == "textured-flat"
+    lights = default_lights(scene.aabb_min, scene.aabb_max)
+
+    def frames():
+        out = [P._trace_shade_angles(**args),
+               P._trace_shade_angles(want_samples=True, **args)]
+        if lit:
+            out.append(testing.lit_frame_means(scene, f, lights))
+        torch.cuda.synchronize()
+        return out
+
+    before = P.raygen_launches
+    got = frames()
+    assert P.raygen_launches == before + 2 + 2 * lit
+    run = P.run_ray_features
+    P.run_ray_features = P.ray_features_reference
+    try:
+        want = frames()
+    finally:
+        P.run_ray_features = run
+    assert P.raygen_launches == before + 2 + 2 * lit
+    assert f.cache is not None or name != "cache"
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a.cpu() if torch.is_tensor(a)
+                                         else a),
+                              np.asarray(b.cpu() if torch.is_tensor(b)
+                                         else b))
