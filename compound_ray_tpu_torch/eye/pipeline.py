@@ -50,8 +50,10 @@ each shard with _trace_shade_angles.
 Under a profiler the layers record spans (spans.py): cr.plan around
 _plan_frame with cr.plan.farfield and cr.plan.angles inside it, a
 cr.plan.build.* span (pack, cache, sky, shadow) only where a memo misses
-and builds, cr.refine around each refine kernel launch, and cr.core
-around _trace_shade_angles with cr.core.rays, cr.core.shade and
+and builds (the cache's with cr.plan.cache.cull, its tile cull and
+shortlist, and cr.plan.cache.trace, its K2 launch, shading, mean
+and quad table, inside it), cr.refine around each refine kernel launch,
+and cr.core around _trace_shade_angles with cr.core.rays, cr.core.shade and
 cr.core.lit inside it, and cr.core.farfield (the far-field sphere's hit
 test and the cache lookups) inside cr.core.shade; the ray generation
 launch is cr.raygen, inside cr.core.rays; an unlit means frame's shading
@@ -134,6 +136,9 @@ shade_launches = 0
 # ray generation kernel launches by run_ray_features (the kernel only,
 # never the twin)
 raygen_launches = 0
+# far-field caches rendered by _farfield_plan (each cache_store miss, on
+# any device; a store hit builds none)
+cache_builds = 0
 
 # Inflation of the per-group hit-bound spheres the shadow plan is built
 # from (compound_ray_tpu/eye/pipeline.py:86-101): the probe samples one
@@ -1685,7 +1690,7 @@ def _render_cache(payload, attr_table, scene_dev, quad_table, half_center,
                   half_radius, center, far_mask, width: int, background: int,
                   kmax: int, textured: bool, tex_only: bool = False,
                   tracer=None, tmin: float = 0.0,
-                  supersample: int = 1) -> torch.Tensor:
+                  supersample: int = 1, quads: bool = False) -> torch.Tensor:
     """(H, W, 3) linear-RGB equirect radiance cache of the clusters of
     far_mask from `center` (compound_ray_tpu/eye/pipeline.py:3085): the
     first surface at t >= tmin along each ray, each pixel the mean of
@@ -1695,22 +1700,30 @@ def _render_cache(payload, attr_table, scene_dev, quad_table, half_center,
     clusters (_cache_trace_inputs), traced with the early exit on; the
     winners are resolved and shaded like the frame's hits.  `tracer`
     defaults to run_tracer_kernel (K2); the chip check passes
-    cluster_tracer_reference to render through the twin."""
+    cluster_tracer_reference to render through the twin.  With `quads`
+    the result is the image's build_equirect_quads, (H, W, 16).  The
+    shortlists are span cr.plan.cache.cull, the rest
+    cr.plan.cache.trace."""
     ss = supersample
     height, wide = width // 2, width * ss
     bs, tile = _CACHE_BLOCK, _CACHE_TILE
-    blocked, counts, ids, dmin, rays = _cache_trace_inputs(
-        half_center, half_radius, center, far_mask, wide, kmax, tmin)
+    with span("cr.plan.cache.cull"):
+        blocked, counts, ids, dmin, rays = _cache_trace_inputs(
+            half_center, half_radius, center, far_mask, wide, kmax, tmin)
     trace = run_tracer_kernel if tracer is None else tracer
-    out = trace(counts, ids, dmin, payload, rays, ng=counts.shape[0], nrb=1,
-                rb_size=tile, kmax=kmax, early_exit=True)
-    rgb = shade_cluster_hits(out, torch.repeat_interleave(counts > 0, tile),
-                             blocked, attr_table, scene_dev, quad_table,
-                             background, textured, tex_only)
-    # un-block back to row-major, then each pixel the mean of its ss x ss
-    return (rgb.reshape(height * ss // bs, wide // bs, bs, bs, 3)
-            .permute(0, 2, 1, 3, 4).reshape(height, ss, width, ss, 3)
-            .mean(dim=(1, 3)))
+    with span("cr.plan.cache.trace"):
+        out = trace(counts, ids, dmin, payload, rays, ng=counts.shape[0],
+                    nrb=1, rb_size=tile, kmax=kmax, early_exit=True)
+        rgb = shade_cluster_hits(
+            out, torch.repeat_interleave(counts > 0, tile), blocked,
+            attr_table, scene_dev, quad_table, background, textured,
+            tex_only)
+        # un-block back to row-major, then each pixel the mean of its
+        # ss x ss
+        image = (rgb.reshape(height * ss // bs, wide // bs, bs, bs, 3)
+                 .permute(0, 2, 1, 3, 4).reshape(height, ss, width, ss, 3)
+                 .mean(dim=(1, 3)))
+        return build_equirect_quads(image) if quads else image
 
 
 def _farfield_threshold(ommatidia_np: np.ndarray, tol: float) -> float:
@@ -1798,6 +1811,7 @@ def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
     D, not on the samples or the RNG, so frames at one pose build it once,
     with the near mask and the centre on the device; `tracer` (K2 by
     default) renders a cache not in splan.cache_store."""
+    global cache_builds
     off = (None, None, None)
     if (lights is not None or cfg.farfield != "auto"
             or splan.num_clusters <= 8):
@@ -1815,13 +1829,14 @@ def _farfield_plan(splan, eplan, scene_dev, ommatidia_np, pos_np, ls_np,
     if hit is None:
         args = _frame_cache_args(splan, center_np, d_thresh)
         with span("cr.plan.build.cache"):
-            cache = build_equirect_quads(_render_cache(
+            cache = _render_cache(
                 splan.payload, splan.attr_table, scene_dev, splan.quad_table,
                 splan.half_center, splan.half_radius, width=width,
                 background=background, textured=splan.textured,
-                tex_only=splan.tex_only, tracer=tracer, **args))
+                tex_only=splan.tex_only, tracer=tracer, quads=True, **args)
             if splan.textured:
                 cache = torch.cat([splan.quad_table, cache.reshape(-1, 16)])
+        cache_builds += 1
         if len(splan.cache_store) > _CACHE_STORE_MAX:
             splan.cache_store.clear()
         hit = (torch.as_tensor(~far, device=splan.device), cache,

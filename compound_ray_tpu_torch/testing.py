@@ -692,6 +692,41 @@ def hit_agreement(ref, got, row_counts, rg: int):
             rel.max().item() if rel.numel() else 0.0)
 
 
+def edge_moment_bounds(v0, e1, e2) -> np.ndarray:
+    """(T, 3) how far the port's edge moments a x b may lie from the JAX
+    package's, edge by edge in triangle_constants' order (p1 p2, p2 p0,
+    p0 p1).  The port works a x b out in float64 from the float32 corners
+    and rounds once (trace/plucker.py); the JAX package rounds each
+    product and the difference in float32.  A component then differs by
+    at most 3 u |a| |b| (u = 2**-24), inside the 4 ulp of |a| |b| given
+    here."""
+    p0 = np.asarray(v0, np.float32)
+    p1 = p0 + np.asarray(e1, np.float32)
+    p2 = p0 + np.asarray(e2, np.float32)
+    r0, r1, r2 = (np.linalg.norm(p.astype(np.float64), axis=-1)
+                  for p in (p0, p1, p2))
+    ab = np.stack([r1 * r2, r2 * r0, r0 * r1], axis=-1).astype(np.float32)
+    return 4.0 * np.spacing(ab).astype(np.float64)
+
+
+def assert_equal_but_moments(got, want, bound, err_msg: str = ""):
+    """`got` equal to `want` bit for bit, save the entries where `bound`
+    (broadcast to their shape) is above 0, each of which lies within it:
+    a table the port and the JAX package build from the same corners,
+    the edge moments' entries bounded by edge_moment_bounds."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (err_msg, got.shape, want.shape)
+    gap = np.abs(got - want)
+    bound = np.broadcast_to(bound, gap.shape)
+    off = ~(gap <= bound)
+    assert not off.any(), (
+        f"{err_msg}: {int(off.sum())} of {gap.size} entries differ; "
+        f"{int((off & (bound == 0)).sum())} of them exact ones, the worst "
+        f"moment gap {float((gap / np.where(bound > 0, bound, np.inf)).max())}"
+        " of its bound")
+
+
 def cache_trace_inputs(scene: FlatScene, omms: np.ndarray, pos, device,
                        width: int, split: str = "frame") -> SimpleNamespace:
     """K2's inputs of a far-field cache of `omms` at `pos` (local space =

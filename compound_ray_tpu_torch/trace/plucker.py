@@ -34,13 +34,21 @@ def triangle_constants(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
       normal: (T, 3)     n = e1 x e2
       c0:     (T,)       v0 . n
     Degenerate (all-zero) padding triangles yield n = 0 -> den = 0 -> miss.
+    The moments a x b are worked out in float64 from the corners and
+    rounded once: in float32 a x b of two corners far from the origin and
+    close together cancels to a few bits (a grass blade's 0.024-wide edge
+    36 units out: 8e-5 of error against a side product of 7e-5 for a ray
+    3 mm off the edge from 3.7 cm away), which puts near rays on the wrong
+    side of the edge; rounded once, the error is the moment's own ulp.
     """
     p0 = v0
     p1 = v0 + e1
     p2 = v0 + e2
 
     def edge(a, b):
-        return np.concatenate([np.cross(a, b), b - a], axis=-1)  # (T, 6)
+        moment = np.cross(np.asarray(a, np.float64),
+                          np.asarray(b, np.float64)).astype(a.dtype)
+        return np.concatenate([moment, b - a], axis=-1)  # (T, 6)
 
     edge6 = np.stack([edge(p1, p2), edge(p2, p0), edge(p0, p1)], axis=1)
     normal = np.cross(e1, e2)

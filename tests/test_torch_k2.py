@@ -87,15 +87,34 @@ def _run_both(counts, ids, dmin, payload, rays, kw, early_exit):
     return want[live], got[live]
 
 
+def _payload_moment_bounds(v0, e1, e2) -> np.ndarray:
+    """The (C, 16, 128) payload's bounds: the w1 and w2 moments
+    (components 0-2 and 6-8) from each slot's corners, 0 elsewhere."""
+    edge = ttesting.edge_moment_bounds(v0, e1, e2)
+    comp = np.zeros((len(edge), CT.PAYLOAD_COMPS))
+    comp[:, 0:3] = edge[:, 1:2]  # w1, the edge opposite v1
+    comp[:, 6:9] = edge[:, 2:3]  # w2, the edge opposite v2
+    return comp.reshape(-1, CT.KERNEL_LEAF, CT.PAYLOAD_COMPS).transpose(
+        0, 2, 1)
+
+
 def test_kernel_payload_equals_jax(pinned):
+    """Bit for bit but the edge moments, which the port rounds once from
+    float64 (testing.edge_moment_bounds)."""
     scene = ttesting.make_big_scene(n_boxes=200, seed=11)
     cs = jax_clusters(scene.v0, scene.e1, scene.e2, leaf_size=128)
     want = jax_payload(cs)
-    np.testing.assert_array_equal(CT.build_kernel_payload(cs), want)
+    ttesting.assert_equal_but_moments(
+        CT.build_kernel_payload(cs), want,
+        _payload_moment_bounds(cs.v0, cs.e1, cs.e2), err_msg="payload")
     assert want.shape == (32, 16, 128)
     jplan = JP.scene_plan(ttesting.make_big_scene(n_boxes=200, seed=11))
-    np.testing.assert_array_equal(TP.scene_plan(scene, "cpu").payload.numpy(),
-                                  np.asarray(jplan.payload))
+    tplan = TP.scene_plan(scene, "cpu")
+    tri = tplan.slot_tri_cl.numpy().reshape(-1, 9)
+    ttesting.assert_equal_but_moments(
+        tplan.payload.numpy(), np.asarray(jplan.payload),
+        _payload_moment_bounds(tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]),
+        err_msg="scene plan payload")
 
 
 @pytest.mark.parametrize("split", ["far", "all"])

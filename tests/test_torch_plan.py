@@ -3,7 +3,10 @@ widths).
 
 Both packages build their tables from the same procedural scene.  The JAX
 package may order clusters by its native median split; these tests pin it
-to the numpy split both packages share, so the tables must agree exactly.
+to the numpy split both packages share, so the tables must agree exactly,
+save K1's edge moments: the port rounds a x b once from float64, the JAX
+package every product in float32, so those agree within 4 ulp of |a| |b|
+(testing.edge_moment_bounds).
 """
 
 import dataclasses
@@ -91,15 +94,29 @@ def _slot_multisets(row_counts, packed):
     return out
 
 
+def _mm_moment_bounds(tsp) -> np.ndarray:
+    """mm_flat's (rows, 64) bounds: K1's w1 and w2 moments (column block 0
+    and 1, features 0-2) from each slot's corners, 0 everywhere else."""
+    tri = tsp.slot_tri_cl.numpy().reshape(-1, 9)
+    edge = ttesting.edge_moment_bounds(tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    bound = np.zeros((tsp.mm_flat.shape[0], 4, 16))
+    bound[:len(tri), 0, 0:3] = edge[:, 1:2]  # w1, the edge opposite v1
+    bound[:len(tri), 1, 0:3] = edge[:, 2:3]  # w2, the edge opposite v2
+    return bound.reshape(tsp.mm_flat.shape)
+
+
 @pytest.mark.parametrize("accept_deg", [4.0, 20.0])
 def test_scene_tables_equal(pinned, accept_deg):
     js, ts, _ = _both(accept_deg)
     jsp, tsp = JP.scene_plan(js), TP.scene_plan(ts, "cpu")
-    for name in ("mm_flat", "attr_table", "slot_center_cl", "slot_radius_cl",
+    for name in ("attr_table", "slot_center_cl", "slot_radius_cl",
                  "slot_tri_cl", "half_center", "half_radius", "quad_table"):
         np.testing.assert_array_equal(
             getattr(tsp, name).numpy(), np.asarray(getattr(jsp, name)),
             err_msg=name)
+    ttesting.assert_equal_but_moments(
+        tsp.mm_flat.numpy(), np.asarray(jsp.mm_flat), _mm_moment_bounds(tsp),
+        err_msg="mm_flat")
     assert tsp.num_clusters == jsp.num_clusters
     assert (tsp.textured, tsp.tex_only) == (jsp.textured, jsp.tex_only)
 
