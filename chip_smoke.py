@@ -19,14 +19,16 @@ batches, the eye tools and the viewer; then the bench scene written as a
 then the render modes (affine rays, the sphere refine, backend "xla");
 then the planning refine at the pose sweep's shapes; then the unlit
 shading and the ray generation kernels at the benchmark's three steady
-unlit cells' shapes.
+unlit cells' shapes; then the far-field cache's cull and shortlist at
+the meadow's and the natural field's.
 Phases, each failing loudly:
   1. a CUDA device is required; print the card's name and power limit;
   2. build K1 (csrc/packed_tracer.cu), K2 (csrc/cluster_tracer.cu), K3
      (csrc/rows_occlusion.cu), K4 and K5 (csrc/probe_step.cu) and K6
      (csrc/microbench_k.cu), the planning refine (csrc/refine_mask.cu),
-     the unlit shading (csrc/shade_means.cu) and ray generation
-     (csrc/ray_features.cu) with nvcc for sm_90a, one process per source,
+     the unlit shading (csrc/shade_means.cu), ray generation
+     (csrc/ray_features.cu) and the cache's cull and shortlist
+     (csrc/cache_cull.cu) with nvcc for sm_90a, one process per source,
      started together;
   3. K1 against its torch twin at the frames' real shapes (the dense pack
      and the near-clusters pack of the cache frame), and K3 against its
@@ -145,9 +147,18 @@ Phases, each failing loudly:
      (CUDA events), and its bytes bound; then the ray generation kernel
      (csrc/ray_features.cu) on the last frame's angles: rays and origins
      bit-equal to the twin, its device time over SHADE_REPS launches, its
-     wrapper's and the twin's, and its bytes bound.
-Every counted path reports the refine's, the shading's and ray
-generation's launches with the kernels'; the lit path's first frame (and
+     wrapper's and the twin's, and its bytes bound;
+ 16. the far-field cache's cull and shortlist (csrc/cache_cull.cu) on the
+     cache inputs of the meadow cell (its configuration's pose: 8,192
+     tiles, ~7,150 clusters past D) and of natural-1000 (the steady cells'
+     cache): counts, ids and dmin bit-equal to the twin, the kernel's
+     device time (torch.profiler, over CULL_REPS launches), its wrapper's
+     (with the per-cluster terms) and the twin's (CUDA events), and its
+     bound.
+Every counted path reports the refine's, the shading's, ray generation's
+and the cull's launches with the kernels'; every cache build of a counted
+path launches the cull once, nothing else does; the lit path's first
+frame (and
 a frame after a corrective replan) refines, its other frames never; every
 unlit means frame of paths a-c launches the shading kernel once, lit
 frames never; every frame core and shadow probe of a counted path
@@ -232,6 +243,18 @@ SHADE_MAX_ABS, SHADE_MEAN_ABS = 1e-4, 1e-6
 RAYGEN_REPLACES = ("no Pallas counterpart (XLA-fused ray generation at "
                    "compound_ray_tpu/eye/pipeline.py:1036-1100)")
 RAYGEN_SOURCE = "compound_ray_tpu_torch/csrc/ray_features.cu"
+# phase 16: the far-field cache's cull and shortlist, which replaces no
+# Pallas kernel (XLA fused the cull, jnp.argsort sorted), on the cache
+# inputs of the meadow's and natural-1000's configuration poses
+CULL_REPLACES = ("no Pallas counterpart (XLA-fused cull and jnp.argsort at "
+                 "compound_ray_tpu/eye/pipeline.py:3093-3151)")
+CULL_SOURCE = "compound_ray_tpu_torch/csrc/cache_cull.cu"
+CULL_CELLS = ("meadow-1000", "natural-1000")
+CULL_REPS = 20
+# operations a sub-sphere test needs, counted from the twin's arithmetic
+# (an acos counts one): three products, two sums, the scale by 1 / d, the
+# clamp's two compares, the acos, half + beta, the compare and the or
+CULL_SUB_OPS = 12
 REFINE_POSES = 8
 REFINE_VIEWS = 16
 REFINE_SAMPLES = 100
@@ -348,7 +371,8 @@ XLA_ATOL = 1e-5
 SOURCES = (("packed_tracer", K1_SOURCE), ("cluster_tracer", K2_SOURCE),
            ("rows_occlusion", K3_SOURCE), ("probe_step", K45_SOURCE),
            ("microbench_k", K6_SOURCE), ("refine_mask", REFINE_SOURCE),
-           ("shade_means", SHADE_SOURCE), ("ray_features", RAYGEN_SOURCE))
+           ("shade_means", SHADE_SOURCE), ("ray_features", RAYGEN_SOURCE),
+           ("cache_cull", CULL_SOURCE))
 # bounds: NVIDIA's H100 SXM data sheet (dense): f32 outside the tensor cores,
 # bf16 on them, and device memory
 PEAK_F32 = 67e12
@@ -398,7 +422,7 @@ def _pose(cam):
 
 
 def build_kernels():
-    """Phase 2: the eight sources through nvcc at once; prints what ptxas
+    """Phase 2: the nine sources through nvcc at once; prints what ptxas
     says."""
     from compound_ray_tpu_torch.trace import _build
 
@@ -412,6 +436,7 @@ def build_kernels():
     _build.refine_mask_lib()
     _build.shade_means_lib()
     _build.ray_features_lib()
+    _build.cache_cull_lib()
     wall = time.perf_counter() - t0
     for name, src in SOURCES:
         secs, log = _build.build_info[name]
@@ -713,8 +738,8 @@ def _report(tag, res):
 
 def _counters() -> dict:
     """{kernel: (module, name of its launch count)} for K1 (k1a: its
-    8-feature affine form) to K6, the planning refine, the unlit shading
-    and ray generation."""
+    8-feature affine form) to K6, the planning refine, the unlit shading,
+    ray generation and the cache's cull."""
     from compound_ray_tpu_torch.eye import pipeline
     from compound_ray_tpu_torch.tools import microbench_k, probe_step
     from compound_ray_tpu_torch.trace import cluster_tracer, mm_tracer
@@ -728,7 +753,8 @@ def _counters() -> dict:
             "k6": (microbench_k, "dot_bench_launches"),
             "refine": (pipeline, "refine_launches"),
             "shade": (pipeline, "shade_launches"),
-            "raygen": (pipeline, "raygen_launches")}
+            "raygen": (pipeline, "raygen_launches"),
+            "cull": (pipeline, "cache_cull_launches")}
 
 
 class _RayUsers:
@@ -767,20 +793,38 @@ def _path(r, name, run, phase: int = 5):
     """Run one main path with every launch count set to 0 just before it;
     returns (its result, {kernel: launches in the path}).  Every frame
     core and shadow probe of the path must generate its rays in one
-    launch of the ray generation kernel."""
+    launch of the ray generation kernel, and every cache build on the card
+    (pipeline._render_cache on CUDA tensors) must cull in one launch."""
+    from compound_ray_tpu_torch.eye import pipeline
+
     counters = _counters()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    with _RayUsers() as users:
-        res = run()
+    render_cache, devices = pipeline._render_cache, []
+
+    def counted(payload, *a, **k):
+        devices.append(payload.device.type)
+        return render_cache(payload, *a, **k)
+
+    pipeline._render_cache = counted
+    try:
+        with _RayUsers() as users:
+            res = run()
+    finally:
+        pipeline._render_cache = render_cache
+    builds = devices.count("cuda")
     n = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     print(f"phase {phase}: {name}: launches " + ", ".join(
         f"{k.upper()} {v}" for k, v in n.items())
-        + f" (frame cores and shadow probes {users.calls})")
+        + f" (frame cores and shadow probes {users.calls}, cache builds "
+        f"{builds})")
     if n["raygen"] != users.calls:
         raise AssertionError(f"{name}: {n['raygen']} ray generation "
                              f"launches for {users.calls} frame cores and "
                              f"shadow probes")
+    if n["cull"] != builds:
+        raise AssertionError(f"{name}: {n['cull']} cull launches for "
+                             f"{builds} cache builds")
     return res, n
 
 
@@ -2918,10 +2962,11 @@ def nccl_one_rank(r, cam, tmp: str):
             _events_ms(sharded) for _ in range(1 + SHARD_TIMED)], phase=12)
         if {k: v for k, v in n.items() if k != "refine"} != dict(
                 k1=1 + SHARD_TIMED, k1a=0, k2=1, k3=0, k4=0, k5=0, k6=0,
-                shade=1 + SHARD_TIMED, raygen=1 + SHARD_TIMED):
+                shade=1 + SHARD_TIMED, raygen=1 + SHARD_TIMED, cull=1):
             raise AssertionError(f"phase 12 A's path launched {n}, not K1, "
                                  f"the shading and ray generation "
-                                 f"{1 + SHARD_TIMED} times and K2 once")
+                                 f"{1 + SHARD_TIMED} times, K2 and the "
+                                 f"cull once")
         got = runs[0][0]
         dense = _render_out(r, cam, seed)
         if not torch.equal(got, dense):
@@ -3834,6 +3879,82 @@ def shade_phase(card: str) -> list:
     return results
 
 
+def _cull_work(kw, counts, ids) -> dict:
+    """Operations and bytes the cache's cull and shortlist needs on these
+    inputs: a sub-sphere test (CULL_SUB_OPS) for every (tile, cluster of
+    far_mask, sub-sphere); the tile cones and the per-cluster terms read
+    once, the counts, ids and dmin written once."""
+    ng, c, h = (kw["centroid"].shape[0], kw["far_mask"].shape[0],
+                kw["half_radius"].shape[1])
+    tests = ng * int(kw["far_mask"].sum()) * h
+    nbytes = (ng * 16 + c * h * (12 + 4 + 1 + 4) + c * 4 + c
+              + _nbytes(counts, ids) + ids.numel() * 4)
+    return dict(sub_tests=tests, flop=float(CULL_SUB_OPS * tests),
+                nbytes=nbytes)
+
+
+def cull_phase(card: str) -> list:
+    """Phase 16: the far-field cache's cull and shortlist
+    (csrc/cache_cull.cu) on the cache inputs of each configuration of
+    CULL_CELLS at its pose (testing.cache_cull_inputs, the default
+    RenderConfig's 2048-wide supersampled cache: 8,192 tiles), the scene
+    and eye built by the benchmark's own generators: counts, ids and dmin
+    bit-equal to the twin, the kernel's device time (the profiler, over
+    CULL_REPS launches), its wrapper's with the per-cluster terms and the
+    twin's (CUDA events), and its bound (_cull_work).  Returns one result
+    dict per configuration."""
+    from benchmark import scene as bench_scene
+    from benchmark.system import flat_scene
+    from compound_ray_tpu_torch import testing
+    from compound_ray_tpu_torch.eye import pipeline as P
+
+    _set_config()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmark")
+    results = []
+    for config in CULL_CELLS:
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "configs", config + ".json")) as f:
+            cfg = json.load(f)
+        scene = flat_scene(bench_scene.build_scene(cfg), config)
+        pose = tuple(float(v) for v in cfg["pose"]["position"]
+                     + cfg["pose"]["rotation"])
+        kw = testing.cache_cull_inputs(scene, bench_scene.build_eye(cfg),
+                                       pose, "cuda")
+        got = P.run_cache_shortlist(**kw)
+        want = P.cache_shortlist_reference(**kw)
+        unequal = sum(int((a.view(torch.int32) != b.view(torch.int32))
+                          .sum()) for a, b in zip(got, want))
+        counts = want[0]
+        res = dict(cell=config, tiles=int(counts.shape[0]),
+                   clusters=int(kw["far_mask"].shape[0]),
+                   far_clusters=int(kw["far_mask"].sum()),
+                   sub_spheres=int(kw["half_radius"].shape[1]),
+                   kmax=kw["kmax"], kp=int(want[1].shape[1]),
+                   tiles_at_kmax=int((counts == kw["kmax"]).sum()),
+                   mean_count=float(counts.float().mean()),
+                   bit_equal=unequal == 0, unequal=unequal, max_abs_err=0.0)
+        if unequal:
+            raise AssertionError(f"cache cull kernel vs twin: {res}")
+        res["ms"] = _kernel_ms(lambda: P.run_cache_shortlist(**kw),
+                               "cache_shortlist_kernel", CULL_REPS)
+        res["wrapper_ms"] = time_ms(lambda: P.run_cache_shortlist(**kw),
+                                    reps=CULL_REPS, warmup=3)
+        res["plain_ms"] = time_ms(
+            lambda: P.cache_shortlist_reference(**kw), reps=3, warmup=1)
+        work = _cull_work(kw, *got[:2])
+        res.update(work)
+        res.update({key: v for key, v in _bound(
+            work["flop"], work["nbytes"]).items()
+            if key in ("bound_ms", "bound_by")})
+        print(f"phase 16: cache cull and shortlist at {config}'s pose "
+              f"({card}): {json.dumps(res)} (counts, ids and dmin bit-equal "
+              f"to the twin; {time.perf_counter() - t0:.1f} s)")
+        results.append(res)
+        del kw, got, want
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch sees none")
@@ -4048,6 +4169,7 @@ def main() -> int:
     shades = shade_phase(card)
     launches["shade"] += sum(res["launches"] for res in shades)
     launches["raygen"] += sum(res["raygen"]["launches"] for res in shades)
+    culls = cull_phase(card)
 
     def entry(name, source, replaces, key, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -4076,7 +4198,9 @@ def main() -> int:
     ] + [entry(f"Unlit shading and means ({res['cell']})", SHADE_SOURCE,
                SHADE_REPLACES, "shade", res) for res in shades] + [
         entry(f"Ray generation ({res['cell']})", RAYGEN_SOURCE,
-              RAYGEN_REPLACES, "raygen", res["raygen"]) for res in shades]
+              RAYGEN_REPLACES, "raygen", res["raygen"]) for res in shades] + [
+        entry(f"Far-field cache cull and shortlist ({res['cell']})",
+              CULL_SOURCE, CULL_REPLACES, "cull", res) for res in culls]
     # a time under its bound means the compiler dropped work the kernel must
     # keep, or the bound counts work the kernel does not need; K1 and K3
     # skip products that their staged tests do not need, so they are held to
@@ -4091,7 +4215,9 @@ def main() -> int:
                               *((f"shade {res['cell']}", res)
                                 for res in shades),
                               *((f"raygen {res['cell']}", res["raygen"])
-                                for res in shades))
+                                for res in shades),
+                              *((f"cull {res['cell']}", res)
+                                for res in culls))
              for bound in [res.get("staged_bound_ms", res["bound_ms"])]
              if res["ms"] < bound]
     if under:

@@ -139,6 +139,11 @@ raygen_launches = 0
 # far-field caches rendered by _farfield_plan (each cache_store miss, on
 # any device; a store hit builds none)
 cache_builds = 0
+# cache cull and shortlist kernel launches by run_cache_shortlist (the
+# kernel only, never the twin): one a cache build on a card
+cache_cull_launches = 0
+# the widest shortlist csrc/cache_cull.cu takes (kmax rounded up to 128)
+CACHE_CULL_MAX_KP = 4096
 
 # Inflation of the per-group hit-bound spheres the shadow plan is built
 # from (compound_ray_tpu/eye/pipeline.py:86-101): the probe samples one
@@ -1608,26 +1613,22 @@ _CACHE_TILE = 256  # directions per K2 group
 _CACHE_BLOCK = 16  # a tile is a 16x16 pixel block: a small, tight cone
 
 
-def _cache_trace_inputs(half_center, half_radius, center, far_mask,
-                        width: int, kmax: int, tmin: float = 0.0):
-    """The cache's K2 inputs (compound_ray_tpu/eye/pipeline.py:3093-3151):
-    the pixel directions in 16x16 blocks, one 256-ray group per block, and
-    per block the clusters of far_mask whose half-spheres meet the block's
-    bounding cone from `center`, nearest first; every ray starts at
-    `center` and counts hits from t = tmin on.  Returns (blocked (n, 3),
-    counts (NG,), ids (NG, KP), dmin (NG, KP), rays (n, 16))."""
+def _cache_tile_cones(width: int, device):
+    """The cache's pixel directions in 16x16 blocks, one 256-ray tile per
+    block, and each tile's bounding cone from the cache's centre
+    (compound_ray_tpu/eye/pipeline.py:3093-3120): (blocked (n, 3),
+    centroid (NG, 3) unit axes, half_ang (NG,))."""
     height = width // 2
     bs, tile = _CACHE_BLOCK, _CACHE_TILE
     if width % bs or height % bs or (width * height) % tile:
         raise ValueError(
             f"farfield cache width {width}: width and width // 2 must be "
             f"multiples of {bs}")
-    dirs = _equirect_pixel_dirs(width, height, half_center.device)
+    dirs = _equirect_pixel_dirs(width, height, device)
     n = dirs.shape[0]
     blocked = (dirs.reshape(height // bs, bs, width // bs, bs, 3)
                .permute(0, 2, 1, 3, 4).reshape(n, 3))
-    ng = n // tile
-    td = blocked.reshape(ng, tile, 3)
+    td = blocked.reshape(n // tile, tile, 3)
 
     # per-tile bounding cone from the fixed viewpoint
     centroid = td.sum(dim=1)
@@ -1637,22 +1638,130 @@ def _cache_trace_inputs(half_center, half_radius, center, far_mask,
               + td[:, :, 1] * centroid[:, None, 1]
               + td[:, :, 2] * centroid[:, None, 2]).amin(dim=1)
     half_ang = torch.arccos(torch.clamp(cosmin, -1.0, 1.0))
+    return blocked, centroid, half_ang
 
-    to_c = half_center - center  # (C, 2, 3)
-    dist = torch.linalg.norm(to_c, dim=-1)  # (C, 2)
+
+def _cache_cluster_terms(half_center, half_radius, center):
+    """The per-cluster terms of the cache's cull, read by the twin
+    (cache_shortlist_reference) and csrc/cache_cull.cu alike: (to_c (C,
+    H, 3), inv_d (C, H), inside (C, H) bool, beta (C, H), dmin_all (C,)),
+    each sub-sphere's offset from `center`, its inverse distance, whether
+    `center` lies inside it, its angular radius, and the cluster's nearest
+    distance, the shortlist's key."""
+    to_c = half_center - center  # (C, H, 3)
+    dist = torch.linalg.norm(to_c, dim=-1)  # (C, H)
     inside = dist <= half_radius
     inv_d = 1.0 / torch.clamp(dist, min=1e-30)
+    beta = torch.arcsin(torch.clamp(half_radius * inv_d, 0.0, 1.0))
+    dmin_all = torch.clamp((dist - half_radius).amin(dim=-1), min=0.0)
+    return to_c, inv_d, inside, beta, dmin_all
+
+
+def cache_shortlist_reference(centroid, half_ang, half_center, half_radius,
+                              center, far_mask, kmax: int):
+    """The torch twin of csrc/cache_cull.cu, run_cache_shortlist's
+    arguments: every (tile, cluster of far_mask) pair with a sub-sphere
+    that meets the tile's cone from `center`, and each tile's clusters
+    nearest first (_shortlist_sorted).  Returns (counts (NG,) int32 =
+    min(the tile's clusters, kmax), ids (NG, KP) int32, dmin (NG, KP) f32)
+    with KP = kmax rounded up to 128."""
+    to_c, inv_d, inside, beta, dmin_all = _cache_cluster_terms(
+        half_center, half_radius, center)
     cos_a = (to_c[None, :, :, 0] * centroid[:, None, None, 0]
              + to_c[None, :, :, 1] * centroid[:, None, None, 1]
              + to_c[None, :, :, 2] * centroid[:, None, None, 2]) * inv_d
-    alpha = torch.arccos(torch.clamp(cos_a, -1.0, 1.0))  # (G, C, 2)
-    beta = torch.arcsin(torch.clamp(half_radius * inv_d, 0.0, 1.0))
+    alpha = torch.arccos(torch.clamp(cos_a, -1.0, 1.0))  # (G, C, H)
     gmask = (inside | (alpha <= half_ang[:, None, None] + beta)).any(dim=-1)
     gmask = gmask & far_mask[None, :]
     counts = torch.clamp(gmask.sum(dim=-1), max=kmax).to(torch.int32)
-    dmin_all = torch.clamp((dist - half_radius).amin(dim=-1), min=0.0)
     ids, dmin = _shortlist_sorted(gmask, dmin_all[None, :].expand_as(gmask),
                                   kmax)
+    return counts, ids, dmin
+
+
+def run_cache_shortlist(centroid, half_ang, half_center, half_radius,
+                        center, far_mask, kmax: int):
+    """The far-field cache's cull and shortlist: per tile of cone centroid
+    (NG, 3) and half_ang (NG,), the clusters of far_mask (C,) bool whose
+    sub-spheres (half_center (C, H, 3), half_radius (C, H); H = 2, or 8
+    in scenes of at most 64 clusters) meet the cone from `center` (3,),
+    nearest first: (counts (NG,) int32, ids (NG, KP) int32, dmin (NG, KP)
+    f32), KP = kmax rounded up to 128, as cache_shortlist_reference gives
+    them.  CUDA tensors launch csrc/cache_cull.cu once on the current
+    stream (or raise), and equal the twin bit for bit on the same card;
+    CPU tensors take the twin.  Either device checks the inputs' dtypes,
+    shapes and device first."""
+    global cache_cull_launches
+    dev = centroid.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"run_cache_shortlist takes CPU or CUDA tensors, "
+                         f"not {dev.type}")
+    ng, c = centroid.shape[0], far_mask.shape[0]
+    h = half_radius.shape[-1]
+    for name, x, dtype, shape in (
+            ("centroid", centroid, torch.float32, (ng, 3)),
+            ("half_ang", half_ang, torch.float32, (ng,)),
+            ("half_center", half_center, torch.float32, (c, h, 3)),
+            ("half_radius", half_radius, torch.float32, (c, h)),
+            ("center", center, torch.float32, (3,)),
+            ("far_mask", far_mask, torch.bool, (c,))):
+        if x.dtype != dtype or x.device != dev:
+            raise TypeError(f"{name} must be {dtype} on {dev}, not "
+                            f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+    kp = _ceil_to(kmax, 128)
+    if kmax < 1 or kp > CACHE_CULL_MAX_KP:
+        raise ValueError(f"kmax={kmax}: the cache's shortlist takes 1 to "
+                         f"{CACHE_CULL_MAX_KP} clusters")
+    if dev.type == "cpu":
+        return cache_shortlist_reference(centroid, half_ang, half_center,
+                                         half_radius, center, far_mask, kmax)
+    if h not in (2, 8):
+        raise ValueError(f"{h} sub-spheres a cluster: the kernel takes 2 "
+                         f"or 8")
+    terms = [x.contiguous() for x in _cache_cluster_terms(
+        half_center, half_radius, center)]
+    centroid, half_ang, far_mask = (x.contiguous() for x in (
+        centroid, half_ang, far_mask))
+    counts = torch.empty(ng, dtype=torch.int32, device=dev)
+    ids = torch.empty((ng, kp), dtype=torch.int32, device=dev)
+    dmin = torch.empty((ng, kp), dtype=torch.float32, device=dev)
+    from compound_ray_tpu_torch.trace import _build
+
+    lib = _build.cache_cull_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with span("cr.cull"):
+            err = lib.cr_cache_shortlist(
+                ctypes.c_void_p(centroid.data_ptr()),
+                ctypes.c_void_p(half_ang.data_ptr()), ng,
+                *(ctypes.c_void_p(x.data_ptr()) for x in terms),
+                ctypes.c_void_p(far_mask.data_ptr()), c, h, kmax,
+                ctypes.c_void_p(counts.data_ptr()),
+                ctypes.c_void_p(ids.data_ptr()),
+                ctypes.c_void_p(dmin.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"cache shortlist launch failed: CUDA error "
+                           f"{err}")
+    cache_cull_launches += 1
+    return counts, ids, dmin
+
+
+def _cache_trace_inputs(half_center, half_radius, center, far_mask,
+                        width: int, kmax: int, tmin: float = 0.0):
+    """The cache's K2 inputs (compound_ray_tpu/eye/pipeline.py:3093-3151):
+    the pixel directions in 16x16 blocks, one 256-ray group per block, and
+    per block the clusters of far_mask whose half-spheres meet the block's
+    bounding cone from `center`, nearest first (run_cache_shortlist);
+    every ray starts at `center` and counts hits from t = tmin on.
+    Returns (blocked (n, 3), counts (NG,), ids (NG, KP), dmin (NG, KP),
+    rays (n, 16))."""
+    blocked, centroid, half_ang = _cache_tile_cones(width,
+                                                    half_center.device)
+    counts, ids, dmin = run_cache_shortlist(
+        centroid, half_ang, half_center, half_radius, center, far_mask, kmax)
+    n = blocked.shape[0]
     rays = pack_rays(blocked, center[None, :].expand(n, 3),
                      torch.full((n,), tmin, device=blocked.device))
     return blocked, counts, ids, dmin, rays

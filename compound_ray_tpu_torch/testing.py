@@ -762,6 +762,29 @@ def cache_trace_inputs(scene: FlatScene, omms: np.ndarray, pos, device,
                 kmax=kmax))
 
 
+def cache_cull_inputs(scene: FlatScene, omms: np.ndarray, pose, device,
+                      kmax: int = None) -> dict:
+    """run_cache_shortlist's keywords for the cache a frame of `omms` at
+    `pose` ((x, y, z, rx, ry, rz), set_camera_pose's terms) builds on
+    `device` under the current RenderConfig, as _farfield_plan and
+    _cache_trace_inputs pass them: the tile cones of the supersampled
+    cache, the scene's sub-spheres, the eye centre, the clusters that reach
+    past D and the frame's kmax (or `kmax`)."""
+    device = torch.device(device)
+    splan = P.scene_plan(scene, device)
+    pos, ls = pose_arrays(pose)
+    cfg = get_config()
+    _, center, d = P._farfield_split(splan, omms, pos, ls,
+                                     cfg.farfield_tolerance)
+    a = P._frame_cache_args(splan, center, d)
+    _, centroid, half_ang = P._cache_tile_cones(
+        cfg.farfield_cache_width * a["supersample"], device)
+    return dict(centroid=centroid, half_ang=half_ang,
+                half_center=splan.half_center, half_radius=splan.half_radius,
+                center=a["center"], far_mask=a["far_mask"],
+                kmax=a["kmax"] if kmax is None else kmax)
+
+
 def camera_trace_inputs(scene: FlatScene, kind: str, pos, local_space,
                         param, width: int, height: int,
                         device) -> SimpleNamespace:

@@ -153,6 +153,13 @@ def ray_features_lib() -> ctypes.CDLL:
                   _I, _I, _I, _I, _I, _P, _P, _P])
 
 
+def cache_cull_lib() -> ctypes.CDLL:
+    """The far-field cache's cull and shortlist (csrc/cache_cull.cu)."""
+    return _load("cache_cull", "cr_cache_shortlist",
+                 [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                  _P, _P])
+
+
 def probe_step_lib() -> ctypes.CDLL:
     """The K4 and K5 library (csrc/probe_step.cu)."""
     return _load("probe_step", "cr_probe_step",

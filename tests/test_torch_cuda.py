@@ -24,7 +24,12 @@ through it, at the pose sweep cell's scene and poses.  The unlit shading
 differs: means within 1e-4, and 1e-6 on average.  Ray generation
 (csrc/ray_features.cu) rounds every product and sum as its twin
 (ray_features_reference) does: its rays and origins equal the twin's bit
-for bit, and so do the frames made from them.
+for bit, and so do the frames made from them.  The far-field cache's cull
+and shortlist (csrc/cache_cull.cu) rounds its test as its twin
+(cache_shortlist_reference) does: counts, ids and dmin equal the twin's
+bit for bit at the meadow cell's sweep poses, the steady cells' pose,
+synthetic clusters that all survive, and a small scene, and so do the
+caches built through it.
 """
 
 import functools
@@ -1193,3 +1198,180 @@ def test_frames_generate_their_rays_once(cuda_device, name):
                                          else a),
                               np.asarray(b.cpu() if torch.is_tensor(b)
                                          else b))
+
+
+# ---------------------- the far-field cache's cull (csrc/cache_cull.cu)
+CULL_POSES = 8  # meadow window poses besides the configuration's
+CULL_SEED = 2**31 + 29
+
+
+def _bench_cell(config: str, traffic: str = None):
+    """A benchmark configuration's parsed file, its scene arrays, its
+    scene (the port's FlatScene of the benchmark's own generator), its (N,
+    8) ommatidia, the traffic's parsed file (or None) and the
+    configuration's pose followed, with `traffic`, by CULL_POSES window
+    poses of that traffic at CULL_SEED."""
+    import json
+    import os
+
+    from benchmark import scene as bench_scene
+    from benchmark import traffic as bench_traffic
+    from benchmark.system import flat_scene
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "benchmark")
+    with open(os.path.join(root, "configs", config + ".json")) as f:
+        cfg = json.load(f)
+    arrays = bench_scene.build_scene(cfg)
+    omms = bench_scene.build_eye(cfg)
+    poses = [tuple(float(v) for v in cfg["pose"]["position"]
+                   + cfg["pose"]["rotation"])]
+    spec = None
+    if traffic is not None:
+        with open(os.path.join(root, "traffic", traffic + ".json")) as f:
+            spec = json.load(f)
+        poses += bench_traffic.pose_streams(cfg, spec, arrays, omms,
+                                            CULL_SEED)[1][:CULL_POSES]
+    return cfg, arrays, flat_scene(arrays, config), omms, spec, poses
+
+
+@functools.lru_cache(maxsize=1)
+def _meadow_cell():
+    return _bench_cell("meadow-1000", "posesweep-s1000")
+
+
+def _hold_shortlist(kw):
+    """run_cache_shortlist on kw, one launch, against the twin bit for bit;
+    returns the twin's counts."""
+    before = P.cache_cull_launches
+    got = P.run_cache_shortlist(**kw)
+    torch.cuda.synchronize()
+    assert P.cache_cull_launches == before + 1
+    want = P.cache_shortlist_reference(**kw)
+    for name, a, b in zip(("counts", "ids", "dmin"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (
+            name, int((a != b).sum()))
+    return want[0]
+
+
+@pytest.mark.cuda
+def test_cache_cull_kernel_equals_twin_on_the_meadow_sweep(cuda_device):
+    """csrc/cache_cull.cu against cache_shortlist_reference on the meadow
+    cell's cache inputs (8,192 tiles of 256 rays, ~7,150 clusters past D)
+    at its configuration's pose and CULL_POSES poses of its sweep: counts,
+    ids and dmin bit for bit at the frame's kmax (256) and at kmax 1024
+    (KP 1024: four tiles a block), and some pose has a tile over 256."""
+    _, _, scene, omms, _, poses = _meadow_cell()
+    assert len(poses) == 1 + CULL_POSES
+    over = 0
+    for pose in poses:
+        kw = testing.cache_cull_inputs(scene, omms, pose, cuda_device)
+        assert kw["kmax"] == 256 and kw["centroid"].shape[0] == 8192
+        _hold_shortlist(kw)
+        wide = _hold_shortlist(dict(kw, kmax=1024))
+        over += int((wide > kw["kmax"]).sum())
+    assert over > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["natural-1000", "natural-acute-10k"])
+def test_cache_cull_kernel_equals_twin_at_steady_poses(cuda_device, config):
+    """The kernel against the twin at the steady cache cells' pose, the
+    cache their set-up builds: bit for bit."""
+    _, _, scene, omms, _, (pose,) = _bench_cell(config)
+    kw = testing.cache_cull_inputs(scene, omms, pose, cuda_device)
+    counts = _hold_shortlist(kw)
+    assert (counts > 0).any() and kw["far_mask"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kmax", [256, 1000, 4096])
+@pytest.mark.parametrize("subs", [2, 8])
+def test_cache_cull_kernel_equals_twin_when_every_cluster_survives(
+        cuda_device, subs, kmax):
+    """Synthetic clusters about a 512-wide cache's centre (512 tiles), every
+    one met by some tile and most by every tile (over half hold the centre
+    inside; a third are copies: ties in the key, ordered by id): bit for
+    bit at KP 256, 1024 and 4096 (eight, four and one tile a block), every
+    tile over KP, so every buffer trims."""
+    _, centroid, half_ang = P._cache_tile_cones(512, cuda_device)
+    kw = dict(centroid=centroid, half_ang=half_ang, kmax=kmax,
+              **_synthetic_clusters(subs, cuda_device))
+    counts = _hold_shortlist(kw)
+    c = kw["far_mask"].shape[0]
+    full_counts, full_ids, _ = P.cache_shortlist_reference(**dict(kw,
+                                                                  kmax=c))
+    assert (full_counts > P._ceil_to(kmax, 128)).all()
+    assert (counts == kmax).all()
+    live = torch.arange(full_ids.shape[1], device=cuda_device)[None, :] < (
+        full_counts[:, None])
+    seen = torch.zeros(c, dtype=torch.bool, device=cuda_device)
+    seen[full_ids[live].long()] = True
+    assert seen.all()
+
+
+def _synthetic_clusters(subs: int, device, c: int = 6000) -> dict:
+    """run_cache_shortlist's cluster keywords for c seeded clusters of
+    `subs` sub-spheres about the origin, the cache's centre, every one in
+    far_mask: centres 1-40 units out in uniform directions, radii 5-40,
+    every third cluster a copy of one before it."""
+    rng = np.random.default_rng(subs)
+    d = rng.normal(size=(c, subs, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    centres = d * rng.uniform(1.0, 40.0, size=(c, subs, 1))
+    radii = rng.uniform(5.0, 40.0, size=(c, subs))
+    centres[2::3] = centres[0::3][:c // 3]
+    radii[2::3] = radii[0::3][:c // 3]
+    return dict(half_center=torch.tensor(centres, dtype=torch.float32,
+                                         device=device),
+                half_radius=torch.tensor(radii, dtype=torch.float32,
+                                         device=device),
+                center=torch.zeros(3, device=device),
+                far_mask=torch.ones(c, dtype=torch.bool, device=device))
+
+
+@pytest.mark.cuda
+def test_cache_cull_kernel_equals_twin_on_a_small_scene(cuda_device):
+    """A 200-box scene's 32 clusters (8 sub-spheres each; KP 128 > C, so id
+    0 in the columns past them) at the sweep test pose: bit for bit."""
+    scene = testing.make_big_scene(n_boxes=200, seed=11)
+    omms = ommatidia_to_array(testing.make_sphere_eye(64, 4.0))
+    kw = testing.cache_cull_inputs(scene, omms, (0.0, 2.0, 0.0, 0.0, 0.0,
+                                                 0.0), cuda_device)
+    assert kw["half_center"].shape[:2] == (32, 8) and kw["kmax"] == 32
+    counts = _hold_shortlist(kw)
+    assert (counts > 0).any()
+
+
+@pytest.mark.cuda
+def test_meadow_sweep_launches_the_cull_once_a_cache(cuda_device,
+                                                     monkeypatch):
+    """The meadow cell's frames through the benchmark's own system on the
+    card: each new pose builds one cache and launches the cull once
+    (pipeline.cache_cull_launches == pipeline.cache_builds), and the cache
+    of a pose rebuilt through the twin is bit-equal to the kernel's."""
+    from benchmark.system import System
+
+    cfg, arrays, _, omms, traffic, poses = _meadow_cell()
+    system = System(cfg, traffic, arrays, omms, CULL_SEED, cuda_device)
+    try:
+        splan = P.scene_plan(system.renderer.scene, cuda_device)
+        builds, culls = P.cache_builds, P.cache_cull_launches
+        for pose in poses[:4]:
+            system.view(pose)
+        torch.cuda.synchronize()
+        assert P.cache_builds - builds == 4
+        assert P.cache_cull_launches - culls == P.cache_builds - builds
+        (got,) = [v[1] for v in splan.cache_store.values()][-1:]
+        splan.cache_store.clear()
+        monkeypatch.setattr(P, "run_cache_shortlist",
+                            P.cache_shortlist_reference)
+        culls = P.cache_cull_launches
+        system.view(poses[3])
+        torch.cuda.synchronize()
+        assert P.cache_cull_launches == culls
+        (want,) = [v[1] for v in splan.cache_store.values()]
+        assert torch.equal(got, want)
+    finally:
+        system.close()
